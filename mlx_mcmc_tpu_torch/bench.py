@@ -1,0 +1,184 @@
+"""The port's benchmark entries: ``glm100_fused`` and the ``funnel8`` detail.
+
+Counterpart of the repository's ``bench.py`` for these two configs, with the
+same settings and the same JSON line. Run on the GPU:
+
+    python -m mlx_mcmc_tpu_torch.bench [glm100_fused]
+    python -m mlx_mcmc_tpu_torch.bench loop    # costs inside the NUTS loop
+
+The timed run follows a warm run (kernel build, allocator and library
+start-up are excluded). ESS is computed on the device. The detail adds the
+fused kernel's launch count and the host-sync count of the timed run. The
+GLM data come from numpy's generator, so they are not the reference's
+dataset: sampler statistics should match the reference's within run
+variance, not digit for digit.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from mlx_mcmc_tpu_torch import sample
+from mlx_mcmc_tpu_torch.diagnostics.device import device_ess_chunked
+from mlx_mcmc_tpu_torch.models import eight_schools, make_logistic_regression
+from mlx_mcmc_tpu_torch.ops.glm import (
+    fused_logistic_vag_cuda,
+    make_fused_logistic_vag,
+    prepare_fused_logistic_data,
+)
+
+CONFIGS = {
+    "glm100_fused": dict(
+        family="glm", num_features=100, num_obs=10_000, num_chains=4096,
+        num_warmup=300, num_samples=2000, max_tree_depth=6,
+        target_accept=0.8, store_dtype="bfloat16",
+        baseline_ess_per_sec=0.44,
+        label=(
+            "min-ESS/sec/chip, NUTS 100-param logistic GLM "
+            "(10K obs, {chains} chains, bf16 fused CUDA)"
+        ),
+    ),
+    # The detail row as the reference's bench runs it next to the GLM.
+    "funnel8": dict(
+        family="funnel", num_chains=512, num_warmup=400, num_samples=400,
+        max_tree_depth=10, target_accept=0.9, store_dtype=None,
+        baseline_ess_per_sec=None,
+        label="min-ESS/sec/chip, NUTS centered eight-schools funnel ({chains} chains)",
+    ),
+}
+
+
+def build_problem(cfg):
+    """Return ``(log_prob_fn, initial_params, data, extra_kwargs)``."""
+    if cfg["family"] == "glm":
+        spec = make_logistic_regression(
+            num_features=cfg["num_features"], num_obs=cfg["num_obs"], seed=0,
+            data_dtype=torch.bfloat16,
+        )
+        data = prepare_fused_logistic_data(spec.X, spec.y)
+        extra = {"value_and_grad_fn": make_fused_logistic_vag(prior_scale=1.0)}
+        return None, spec.initial_params, data, extra
+    if cfg["family"] == "funnel":
+        spec = eight_schools(centered=True)
+        return spec.log_prob, spec.initial_params, None, {}
+    raise ValueError(f"unknown family: {cfg['family']!r}")
+
+
+def run_config(cfg, seed: int = 1, problem=None):
+    """One run of ``cfg`` through ``sample()``, timed to the device ESS.
+
+    Returns ``(metrics, result, ess)``; ``ess`` is the (P,) device ESS."""
+    log_prob, initial_params, data, extra = problem or build_problem(cfg)
+    launches0 = fused_logistic_vag_cuda.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = sample(
+        log_prob, initial_params, data=data,
+        num_samples=cfg["num_samples"], num_warmup=cfg["num_warmup"],
+        num_chains=cfg["num_chains"], kernel="nuts", seed=seed,
+        max_tree_depth=cfg["max_tree_depth"], target_accept=cfg["target_accept"],
+        store_dtype=cfg["store_dtype"], **extra,
+    )
+    flat = torch.cat(
+        [v.reshape(v.shape[0], v.shape[1], -1) for v in result.samples.values()], dim=-1
+    )
+    ess = device_ess_chunked(flat).cpu().numpy()
+    wall = time.perf_counter() - t0
+    draws = cfg["num_chains"] * cfg["num_samples"]
+    min_ess = float(np.min(ess))
+    metrics = {
+        "wall_seconds": wall,
+        "min_ess": min_ess,
+        "median_ess": float(np.median(ess)),
+        "ess_per_sec": min_ess / wall,
+        "divergences": result.divergences,
+        "divergence_rate": result.divergences / draws,
+        "mean_accept": result.acceptance_rate,
+        "mean_tree_depth": float(result.info.tree_depth.float().mean()),
+        "ess_backend": "device",
+        "k1_launches": fused_logistic_vag_cuda.launches - launches0,
+        "host_syncs": result.host_syncs,
+    }
+    return metrics, result, ess
+
+
+def _ms_per_call(fn, arg, reps: int = 50) -> float:
+    fn(arg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(arg)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def loop_costs() -> dict:
+    """Host-clock costs inside the eager NUTS loop, at the funnel's shape
+    (512 chains, centered eight schools): one NUTS step's ms per pair
+    iteration with a trivial value+grad (the loop body alone) and with the
+    generic one, and the generic value+grad per call beside
+    ``vmap(grad_and_value)``, the form it replaced."""
+    from mlx_mcmc_tpu_torch.inference.engine import make_batched_value_and_grad
+    from mlx_mcmc_tpu_torch.kernels.base import Tunables
+    from mlx_mcmc_tpu_torch.kernels.nuts import make_nuts_kernel
+    from mlx_mcmc_tpu_torch.ops.ravel import make_flat_logprob
+
+    spec = eight_schools(centered=True)
+    flp, _, _ = make_flat_logprob(spec.log_prob, spec.initial_params, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    Z = 0.3 * torch.randn(512, 10, generator=gen, device="cuda")
+    generic = make_batched_value_and_grad(flp)
+    grad_and_value = torch.func.vmap(torch.func.grad_and_value(flp))
+    out = {
+        "generic_vag_ms": _ms_per_call(generic, Z),
+        "vmap_grad_and_value_ms": _ms_per_call(grad_and_value, Z),
+    }
+    tun = Tunables(torch.tensor(0.05, device="cuda"), torch.ones(10, device="cuda"))
+    r0 = torch.randn(512, 10, generator=gen, device="cuda")
+    U = torch.rand(512, 512, 4, generator=gen, device="cuda")
+    for name, vag in [("body", lambda z: (-0.5 * (z * z).sum(-1), -z)), ("funnel", generic)]:
+        init_fn, step_fn = make_nuts_kernel(vag, max_tree_depth=10)
+        state = init_fn(Z)
+        step_fn(state, tun, r0, U)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, syncs = step_fn(state, tun, r0, U)
+        torch.cuda.synchronize()
+        out[f"{name}_ms_per_iteration"] = (time.perf_counter() - t0) / syncs * 1e3
+        out[f"{name}_iterations"] = syncs
+    return out
+
+
+def main() -> None:
+    name = sys.argv[1] if len(sys.argv) > 1 else "glm100_fused"
+    if name == "loop":
+        print(json.dumps(dict(loop_costs(), device=torch.cuda.get_device_name(0))))
+        return
+    cfg = dict(CONFIGS[name])
+    cfg["label"] = cfg["label"].format(chains=cfg["num_chains"])
+    problem = build_problem(cfg)
+    run_config(cfg, seed=0, problem=problem)  # warm run
+    metrics, _, _ = run_config(cfg, seed=1, problem=problem)
+    ess_per_sec = metrics.pop("ess_per_sec")
+    detail = dict(metrics, device=torch.cuda.get_device_name(0))
+    if cfg["family"] == "glm":
+        fcfg = CONFIGS["funnel8"]
+        fmetrics, _, _ = run_config(fcfg, seed=1)
+        detail["funnel_eight_schools"] = fmetrics
+    baseline = cfg["baseline_ess_per_sec"]
+    print(json.dumps({
+        "metric": cfg["label"],
+        "value": ess_per_sec,
+        "unit": "ess/s",
+        "vs_baseline": ess_per_sec / baseline if baseline else None,
+        "detail": detail,
+    }))
+
+
+if __name__ == "__main__":
+    main()

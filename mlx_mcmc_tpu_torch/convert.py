@@ -1,0 +1,80 @@
+"""Carry data and sampler state from the reference package into the port.
+
+Inputs are numpy views of the reference's arrays (``np.asarray`` of each
+leaf), so this module imports neither JAX nor the reference package. bf16
+arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+rejects: they are upcast to float32 (exact) and cast back to bf16.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from mlx_mcmc_tpu_torch._device import resolve_device
+from mlx_mcmc_tpu_torch.kernels.adaptation import AdaptationState, DualAveragingState
+from mlx_mcmc_tpu_torch.kernels.base import Tunables
+from mlx_mcmc_tpu_torch.kernels.hmc import HMCState
+from mlx_mcmc_tpu_torch.ops.math import WelfordState
+
+
+def to_tensor(x: Any, device=None) -> torch.Tensor:
+    """numpy (or array-like) -> tensor, keeping bf16 as bf16."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def fused_logistic_data_from_jax(np_dict: Mapping[str, Any], device=None) -> dict:
+    """The reference's ``prepare_fused_logistic_data`` pytree -> port data.
+
+    Its zero-padded rows stay as rows of ``Xp``: each adds ``-log 2`` in the
+    kernel, and ``pad_const`` adds it back, as in the reference.
+    """
+    if "col_scale" in np_dict:
+        raise NotImplementedError("int8 (col_scale) data is not ported yet")
+    dev = resolve_device(device)
+    Xp = to_tensor(np_dict["Xp"], dev).contiguous()
+    yp = to_tensor(np_dict["yp"], dev).float().reshape(-1).contiguous()
+    return {
+        "Xp": Xp,
+        "yp": yp,
+        "pad_const": float(np.asarray(np_dict["pad_const"])),
+        "dim": int(np.asarray(np_dict["dim"]).shape[0]),
+    }
+
+
+def params_from_jax(params: Mapping[str, Any], device=None) -> dict:
+    """Initial-params dict: every leaf as a float32 tensor."""
+    dev = resolve_device(device)
+    return {
+        k: params_from_jax(v, dev) if isinstance(v, Mapping) else to_tensor(v, dev).float()
+        for k, v in params.items()
+    }
+
+
+def tunables_from_jax(tunables, device=None) -> Tunables:
+    dev = resolve_device(device)
+    return Tunables(
+        step_size=to_tensor(tunables.step_size, dev).float(),
+        inv_mass_diag=to_tensor(tunables.inv_mass_diag, dev).float(),
+    )
+
+
+def adaptation_state_from_jax(state, device=None) -> AdaptationState:
+    dev = resolve_device(device)
+    f = lambda x: to_tensor(x, dev).float()  # noqa: E731
+    return AdaptationState(
+        da=DualAveragingState(*(f(x) for x in state.da)),
+        welford=WelfordState(*(f(x) for x in state.welford)),
+        inv_mass_diag=f(state.inv_mass_diag),
+    )
+
+
+def hmc_state_from_jax(state, device=None) -> HMCState:
+    """A chain-batched ``HMCState`` (leading axis = chains)."""
+    dev = resolve_device(device)
+    return HMCState(*(to_tensor(x, dev).float() for x in state))

@@ -1,0 +1,90 @@
+"""Numerics helpers: NaN-safe support masking and Welford streaming moments.
+
+Counterpart of ``mlx_mcmc_tpu/ops/math.py``. The Welford accumulators drive
+the diagonal mass-matrix adaptation; ``welford_batch_update`` pools all
+chains in one vectorized update (Chan et al.'s parallel merge).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+
+def safe_where_log_prob(
+    in_support: torch.Tensor,
+    value,
+    safe_value,
+    log_prob_fn: Callable[[torch.Tensor], torch.Tensor],
+) -> torch.Tensor:
+    """Evaluate ``log_prob_fn`` only on in-support values, ``-inf`` elsewhere.
+
+    Out-of-support inputs are replaced by a safe dummy before the call, so
+    gradients at the boundary are zero instead of NaN (the double-where
+    trick).
+    """
+    value = torch.as_tensor(value)
+    safe = torch.where(in_support, value, torch.as_tensor(safe_value, dtype=value.dtype))
+    return torch.where(in_support, log_prob_fn(safe), -math.inf)
+
+
+class WelfordState(NamedTuple):
+    """Streaming mean/variance over position vectors; ``count`` is a float
+    0-d tensor, ``mean`` and ``m2`` have the observed vector's shape."""
+
+    count: torch.Tensor
+    mean: torch.Tensor
+    m2: torch.Tensor
+
+
+def welford_init(dim: int, dtype=torch.float32, device=None) -> WelfordState:
+    return WelfordState(
+        count=torch.zeros((), dtype=dtype, device=device),
+        mean=torch.zeros((dim,), dtype=dtype, device=device),
+        m2=torch.zeros((dim,), dtype=dtype, device=device),
+    )
+
+
+def welford_update(state: WelfordState, x: torch.Tensor) -> WelfordState:
+    """Add one observation ``x`` (shape ``(dim,)``)."""
+    count = state.count + 1.0
+    delta = x - state.mean
+    mean = state.mean + delta / count
+    m2 = state.m2 + delta * (x - mean)
+    return WelfordState(count, mean, m2)
+
+
+def welford_batch_update(state: WelfordState, xs: torch.Tensor) -> WelfordState:
+    """Merge a batch of observations ``xs`` (shape ``(batch, dim)``)."""
+    b = float(xs.shape[0])
+    batch_mean = xs.mean(dim=0)
+    batch_m2 = ((xs - batch_mean) ** 2).sum(dim=0)
+    count = state.count + b
+    safe = torch.clamp(count, min=1.0)
+    delta = batch_mean - state.mean
+    mean = state.mean + delta * (b / safe)
+    m2 = state.m2 + batch_m2 + delta**2 * (state.count * b / safe)
+    return WelfordState(count, mean, m2)
+
+
+def welford_merge(a: WelfordState, b: WelfordState) -> WelfordState:
+    """Merge two accumulators."""
+    count = a.count + b.count
+    delta = b.mean - a.mean
+    safe = torch.clamp(count, min=1.0)
+    mean = a.mean + delta * (b.count / safe)
+    m2 = a.m2 + b.m2 + delta**2 * (a.count * b.count / safe)
+    return WelfordState(count, mean, m2)
+
+
+def welford_finalize(state: WelfordState, regularize: bool = True) -> torch.Tensor:
+    """Sample variance, shrunk toward unit scale as Stan does:
+    ``n/(n+5) * var + 1e-3 * 5/(n+5)``."""
+    n = state.count
+    var = state.m2 / torch.clamp(n - 1.0, min=1.0)
+    if regularize:
+        w = n / (n + 5.0)
+        var = w * var + 1e-3 * (1.0 - w)
+    return torch.where(n > 1.0, var, torch.ones_like(var))
