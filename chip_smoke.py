@@ -6,23 +6,41 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. Device: requires ``torch.cuda.is_available()``; prints the card's name
    and power limit as nvidia-smi gives them.
-2. Build: compiles every CUDA source of the main path (``nvcc``, sm_90a)
-   into ``build/mlx_mcmc_tpu_torch/`` and prints the build time and ptxas's
-   register report.
-3. Kernels against their plain versions on the card, at the main path's
-   shape and at a ragged one, with CUDA-event timings and the bound.
-4. Main path: ``glm100_fused`` at full width through ``sample()`` (100
-   params, 10K obs, bf16 X, 4096 chains, 300 warmup + 2000 draws, depth 6,
-   target 0.8, bf16 store), device min-ESS, kernel launch counts, host syncs,
-   and the checks: accept 0.8 +- 0.05, mean tree depth < 5, divergence rate
-   <= 1%, finite draws, posterior moments against a Laplace approximation.
+2. Build: compiles every CUDA source of the sampling paths (``glm_fused``,
+   ``poisson_fused``, ``philox``; one ``nvcc`` each, started together,
+   sm_90a) into ``build/mlx_mcmc_tpu_torch/`` and prints the build time and
+   ptxas's register report.
+3. Kernels against their plain versions on the card, at each path's shape
+   and at a ragged one, with CUDA-event timings and the bound: K1 (logistic)
+   and K2 (linear) at C=4096, N=10K, D=100 bf16; K3 (Poisson) at C=512,
+   G=1000, n=100, K=4 and C=300, G=37, n=61, K=3; Philox at the glm100 step
+   shape (4096 chains, D=100, a 32-row uniform table).
+4. ``glm100_fused`` at full width through ``sample()`` and K1 (100 params,
+   10K obs, bf16 X, 4096 chains, 300 warmup + 2000 draws, depth 6, target
+   0.8, bf16 store): accept 0.8 +- 0.05, mean tree depth < 5, divergence
+   rate <= 1%, finite draws, posterior moments against a Laplace
+   approximation.
 5. Funnel detail: centered eight schools, 512 chains, target 0.9, depth 10,
    with warmup and draws cut from the bench's 400 + 400 to 200 + 100 so the
    whole smoke stays near half its time limit (the eager NUTS pair loop
-   costs ~9 ms per iteration there; the full row took 922 s on the H100).
-6. The kernels JSON line, then the contract line
+   costs ~9 ms per iteration there; the full row took 919 s on the H100).
+6. Linear path through K2: Gaussian linear regression, 100 features, 10K
+   obs, bf16 X, 4096 chains, 300 + 2000, depth 6, target 0.8, bf16 store:
+   accept 0.8 +- 0.05, depth < 5, divergence rate <= 1%, posterior mean and
+   sd against the exact Gaussian posterior on the same bf16 X (float64).
+7. ``poisson1000_cov`` at full width through K3 (1000 groups x 100 counts,
+   K=4, 512 chains, 400 + 400, depth 8, target 0.9, bf16 store): accept
+   0.9 +- 0.05, mean depth < 7, divergence rate <= 1%, finite draws, beta,
+   mu and tau posterior means within 4 posterior sd (+0.02) of the
+   generator's truth.
+8. Layout invariance: three NUTS steps of a small elementwise model at fixed
+   tunables, driven by the engine's per-chain draws, for 4 and for 8 chains:
+   chains 0-3 must be bit-identical.
+9. The kernels JSON line, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
+Every path runs with the launch counts set to 0 just before it and read
+just after; a path that launched one of its kernels no time fails.
 Imports nothing of JAX or of the reference package.
 """
 
@@ -36,11 +54,16 @@ import time
 
 import torch
 
-H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, SXM, 700 W
-H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
-H100_BYTES_PER_S = 3.35e12  # HBM3
+# H100 SXM peaks (NVIDIA data sheet, 700 W): dense bf16 tensor cores,
+# float32 outside the tensor cores, 32-bit integer issue (64 INT32 lanes
+# per SM against 128 FP32: half the float32 rate), HBM3.
+H100_BF16_FLOPS = 989e12
+H100_F32_FLOPS = 67e12
+H100_INT32_OPS = 33.5e12
+H100_BYTES_PER_S = 3.35e12
 
-# K1 tolerances against the plain version, which rounds at the same points:
+# GLM (K1, K2) tolerances against the plain version, which rounds at the
+# same points:
 # - ll: both sum 10K f32 terms of O(1) in different orders (~1e-3 nats);
 #   0.05 nats stays well below the 0.1-0.5 nats of noise that collapsed
 #   adaptation in the reference (its rejected hoisted kernel).
@@ -49,6 +72,13 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 #   g by about 1e-3 of max|g|.
 LL_TOL_NATS = 0.05
 G_TOL_REL, G_TOL_ABS = 1e-2, 1e-3
+# K3 is float32 throughout: FMA contraction and summation order move single
+# rates by an ulp, so its gradients get 1e-4 of their max (+1e-3) and its
+# centered ll the same 0.05 nats (+1e-6 relative).
+K3_G_TOL_REL = 1e-4
+# Philox: words and uniforms bit for bit; normals to the last ulp of
+# logf/sincosf against torch's log/cos/sin (|z| < 5.8).
+NORMAL_TOL = 2e-6
 
 
 def fail(msg: str) -> None:
@@ -60,15 +90,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, reps: int = 7, inner: int = 10) -> float:
+def cuda_time_ms(fn, reps: int = 7, inner: int = 10, hide_host: bool = True) -> float:
     """Median over ``reps`` of the mean time of ``inner`` back-to-back calls,
-    from CUDA events."""
+    from CUDA events. With ``hide_host`` the stream first sleeps on the card
+    (~10 ms, longer than the host takes to enqueue the calls), so the events
+    time the device work and not the pace of the Python wrapper; without it
+    the time is what a caller that launches and moves on pays per call."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if hide_host:
+            torch.cuda._sleep(20_000_000)
         a.record()
         for _ in range(inner):
             fn()
@@ -79,54 +114,198 @@ def cuda_time_ms(fn, reps: int = 7, inner: int = 10) -> float:
     return times[len(times) // 2]
 
 
-def k1_bound_ms(n: int, d: int, c: int) -> tuple:
-    """Least time for one K1 call: bytes (X bf16, y, Z in; ll, g out) over
-    HBM rate, against the two products on bf16 tensor cores and ~12 f32
-    operations per (row, chain) of the epilogue on the f32 units."""
-    nbytes = n * d * 2 + n * 4 + c * d * 4 + c * 4 + c * d * 4
+def roofline_ms(nbytes: float, op_seconds: float) -> tuple:
+    """The larger of bytes over HBM rate and the operations' time."""
     t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = max(4.0 * n * d * c / H100_BF16_FLOPS, 12.0 * n * c / H100_F32_FLOPS)
-    if t_ops >= t_bytes:
-        return t_ops * 1e3, "operations"
+    if op_seconds >= t_bytes:
+        return op_seconds * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
 
 
-def check_k1(name, Xp, y, Z, timed: bool):
-    from mlx_mcmc_tpu_torch.ops.glm import (
-        fused_logistic_vag_cuda,
-        fused_logistic_vag_reference,
-    )
+def glm_bound_ms(n: int, d: int, c: int, epilogue_ops: int) -> tuple:
+    """Least time for one K1/K2 call: bytes (X bf16, y, Z in; ll, g out)
+    over HBM rate, against the two products on bf16 tensor cores and the
+    epilogue's f32 operations per (row, chain) (~12 logistic, ~4 linear)."""
+    nbytes = n * d * 2 + n * 4 + c * d * 4 + c * 4 + c * d * 4
+    ops = max(4.0 * n * d * c / H100_BF16_FLOPS, epilogue_ops * n * c / H100_F32_FLOPS)
+    return roofline_ms(nbytes, ops)
 
-    ll_k, g_k = fused_logistic_vag_cuda(Xp, y, Z)
-    ll_p, g_p = fused_logistic_vag_reference(Xp, y, Z)
-    torch.cuda.synchronize()
-    if not (torch.isfinite(ll_k).all() and torch.isfinite(g_k).all()):
-        fail(f"K1 {name}: non-finite output")
-    err_ll = float((ll_k - ll_p).abs().max())
-    err_g = float((g_k - g_p).abs().max())
-    g_max = float(g_p.abs().max())
-    c, d = Z.shape
-    n = Xp.shape[0]
-    log(f"K1 {name}: C={c} N={n} D={d} max|dll|={err_ll:.3e} nats "
-        f"max|dg|={err_g:.3e} (max|g|={g_max:.3e})")
-    if err_ll > LL_TOL_NATS:
-        fail(f"K1 {name}: ll error {err_ll} > {LL_TOL_NATS}")
-    if err_g > G_TOL_REL * g_max + G_TOL_ABS:
-        fail(f"K1 {name}: grad error {err_g} > {G_TOL_REL} * {g_max} + {G_TOL_ABS}")
-    row = {"shape": [c, n, d], "max_abs_err_ll": err_ll, "max_abs_err_g": err_g}
-    if timed:
-        row["ms"] = cuda_time_ms(lambda: fused_logistic_vag_cuda(Xp, y, Z))
-        row["plain_ms"] = cuda_time_ms(
-            lambda: fused_logistic_vag_reference(Xp, y, Z), reps=5, inner=3
-        )
-        row["bound_ms"], row["bound_by"] = k1_bound_ms(n, d, c)
-        log(f"K1 {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+def poisson_bound_ms(c: int, g: int, n: int, k: int) -> tuple:
+    """Least time for one K3 call: X, y, shat, lamhat, theta, beta in and
+    ll, r_theta, g_beta out, against (4K + 8) f32 operations per (row,
+    chain): K FMAs for s, the exp, ~7 for ll, r and r_theta, K FMAs for
+    g_beta."""
+    rows = g * n
+    nbytes = 4 * (rows * k + rows + 2 * g + c * g + c * k + c + c * g + c * k)
+    return roofline_ms(nbytes, (4 * k + 8) * rows * c / H100_F32_FLOPS)
+
+
+def philox_bound_ms(c: int, dim: int, n_slots: int) -> tuple:
+    """Least time for one Philox step: chain indices in, normals and the
+    uniform table out, against ~100 32-bit integer operations per Philox
+    call (10 rounds of two multiplies, their high words, three XORs and two
+    key additions) and ~40 f32 operations per Box-Muller pair."""
+    blocks = -(-dim // 4)
+    calls = c * (blocks + n_slots)
+    nbytes = c * 8 + c * dim * 4 + c * n_slots * 16
+    ops = 100 * calls / H100_INT32_OPS + 40 * 2 * c * blocks / H100_F32_FLOPS
+    return roofline_ms(nbytes, ops)
+
+
+def timed_row(row, kernel_call, plain_call, bound) -> dict:
+    """Device times of the kernel and of its plain version, the bound, and
+    ``call_ms``: the wrapper's time per call when the host sets the pace."""
+    row["ms"] = cuda_time_ms(kernel_call)
+    row["plain_ms"] = cuda_time_ms(plain_call, reps=5, inner=3)
+    row["call_ms"] = cuda_time_ms(kernel_call, hide_host=False)
+    row["bound_ms"], row["bound_by"] = bound
+    log(f"  kernel {row['ms']:.4f} ms (per wrapper call {row['call_ms']:.4f} ms), "
+        f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
 
+def check_glm(family: str, name: str, Xp, y, Z, timed: bool) -> dict:
+    from mlx_mcmc_tpu_torch.ops import glm
+
+    kernel, plain = {
+        "logistic": (glm.fused_logistic_vag_cuda, glm.fused_logistic_vag_reference),
+        "linear": (glm.fused_linear_vag_cuda, glm.fused_linear_vag_reference),
+    }[family]
+    tag = {"logistic": "K1", "linear": "K2"}[family]
+    ll_k, g_k = kernel(Xp, y, Z)
+    ll_p, g_p = plain(Xp, y, Z)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(ll_k).all() and torch.isfinite(g_k).all()):
+        fail(f"{tag} {name}: non-finite output")
+    err_ll = float((ll_k - ll_p).abs().max())
+    err_g = float((g_k - g_p).abs().max())
+    g_max = float(g_p.abs().max())
+    # the linear ll is a sum of squares, O(1e4) nats at these shapes
+    ll_tol = LL_TOL_NATS + (1e-6 * float(ll_p.abs().max()) if family == "linear" else 0.0)
+    c, d = Z.shape
+    n = Xp.shape[0]
+    log(f"{tag} {name}: C={c} N={n} D={d} max|dll|={err_ll:.3e} nats "
+        f"max|dg|={err_g:.3e} (max|g|={g_max:.3e})")
+    if err_ll > ll_tol:
+        fail(f"{tag} {name}: ll error {err_ll} > {ll_tol}")
+    if err_g > G_TOL_REL * g_max + G_TOL_ABS:
+        fail(f"{tag} {name}: grad error {err_g} > {G_TOL_REL} * {g_max} + {G_TOL_ABS}")
+    row = {"shape_c_n_d": [c, n, d], "max_abs_err": max(err_ll, err_g),
+           "max_abs_err_ll": err_ll, "max_abs_err_g": err_g}
+    if timed:
+        ops = 12 if family == "logistic" else 4
+        timed_row(row, lambda: kernel(Xp, y, Z), lambda: plain(Xp, y, Z),
+                  glm_bound_ms(n, d, c, ops))
+    return row
+
+
+def check_poisson(name: str, data: dict, theta, beta, timed: bool) -> dict:
+    from mlx_mcmc_tpu_torch.ops.poisson import (
+        fused_poisson_vag_cuda,
+        fused_poisson_vag_reference,
+    )
+
+    args = (data["X"], data["y"], data["shat"], data["lamhat"], theta, beta)
+    out_k = fused_poisson_vag_cuda(*args)
+    out_p = fused_poisson_vag_reference(*args)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(t).all()) for t in out_k):
+        fail(f"K3 {name}: non-finite output")
+    errs = [float((a - b).abs().max()) for a, b in zip(out_k, out_p)]
+    maxes = [float(b.abs().max()) for b in out_p]
+    g, n, k = data["X"].shape
+    c = theta.shape[0]
+    log(f"K3 {name}: C={c} G={g} n={n} K={k} max|dll|={errs[0]:.3e} nats "
+        f"(max|ll|={maxes[0]:.3e}) max|dr_theta|={errs[1]:.3e} (max {maxes[1]:.3e}) "
+        f"max|dg_beta|={errs[2]:.3e} (max {maxes[2]:.3e})")
+    if errs[0] > LL_TOL_NATS + 1e-6 * maxes[0]:
+        fail(f"K3 {name}: ll error {errs[0]}")
+    for err, mx, what in zip(errs[1:], maxes[1:], ("r_theta", "g_beta")):
+        if err > K3_G_TOL_REL * mx + G_TOL_ABS:
+            fail(f"K3 {name}: {what} error {err} > {K3_G_TOL_REL} * {mx} + {G_TOL_ABS}")
+    row = {"shape_c_g_n_k": [c, g, n, k], "max_abs_err": max(errs),
+           "max_abs_err_ll": errs[0], "max_abs_err_r_theta": errs[1],
+           "max_abs_err_g_beta": errs[2]}
+    if timed:
+        timed_row(row, lambda: fused_poisson_vag_cuda(*args),
+                  lambda: fused_poisson_vag_reference(*args), poisson_bound_ms(c, g, n, k))
+    return row
+
+
+def check_philox(name: str, chains, dim: int, n_slots: int, timed: bool) -> dict:
+    from mlx_mcmc_tpu_torch.ops import random as prng
+
+    seed, step = 0x0123456789ABCDEF, 1234
+    z_k, u_k = prng.step_draws_cuda(seed, chains, step, dim, n_slots)
+    z_p, u_p = prng.step_draws_reference(seed, chains, step, dim, n_slots)
+    w_k = [prng.words_cuda(seed, chains, step, 4, s) for s in (0, 1)]
+    w_p = [prng.words(seed, chains, step, 4, s) for s in (0, 1)]
+    torch.cuda.synchronize()
+    err_z = float((z_k - z_p).abs().max())
+    log(f"philox {name}: C={chains.shape[0]} D={dim} slots={n_slots} "
+        f"max|dz|={err_z:.3e}, uniforms equal {torch.equal(u_k, u_p)}, "
+        f"words equal {all(torch.equal(a, b) for a, b in zip(w_k, w_p))}")
+    if not all(torch.equal(a, b) for a, b in zip(w_k, w_p)):
+        fail(f"philox {name}: the kernel's words differ from the plain version's")
+    if not torch.equal(u_k, u_p):
+        fail(f"philox {name}: uniforms differ")
+    if err_z > NORMAL_TOL:
+        fail(f"philox {name}: normal error {err_z} > {NORMAL_TOL}")
+    row = {"shape_c_d_slots": [chains.shape[0], dim, n_slots], "max_abs_err": err_z}
+    if timed:
+        timed_row(row, lambda: prng.step_draws_cuda(seed, chains, step, dim, n_slots),
+                  lambda: prng.step_draws_reference(seed, chains, step, dim, n_slots),
+                  philox_bound_ms(chains.shape[0], dim, n_slots))
+    return row
+
+
+def drive(label: str, cfg: dict, problem=None) -> tuple:
+    """One run of ``cfg`` through ``sample()``, launch counts set to 0 just
+    before it and read just after."""
+    from mlx_mcmc_tpu_torch.bench import launch_counts, reset_launch_counts, run_config
+
+    reset_launch_counts()
+    metrics, result, _ = run_config(cfg, seed=1, problem=problem)
+    metrics["launches"] = launch_counts()
+    log(f"{label}: " + json.dumps(metrics))
+    return metrics, result
+
+
+def check_sampler(label, metrics, target, max_depth, need) -> None:
+    for kernel in need:
+        if metrics["launches"][kernel] == 0:
+            fail(f"{label} launched {kernel} no time")
+    if abs(metrics["mean_accept"] - target) > 0.05:
+        fail(f"{label}: mean accept {metrics['mean_accept']} outside {target} +- 0.05")
+    if metrics["mean_tree_depth"] >= max_depth:
+        fail(f"{label}: mean tree depth {metrics['mean_tree_depth']} >= {max_depth}")
+    if metrics["divergence_rate"] > 0.01:
+        fail(f"{label}: divergence rate {metrics['divergence_rate']} > 1%")
+
+
+def draw_moments(draws):
+    """Mean and sd per parameter of a (chains, draws, D) store, float64."""
+    d = draws.shape[-1]
+    flat = draws.reshape(-1, d)
+    mean = torch.zeros(d, dtype=torch.float64, device=draws.device)
+    sq = torch.zeros(d, dtype=torch.float64, device=draws.device)
+    for chunk in flat.split(1 << 20):
+        chunk = chunk.double()
+        mean += chunk.sum(0)
+        sq += (chunk * chunk).sum(0)
+    mean /= flat.shape[0]
+    return mean, torch.sqrt(sq / flat.shape[0] - mean * mean)
+
+
+def moment_gap(beta_draws, center, sd_ref):
+    mean, sd = draw_moments(beta_draws)
+    ratio = sd / sd_ref
+    return float(((mean - center).abs() / sd_ref).max()), float(ratio.min()), float(ratio.max())
+
+
 def laplace_check(data, beta_draws):
-    """Posterior mean and sd of the GLM draws against a Laplace
+    """Posterior mean and sd of the logistic draws against a Laplace
     approximation (Newton MAP and inverse Hessian, float64, on the same
     bf16-rounded X). At N = 10K, D = 100 the two agree to ~0.1 sd."""
     d = data["dim"]
@@ -142,19 +321,52 @@ def laplace_check(data, beta_draws):
         b = b + step
         if float(step.abs().max()) < 1e-12:
             break
-    sd_lap = torch.sqrt(torch.diagonal(torch.linalg.inv(hess)))
-    flat = beta_draws.reshape(-1, d)
-    mean = torch.zeros(d, dtype=torch.float64, device=X.device)
-    sq = torch.zeros(d, dtype=torch.float64, device=X.device)
-    for chunk in flat.split(1 << 20):
-        chunk = chunk.double()
-        mean += chunk.sum(0)
-        sq += (chunk * chunk).sum(0)
-    mean /= flat.shape[0]
-    sd = torch.sqrt(sq / flat.shape[0] - mean * mean)
-    z_gap = float(((mean - b).abs() / sd_lap).max())
-    sd_ratio = (sd / sd_lap)
-    return z_gap, float(sd_ratio.min()), float(sd_ratio.max())
+    return moment_gap(beta_draws, b, torch.sqrt(torch.diagonal(torch.linalg.inv(hess))))
+
+
+def exact_gaussian_check(data, beta_draws):
+    """Posterior mean and sd of the linear-regression draws against the
+    exact Gaussian posterior (float64, on the same bf16-rounded X, unit
+    noise and prior): precision X^T X + I, mean its inverse times X^T y."""
+    d = data["dim"]
+    X = data["Xp"][:, :d].double()
+    y = data["yp"].double()
+    cov = torch.linalg.inv(X.T @ X * data["inv_noise_var"] + torch.eye(d, dtype=torch.float64, device=X.device))
+    mean = cov @ (X.T @ y) * data["inv_noise_var"]
+    return moment_gap(beta_draws, mean, torch.sqrt(torch.diagonal(cov)))
+
+
+def layout_invariance() -> None:
+    """Three NUTS steps at fixed tunables for chains 0-3 and for chains
+    0-7, each chain's start and random inputs from the engine's per-chain
+    streams: chains 0-3 must come out bit-identical."""
+    from mlx_mcmc_tpu_torch.inference.engine import step_inputs
+    from mlx_mcmc_tpu_torch.kernels.base import Tunables
+    from mlx_mcmc_tpu_torch.kernels.nuts import make_nuts_kernel
+    from mlx_mcmc_tpu_torch.ops.random import step_draws
+
+    inv_var = torch.tensor([1.0, 0.25, 4.0], device="cuda")
+
+    def vag(Z):
+        return -0.5 * (Z * Z * inv_var).sum(-1), -Z * inv_var
+
+    tun = Tunables(torch.tensor(0.4, device="cuda"), torch.ones(3, device="cuda"))
+    out = {}
+    for c in (4, 8):
+        chains = torch.arange(c, device="cuda")
+        init_fn, step_fn = make_nuts_kernel(vag, max_tree_depth=6)
+        state = init_fn(step_draws(11, chains, 999, 3, 0)[0])
+        infos = []
+        for t in range(3):
+            r0, U = step_inputs(11, chains, t, tun.inv_mass_diag, 32)
+            state, info, _ = step_fn(state, tun, r0, U)
+            infos.append(info.tree_depth)
+        out[c] = (state.position, state.log_prob, torch.stack(infos, 1))
+    for a, b in zip(out[4], out[8]):
+        if not torch.equal(a, b[:4]):
+            fail("layout invariance: chains 0-3 differ between a 4-chain and an 8-chain run")
+    log(f"layout invariance: chains 0-3 bit-identical over 3 steps (tree depths "
+        f"{out[4][2].tolist()})")
 
 
 def main() -> None:
@@ -175,88 +387,157 @@ def main() -> None:
     from mlx_mcmc_tpu_torch import _build
 
     t0 = time.perf_counter()
-    logs = _build.build(["glm_fused"], verbose=True)
+    logs = _build.build(["glm_fused", "poisson_fused", "philox"], verbose=True)
     log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(logs) or 'up to date'})")
-    for text in logs.values():
+    for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+                log(f"  ptxas {name}: {line.strip()}")
 
-    from mlx_mcmc_tpu_torch.bench import CONFIGS, build_problem, run_config
-    from mlx_mcmc_tpu_torch.ops.glm import fused_logistic_vag_cuda
+    from mlx_mcmc_tpu_torch.bench import CONFIGS, build_problem
+    from mlx_mcmc_tpu_torch.models import make_poisson_event_rates
+    from mlx_mcmc_tpu_torch.ops.glm import prepare_fused_logistic_data
+    from mlx_mcmc_tpu_torch.ops.poisson import prepare_fused_poisson_data
 
-    # --- K1 against its plain version -------------------------------------
+    # --- kernels against their plain versions -----------------------------
+    gen = torch.Generator(device="cuda").manual_seed(1)
     cfg = CONFIGS["glm100_fused"]
+    lin_cfg = dict(cfg, family="linear", label="linear regression")
+    pcfg = CONFIGS["poisson1000_cov"]
     problem = build_problem(cfg)
     data = problem[2]
-    gen = torch.Generator(device="cuda").manual_seed(1)
     d = data["dim"]
     # unit-scale positions, as the main path's posterior gives (|s| ~ 1)
     z_main = torch.randn(cfg["num_chains"], d, generator=gen, device="cuda")
-    k1_main = check_k1("main", data["Xp"], data["yp"], z_main, timed=True)
+    rows = {"K1": check_glm("logistic", "main", data["Xp"], data["yp"], z_main, timed=True)}
     n_r, d_r, c_r = 777, 37, 1000
     x_r = (torch.randn(n_r, d_r, generator=gen, device="cuda") / math.sqrt(d_r)).bfloat16()
-    xp_r = torch.zeros(n_r, 48, dtype=torch.bfloat16, device="cuda")
-    xp_r[:, :d_r] = x_r
     y_r = (torch.rand(n_r, generator=gen, device="cuda") < 0.5).float()
     z_r = torch.randn(c_r, d_r, generator=gen, device="cuda")
-    check_k1("ragged", xp_r, y_r, z_r, timed=False)
+    ragged = prepare_fused_logistic_data(x_r, y_r)
+    check_glm("logistic", "ragged", ragged["Xp"], y_r, z_r, timed=False)
 
-    # --- main path ---------------------------------------------------------
-    fused_logistic_vag_cuda.launches = 0
-    metrics, result, _ = run_config(cfg, seed=1, problem=problem)
-    k1_launches = fused_logistic_vag_cuda.launches
-    metrics["k1_launches"] = k1_launches
-    log("main path glm100_fused: " + json.dumps(metrics))
+    lin_problem = build_problem(lin_cfg)
+    lin_data = lin_problem[2]
+    rows["K2"] = check_glm("linear", "main", lin_data["Xp"], lin_data["yp"], z_main, timed=True)
+    y_lin = (x_r.float() @ torch.randn(d_r, generator=gen, device="cuda")
+             + torch.randn(n_r, generator=gen, device="cuda"))
+    check_glm("linear", "ragged", ragged["Xp"], y_lin, z_r, timed=False)
+
+    p_problem = build_problem(pcfg)
+    p_data = p_problem[2]
+    spec_truth = make_poisson_event_rates(
+        pcfg["num_groups"], pcfg["obs_per_group"], pcfg["covariate_dim"], seed=0
+    ).truth
+    c_p, g_p = pcfg["num_chains"], pcfg["num_groups"]
+    # positions near the generator's truth, as the path's posterior gives
+    theta_p = 1.0 + 0.5 * torch.randn(c_p, g_p, generator=gen, device="cuda")
+    beta_p = spec_truth["beta"] + 0.05 * torch.randn(c_p, 4, generator=gen, device="cuda")
+    rows["K3"] = check_poisson("main", p_data, theta_p, beta_p, timed=True)
+    pr_spec = make_poisson_event_rates(37, 61, 3, seed=5)
+    pr_data = prepare_fused_poisson_data(pr_spec.y, pr_spec.X)
+    check_poisson("ragged", pr_data, 1.0 + 0.5 * torch.randn(300, 37, generator=gen, device="cuda"),
+                  pr_spec.truth["beta"] + 0.05 * torch.randn(300, 3, generator=gen, device="cuda"),
+                  timed=False)
+
+    rows["philox"] = check_philox(
+        "main", torch.arange(cfg["num_chains"], device="cuda"), d,
+        1 << (cfg["max_tree_depth"] - 1), timed=True,
+    )
+    check_philox("ragged", torch.arange(1000, 1037, device="cuda"), 7, 128, timed=False)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # --- glm100_fused: the main path --------------------------------------
+    metrics, result = drive("glm100_fused", cfg, problem)
+    launches = {"K1": metrics["launches"]["glm_fused_logistic"],
+                "philox": metrics["launches"]["philox_step_draws"]}
     beta = result.samples["beta"]
     want = (cfg["num_chains"], cfg["num_samples"], cfg["num_features"])
     if tuple(beta.shape) != want or beta.dtype != torch.bfloat16:
         fail(f"draws have shape {tuple(beta.shape)} {beta.dtype}, want {want} bfloat16")
     if not bool(torch.isfinite(beta).all()):
         fail("non-finite draws")
-    if k1_launches == 0:
-        fail("the main path launched K1 no time")
-    if abs(metrics["mean_accept"] - 0.8) > 0.05:
-        fail(f"mean accept {metrics['mean_accept']} outside 0.8 +- 0.05")
-    if metrics["mean_tree_depth"] >= 5:
-        fail(f"mean tree depth {metrics['mean_tree_depth']} >= 5 (trees at the cap)")
-    if metrics["divergence_rate"] > 0.01:
-        fail(f"divergence rate {metrics['divergence_rate']} > 1%")
+    check_sampler("glm100_fused", metrics, 0.8, 5, ["glm_fused_logistic", "philox_step_draws"])
     z_gap, sd_lo, sd_hi = laplace_check(data, beta)
-    log(f"main path vs Laplace: max |mean - MAP| / sd = {z_gap:.4f}, "
+    log(f"glm100_fused vs Laplace: max |mean - MAP| / sd = {z_gap:.4f}, "
         f"sd ratio in [{sd_lo:.4f}, {sd_hi:.4f}]")
     if z_gap > 0.25 or not (0.9 <= sd_lo and sd_hi <= 1.1):
         fail("posterior moments disagree with the Laplace approximation")
-    del result, beta
+    del result, beta, problem
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
-    # --- funnel detail -----------------------------------------------------
+    # --- funnel detail ----------------------------------------------------
     fcfg = dict(CONFIGS["funnel8"], num_warmup=200, num_samples=100)
-    fmetrics, fresult, _ = run_config(fcfg, seed=1)
-    log("funnel8 (200 + 100): " + json.dumps(fmetrics))
+    fmetrics, fresult = drive("funnel8 (200 + 100)", fcfg)
+    if fmetrics["launches"]["philox_step_draws"] == 0:
+        fail("the funnel launched the Philox kernel no time")
     for k, v in fresult.samples.items():
         if v.shape[:2] != (fcfg["num_chains"], fcfg["num_samples"]):
             fail(f"funnel draws {k} have shape {tuple(v.shape)}")
         if not bool(torch.isfinite(v).all()):
             fail(f"funnel draws {k} are not finite")
+    del fresult
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
-    kernels = [{
-        "name": "glm_fused_logistic",
-        "route": "cuda",
-        "source": "mlx_mcmc_tpu_torch/csrc/glm_fused.cu",
-        "replaces": "mlx_mcmc_tpu/ops/pallas/glm.py:49",
-        "launches": k1_launches,
-        "max_abs_err": max(k1_main["max_abs_err_ll"], k1_main["max_abs_err_g"]),
-        "ms": k1_main["ms"],
-        "plain_ms": k1_main["plain_ms"],
-        "bound_ms": k1_main["bound_ms"],
-        "bound_by": k1_main["bound_by"],
-        "library_ms": None,
-        "max_abs_err_ll": k1_main["max_abs_err_ll"],
-        "max_abs_err_g": k1_main["max_abs_err_g"],
-        "shape_c_n_d": k1_main["shape"],
-    }]
+    # --- linear path through K2 ------------------------------------------
+    lmetrics, lresult = drive("linear regression", lin_cfg, lin_problem)
+    launches["K2"] = lmetrics["launches"]["glm_fused_linear"]
+    beta = lresult.samples["beta"]
+    if not bool(torch.isfinite(beta).all()):
+        fail("linear path: non-finite draws")
+    check_sampler("linear path", lmetrics, 0.8, 5, ["glm_fused_linear", "philox_step_draws"])
+    z_gap, sd_lo, sd_hi = exact_gaussian_check(lin_data, beta)
+    log(f"linear path vs exact posterior: max |mean - exact| / sd = {z_gap:.4f}, "
+        f"sd ratio in [{sd_lo:.4f}, {sd_hi:.4f}]")
+    if z_gap > 0.25 or not (0.9 <= sd_lo and sd_hi <= 1.1):
+        fail("linear path: posterior moments disagree with the exact posterior")
+    del lresult, beta, lin_problem
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # --- poisson1000_cov through K3 ---------------------------------------
+    pmetrics, presult = drive("poisson1000_cov", pcfg, p_problem)
+    launches["K3"] = pmetrics["launches"]["poisson_fused"]
+    for k, v in presult.samples.items():
+        if v.shape[:2] != (c_p, pcfg["num_samples"]) or not bool(torch.isfinite(v).all()):
+            fail(f"poisson1000_cov draws {k}: shape {tuple(v.shape)} or non-finite")
+    check_sampler("poisson1000_cov", pmetrics, 0.9, 7, ["poisson_fused", "philox_step_draws"])
+    s = presult.samples
+    checks = {f"beta[{i}]": (s["beta"][..., i], float(spec_truth["beta"][i])) for i in range(4)}
+    checks["mu"] = (s["mu"], spec_truth["mu"])
+    checks["tau"] = (torch.exp(s["log_tau"].float()), spec_truth["tau"])
+    for name, (draws, truth) in checks.items():
+        mean, sd = draw_moments(draws.reshape(-1, 1))
+        gap = abs(float(mean) - truth)
+        log(f"  poisson1000_cov {name}: mean {float(mean):.4f} sd {float(sd):.4f} truth {truth:.4f}")
+        if gap > 4 * float(sd) + 0.02:
+            fail(f"poisson1000_cov: {name} mean {float(mean)} is {gap} from truth {truth}")
+    del presult, s
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # --- layout invariance -------------------------------------------------
+    layout_invariance()
+
+    sources = {
+        "K1": ("glm_fused_logistic", "mlx_mcmc_tpu_torch/csrc/glm_fused.cu",
+               "mlx_mcmc_tpu/ops/pallas/glm.py:49"),
+        "K2": ("glm_fused_linear", "mlx_mcmc_tpu_torch/csrc/glm_fused.cu",
+               "mlx_mcmc_tpu/ops/pallas/glm.py:281"),
+        "K3": ("poisson_fused", "mlx_mcmc_tpu_torch/csrc/poisson_fused.cu",
+               "mlx_mcmc_tpu/ops/pallas/poisson.py:62"),
+        "philox": ("philox_step_draws", "mlx_mcmc_tpu_torch/csrc/philox.cu",
+                   "mlx_mcmc_tpu/inference/engine.py:390"),
+    }
+    kernels = []
+    for key, (name, source, replaces) in sources.items():
+        row = rows[key]
+        kernels.append(dict(
+            {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches[key], "max_abs_err": row["max_abs_err"],
+             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": None},
+            **{k: v for k, v in row.items() if k not in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        ))
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

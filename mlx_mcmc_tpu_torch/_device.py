@@ -12,6 +12,8 @@ products here run in full float32.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -26,3 +28,10 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (kernel grids are
+    sized to fill them)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -1,17 +1,20 @@
-"""The port's benchmark entries: ``glm100_fused`` and the ``funnel8`` detail.
+"""The port's benchmark entries: ``glm100_fused`` (with the ``funnel8``
+detail) and ``poisson1000_cov``.
 
-Counterpart of the repository's ``bench.py`` for these two configs, with the
+Counterpart of the repository's ``bench.py`` for these configs, with the
 same settings and the same JSON line. Run on the GPU:
 
-    python -m mlx_mcmc_tpu_torch.bench [glm100_fused]
+    python -m mlx_mcmc_tpu_torch.bench [glm100_fused | poisson1000_cov]
     python -m mlx_mcmc_tpu_torch.bench loop    # costs inside the NUTS loop
 
 The timed run follows a warm run (kernel build, allocator and library
-start-up are excluded). ESS is computed on the device. The detail adds the
-fused kernel's launch count and the host-sync count of the timed run. The
-GLM data come from numpy's generator, so they are not the reference's
-dataset: sampler statistics should match the reference's within run
-variance, not digit for digit.
+start-up are excluded). ESS is computed on the device. The detail adds every
+kernel's launch count and the host-sync count of the timed run. The data
+come from numpy's generator, so they are not the reference's datasets:
+sampler statistics should match the reference's within run variance, not
+digit for digit. ``build_problem`` also knows the Gaussian linear regression
+(``family="linear"``) that ``chip_smoke.py`` drives through K2; the
+reference's bench has no such config, so neither has this one.
 """
 
 from __future__ import annotations
@@ -25,12 +28,43 @@ import torch
 
 from mlx_mcmc_tpu_torch import sample
 from mlx_mcmc_tpu_torch.diagnostics.device import device_ess_chunked
-from mlx_mcmc_tpu_torch.models import eight_schools, make_logistic_regression
+from mlx_mcmc_tpu_torch.models import (
+    eight_schools,
+    make_linear_regression,
+    make_logistic_regression,
+    make_poisson_event_rates,
+)
 from mlx_mcmc_tpu_torch.ops.glm import (
+    fused_linear_vag_cuda,
     fused_logistic_vag_cuda,
+    make_fused_linear_vag,
     make_fused_logistic_vag,
+    prepare_fused_linear_data,
     prepare_fused_logistic_data,
 )
+from mlx_mcmc_tpu_torch.ops.poisson import (
+    fused_poisson_vag_cuda,
+    make_fused_poisson_model,
+    prepare_fused_poisson_data,
+)
+from mlx_mcmc_tpu_torch.ops.random import step_draws_cuda
+
+# Every kernel wrapper of a sampling path, by the name of its kernel entry.
+KERNELS = {
+    "glm_fused_logistic": fused_logistic_vag_cuda,
+    "glm_fused_linear": fused_linear_vag_cuda,
+    "poisson_fused": fused_poisson_vag_cuda,
+    "philox_step_draws": step_draws_cuda,
+}
+
+
+def reset_launch_counts() -> None:
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: wrapper.launches for name, wrapper in KERNELS.items()}
 
 CONFIGS = {
     "glm100_fused": dict(
@@ -41,6 +75,17 @@ CONFIGS = {
         label=(
             "min-ESS/sec/chip, NUTS 100-param logistic GLM "
             "(10K obs, {chains} chains, bf16 fused CUDA)"
+        ),
+    ),
+    # The non-collapsible Poisson row (bench.py:164-181): per-count
+    # covariates force full-data evaluations, through K3 on every leapfrog.
+    "poisson1000_cov": dict(
+        family="poisson", num_groups=1000, obs_per_group=100, covariate_dim=4,
+        num_chains=512, num_warmup=400, num_samples=400, max_tree_depth=8,
+        target_accept=0.9, store_dtype="bfloat16", baseline_ess_per_sec=0.03,
+        label=(
+            "min-ESS/sec/chip, NUTS 1000-group hierarchical Poisson "
+            "regression (100K obs, {chains} chains, fused CUDA)"
         ),
     ),
     # The detail row as the reference's bench runs it next to the GLM.
@@ -63,6 +108,22 @@ def build_problem(cfg):
         data = prepare_fused_logistic_data(spec.X, spec.y)
         extra = {"value_and_grad_fn": make_fused_logistic_vag(prior_scale=1.0)}
         return None, spec.initial_params, data, extra
+    if cfg["family"] == "linear":
+        spec = make_linear_regression(
+            num_features=cfg["num_features"], num_obs=cfg["num_obs"], seed=0,
+            data_dtype=torch.bfloat16,
+        )
+        data = prepare_fused_linear_data(spec.X, spec.y)
+        extra = {"value_and_grad_fn": make_fused_linear_vag(prior_scale=1.0)}
+        return None, spec.initial_params, data, extra
+    if cfg["family"] == "poisson":
+        spec = make_poisson_event_rates(
+            num_groups=cfg["num_groups"], obs_per_group=cfg["obs_per_group"],
+            covariate_dim=cfg["covariate_dim"], seed=0,
+        )
+        data = prepare_fused_poisson_data(spec.y, spec.X)
+        log_prob, vag = make_fused_poisson_model()
+        return log_prob, spec.initial_params, data, {"value_and_grad_fn": vag}
     if cfg["family"] == "funnel":
         spec = eight_schools(centered=True)
         return spec.log_prob, spec.initial_params, None, {}
@@ -74,7 +135,7 @@ def run_config(cfg, seed: int = 1, problem=None):
 
     Returns ``(metrics, result, ess)``; ``ess`` is the (P,) device ESS."""
     log_prob, initial_params, data, extra = problem or build_problem(cfg)
-    launches0 = fused_logistic_vag_cuda.launches
+    launches0 = launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = sample(
@@ -91,9 +152,14 @@ def run_config(cfg, seed: int = 1, problem=None):
     wall = time.perf_counter() - t0
     draws = cfg["num_chains"] * cfg["num_samples"]
     min_ess = float(np.min(ess))
+    names = [
+        f"{k}[{i}]" if v.dim() > 2 else k
+        for k, v in result.samples.items() for i in range(v[0, 0].numel())
+    ]
     metrics = {
         "wall_seconds": wall,
         "min_ess": min_ess,
+        "min_ess_param": names[int(np.argmin(ess))],
         "median_ess": float(np.median(ess)),
         "ess_per_sec": min_ess / wall,
         "divergences": result.divergences,
@@ -101,7 +167,7 @@ def run_config(cfg, seed: int = 1, problem=None):
         "mean_accept": result.acceptance_rate,
         "mean_tree_depth": float(result.info.tree_depth.float().mean()),
         "ess_backend": "device",
-        "k1_launches": fused_logistic_vag_cuda.launches - launches0,
+        "launches": {k: v - launches0[k] for k, v in launch_counts().items()},
         "host_syncs": result.host_syncs,
     }
     return metrics, result, ess

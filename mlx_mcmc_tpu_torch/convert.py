@@ -19,6 +19,10 @@ from mlx_mcmc_tpu_torch.kernels.base import Tunables
 from mlx_mcmc_tpu_torch.kernels.hmc import HMCState
 from mlx_mcmc_tpu_torch.ops.math import WelfordState
 
+# The reference's ROWS_PER_GROUP (mlx_mcmc_tpu/ops/pallas/poisson.py): each
+# group's counts are padded to this many rows in its Poisson pytree.
+_POISSON_ROWS_PER_GROUP = 128
+
 
 def to_tensor(x: Any, device=None) -> torch.Tensor:
     """numpy (or array-like) -> tensor, keeping bf16 as bf16."""
@@ -44,6 +48,51 @@ def fused_logistic_data_from_jax(np_dict: Mapping[str, Any], device=None) -> dic
         "yp": yp,
         "pad_const": float(np.asarray(np_dict["pad_const"])),
         "dim": int(np.asarray(np_dict["dim"]).shape[0]),
+    }
+
+
+def fused_linear_data_from_jax(np_dict: Mapping[str, Any], device=None) -> dict:
+    """The reference's ``prepare_fused_linear_data`` pytree -> port data.
+
+    Its zero-padded rows (y = 0) stay as rows of ``Xp``: they add nothing to
+    a Gaussian sum of squares. Its ``ll_norm`` and ``inv_noise_var`` carry
+    over as floats; the ``tile`` marker has no counterpart.
+    """
+    dev = resolve_device(device)
+    return {
+        "Xp": to_tensor(np_dict["Xp"], dev).contiguous(),
+        "yp": to_tensor(np_dict["yp"], dev).float().reshape(-1).contiguous(),
+        "ll_norm": float(np.asarray(np_dict["ll_norm"])),
+        "inv_noise_var": float(np.asarray(np_dict["inv_noise_var"])),
+        "dim": int(np.asarray(np_dict["dim"]).shape[0]),
+    }
+
+
+def fused_poisson_data_from_jax(np_dict: Mapping[str, Any], device=None) -> dict:
+    """The reference's ``prepare_fused_poisson_data`` pytree -> port data.
+
+    Strips the TPU layout: the block-diagonal ``E`` columns of ``Xa``, the
+    padding of each group to the reference's ``ROWS_PER_GROUP`` rows and the
+    padded groups.
+    The per-group centering rates come from ``ym``'s columns and ``c0`` is
+    kept as it is, so the log density is the reference's.
+    """
+    dev = resolve_device(device)
+    G = int(np.asarray(np_dict["G"]).shape[0])
+    K = int(np.asarray(np_dict["K"]).shape[0])
+    Xa = np.asarray(np_dict["Xa"], np.float32)
+    ym = np.asarray(np_dict["ym"], np.float32)
+    Xa = Xa.reshape(-1, _POISSON_ROWS_PER_GROUP, Xa.shape[-1])
+    ym = ym.reshape(-1, _POISSON_ROWS_PER_GROUP, 4)
+    n = int(ym[0, :, 1].sum())  # the mask column: real rows of a group
+    return {
+        "X": to_tensor(np.ascontiguousarray(Xa[:G, :n, :K]), dev),
+        "y": to_tensor(np.ascontiguousarray(ym[:G, :n, 0]), dev),
+        "shat": to_tensor(np.ascontiguousarray(ym[:G, 0, 2]), dev),
+        "lamhat": to_tensor(np.ascontiguousarray(ym[:G, 0, 3]), dev),
+        "c0": float(np.asarray(np_dict["c0"])),
+        "G": G,
+        "K": K,
     }
 
 

@@ -1,13 +1,20 @@
-// Fused logistic-GLM log-likelihood and gradient for a batch of chains, in
-// one pass over a bf16 design matrix, for Hopper (sm_90a).
+// Fused GLM log-likelihood and gradient for a batch of chains, in one pass
+// over a bf16 design matrix, for Hopper (sm_90a). One kernel template, two
+// likelihoods that differ only in the per-element epilogue.
 //
-// Replaces the TPU kernel mlx_mcmc_tpu/ops/pallas/glm.py:_fused_kernel. For
-// X (N, Dp) bf16, y (N,) f32 and Z (C, D) f32 (cast to bf16), it computes
+// Replaces two TPU kernels of mlx_mcmc_tpu/ops/pallas/glm.py: _fused_kernel
+// (logistic, entry glm_fused_logistic) and _fused_linear_kernel (Gaussian,
+// entry glm_fused_linear). For X (N, Dp) bf16, y (N,) f32 and Z (C, D) f32
+// (cast to bf16), both compute
 //
 //   s      = X Z^T                        f32 accumulation
-//   h      = tanh(s / 2)
-//   ll_c   = sum_i y_i s_ic - [max(s_ic, 0) - log(0.5 + 0.5 |h_ic|)]
-//   g      = X^T bf16(y - (0.5 + 0.5 h))  f32 accumulation
+//   ll_c   = sum_i term(y_i, s_ic)
+//   g      = X^T bf16(res(y, s))          f32 accumulation
+//
+// with, for the logistic likelihood (h = tanh(s / 2)),
+//   term = y s - [max(s, 0) - log(0.5 + 0.5 |h|)],  res = y - (0.5 + 0.5 h)
+// and, for the Gaussian one (unit noise; the caller scales by 1/sigma^2),
+//   term = -0.5 (y - s)^2,                          res = y - s.
 //
 // Likelihood only: the caller adds the prior. Rows past N are masked inside
 // the kernel (they contribute nothing), so unpadded data needs no pad
@@ -15,23 +22,25 @@
 //
 // Bound. At the main shape (N = 10,000, D = 100, C = 4096) the two products
 // are 4 N D C = 1.6e10 flop, about 17 us of bf16 tensor-core time at the
-// H100's 989 TFLOP/s; the epilogue is 2 N C = 8.2e7 transcendentals plus
-// about ten f32 operations per element; the bytes are about 4.5 MB (X once,
-// Z, g), 1.4 us at 3.35 TB/s. So the kernel is bound by operations.
+// H100's 989 TFLOP/s; the logistic epilogue is 2 N C = 8.2e7 transcendentals
+// plus about ten f32 operations per element (the Gaussian one about four);
+// the bytes are about 4.5 MB (X once, Z, g), 1.4 us at 3.35 TB/s. So both
+// are bound by operations.
 //
 // Design (first version: simple and right). A block owns 64 chains and one
 // contiguous range of rows; the grid is (chain tiles x row splits), sized to
 // fill the SMs. The block keeps its Z tile resident in shared memory as bf16
 // and walks its rows in 64-row tiles: each X tile is loaded once (plus a
 // transposed copy), s comes from mma.sync m16n8k16 bf16 with f32
-// accumulators, the tanh/log epilogue runs in f32 with the accurate tanhf
-// and logf (no fast math: the one-pass y*s - softplus sum must stay within
-// about 1e-2 nats at N = 10K), per-chain ll accumulates in registers, the
-// residual is written to shared memory rounded to bf16, and g += X_tile^T r
-// runs from the same resident tile with accumulators kept in registers
-// across all row tiles. Per-split partial sums are reduced by a second small
-// kernel in a fixed order: no float atomics, so results are reproducible
-// run to run. wgmma, TMA and a persistent schedule are left for later.
+// accumulators, the epilogue runs in f32 (the logistic one with the
+// accurate tanhf and logf, no fast math: the one-pass y*s - softplus sum
+// must stay within about 1e-2 nats at N = 10K), per-chain ll accumulates in
+// registers, the residual is written to shared memory rounded to bf16, and
+// g += X_tile^T r runs from the same resident tile with accumulators kept in
+// registers across all row tiles. Per-split partial sums are reduced by a
+// second small kernel in a fixed order: no float atomics, so results are
+// reproducible run to run. wgmma, TMA and a persistent schedule are left for
+// later.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,13 +75,28 @@ size_t shared_bytes(int Dp) {
          (kRows + 4 * kChains) * 4;
 }
 
+// The per-element epilogue: ll term and residual (d term / d s).
+struct Logistic {
+  __device__ __forceinline__ static void apply(float y, float s, float& term, float& res) {
+    const float th = tanhf(0.5f * s);
+    res = y - (0.5f + 0.5f * th);
+    term = y * s - (fmaxf(s, 0.f) - logf(0.5f + 0.5f * fabsf(th)));
+  }
+};
+
+struct Gaussian {
+  __device__ __forceinline__ static void apply(float y, float s, float& term, float& res) {
+    res = y - s;
+    term = -0.5f * res * res;
+  }
+};
+
+template <class Epilogue>
 __global__ void __launch_bounds__(kThreads)
-glm_fused_logistic_kernel(const __nv_bfloat16* __restrict__ X,
-                          const float* __restrict__ y,
-                          const float* __restrict__ Z,
-                          float* __restrict__ ll_part,
-                          float* __restrict__ g_part, int N, int Dp, int D,
-                          int C, int rows_per_split) {
+glm_fused_kernel(const __nv_bfloat16* __restrict__ X,
+                 const float* __restrict__ y, const float* __restrict__ Z,
+                 float* __restrict__ ll_part, float* __restrict__ g_part,
+                 int N, int Dp, int D, int C, int rows_per_split) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldz = Dp + kPad;   // row stride of Zs and Xs
   const int ldt = kRows + kPad;  // row stride of XsT and Rt
@@ -150,11 +174,8 @@ glm_fused_logistic_kernel(const __nv_bfloat16* __restrict__ X,
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float s = acc[j][2 * h + e];
-          const float th = tanhf(0.5f * s);
-          float res = yv - (0.5f + 0.5f * th);
-          const float softplus = fmaxf(s, 0.f) - logf(0.5f + 0.5f * fabsf(th));
-          float term = yv * s - softplus;
+          float term, res;
+          Epilogue::apply(yv, acc[j][2 * h + e], term, res);
           if (!valid) {
             term = 0.f;
             res = 0.f;
@@ -237,23 +258,21 @@ __global__ void sum_splits_kernel(const float* __restrict__ part,
   out[i] = v;
 }
 
-}  // namespace
-
-extern "C" int glm_fused_logistic(const void* X, const void* y, const void* Z,
-                                  void* ll_part, void* g_part, void* ll, void* g,
-                                  int N, int Dp, int D, int C, int splits,
-                                  int rows_per_split, void* stream) {
+template <class Epilogue>
+int launch(const void* X, const void* y, const void* Z, void* ll_part,
+           void* g_part, void* ll, void* g, int N, int Dp, int D, int C,
+           int splits, int rows_per_split, void* stream) {
   if (Dp <= 0 || Dp % 16 != 0 || Dp > kMaxDp || D > Dp || N <= 0 || C <= 0 ||
       splits <= 0 || rows_per_split % kRows != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = shared_bytes(Dp);
   cudaError_t err = cudaFuncSetAttribute(
-      glm_fused_logistic_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      glm_fused_kernel<Epilogue>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((C + kChains - 1) / kChains, splits);
-  glm_fused_logistic_kernel<<<grid, kThreads, smem, st>>>(
+  glm_fused_kernel<Epilogue><<<grid, kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(X), static_cast<const float*>(y),
       static_cast<const float*>(Z), static_cast<float*>(ll_part),
       static_cast<float*>(g_part), N, Dp, D, C, rows_per_split);
@@ -265,4 +284,22 @@ extern "C" int glm_fused_logistic(const void* X, const void* y, const void* Z,
   sum_splits_kernel<<<(ng + 255) / 256, 256, 0, st>>>(
       static_cast<const float*>(g_part), static_cast<float*>(g), ng, splits);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int glm_fused_logistic(const void* X, const void* y, const void* Z,
+                                  void* ll_part, void* g_part, void* ll, void* g,
+                                  int N, int Dp, int D, int C, int splits,
+                                  int rows_per_split, void* stream) {
+  return launch<Logistic>(X, y, Z, ll_part, g_part, ll, g, N, Dp, D, C, splits,
+                          rows_per_split, stream);
+}
+
+extern "C" int glm_fused_linear(const void* X, const void* y, const void* Z,
+                                void* ll_part, void* g_part, void* ll, void* g,
+                                int N, int Dp, int D, int C, int splits,
+                                int rows_per_split, void* stream) {
+  return launch<Gaussian>(X, y, Z, ll_part, g_part, ll, g, N, Dp, D, C, splits,
+                          rows_per_split, stream);
 }

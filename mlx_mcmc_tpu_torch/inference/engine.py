@@ -5,13 +5,13 @@ Counterpart of ``build_sampler`` in ``mlx_mcmc_tpu/inference/engine.py``
 loops become Python loops over batched ``(C, D)`` tensor steps. Adaptation
 statistics are chain means, as in the reference's single-device path.
 
-Randomness: step ``t`` (warmup and draws share one global counter) draws its
-momenta and its NUTS uniform table from a ``torch.Generator`` on the
-device, seeded from ``(seed, t)`` - the counterpart of the reference's
-``fold_in(chain_key, t)``, so a later chunked or resumed run can regenerate
-any step's draws. Unlike the reference's per-chain keys, one generator
-serves all chains, so a chain's draws depend on the chain count. The
-step-size probe uses step index ``0x7FFFFFFF``, as the reference does.
+Randomness: step ``t`` (warmup and draws share one global counter) draws
+each chain's momenta and NUTS uniform table from Philox keyed on
+``(seed, chain, t)`` (``ops/random.py``; one kernel launch per step on the
+card) - the counterpart of the reference's ``fold_in(chain_key, t)``. A
+chain's draws depend only on its global index, never on how many chains run
+beside it, and any step's draws can be regenerated. The step-size probe uses
+step index ``0x7FFFFFFF``, as the reference does.
 
 Host syncs: each NUTS pair iteration reads ``active.any()`` and each probe
 of the step-size search reads the pooled accept rate; ``ChainResult``
@@ -40,6 +40,7 @@ from mlx_mcmc_tpu_torch.kernels.integrators import (
     total_energy,
 )
 from mlx_mcmc_tpu_torch.kernels.nuts import make_nuts_kernel
+from mlx_mcmc_tpu_torch.ops.random import step_draws
 
 DEFAULT_TARGET_ACCEPT = 0.65  # the reference's NUTS default
 _PROBE_STEP = 0x7FFFFFFF
@@ -61,10 +62,12 @@ class ChainResult(NamedTuple):
     host_syncs: int
 
 
-def step_generator(generator: torch.Generator, seed: int, t: int) -> torch.Generator:
-    """Re-seed ``generator`` for global step ``t`` of run ``seed``."""
-    generator.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | (int(t) & 0xFFFFFFFF))
-    return generator
+def step_inputs(seed: int, chains: torch.Tensor, t: int, inv_mass_diag: torch.Tensor, n_slots: int):
+    """Global step ``t``'s random inputs for the chains ``chains`` (global
+    indices): momenta ``r0 (C, D)`` for ``inv_mass_diag`` and the NUTS
+    uniform table ``U (C, n_slots, 4)``."""
+    normals, U = step_draws(seed, chains, t, inv_mass_diag.shape[0], n_slots)
+    return sample_momentum(normals, inv_mass_diag), U
 
 
 def make_batched_value_and_grad(flat_log_prob: Callable, data=None):
@@ -134,16 +137,13 @@ def build_sampler(
             vag = make_batched_value_and_grad(flat_log_prob, data)
         init_fn, step_fn = make_nuts_kernel(vag, max_tree_depth=max_tree_depth)
         states = init_fn(z0_batch)
-        gen = torch.Generator(device=device)
+        chains = torch.arange(num_chains, device=device)
         n_slots = 1 << (max_tree_depth - 1)
 
         # Stan-style initialization: one leapfrog across all chains,
         # doubling/halving eps until the mean accept crosses 0.5.
         inv_mass0 = torch.ones((dim,), dtype=torch.float32, device=device)
-        step_generator(gen, seed, _PROBE_STEP)
-        r = sample_momentum(
-            torch.randn((num_chains, dim), generator=gen, device=device), inv_mass0
-        )
+        r, _ = step_inputs(seed, chains, _PROBE_STEP, inv_mass0, 0)
         start = IntegratorState(states.position, r, states.log_prob, states.grad)
         e0 = total_energy(start, inv_mass0)
 
@@ -158,10 +158,7 @@ def build_sampler(
         adapt = adaptation_init(dim, eps_init, device=device)
 
         def one_step(states, t, tunables):
-            step_generator(gen, seed, t)
-            normals = torch.randn((num_chains, dim), generator=gen, device=device)
-            U = torch.rand((num_chains, n_slots, 4), generator=gen, device=device)
-            r0 = sample_momentum(normals, tunables.inv_mass_diag)
+            r0, U = step_inputs(seed, chains, t, tunables.inv_mass_diag, n_slots)
             return step_fn(states, tunables, r0, U)
 
         for t in range(num_warmup):

@@ -1,4 +1,13 @@
-from mlx_mcmc_tpu_torch.models.glm import GLMSpec, make_logistic_regression
+from mlx_mcmc_tpu_torch.models.glm import GLMSpec, make_linear_regression, make_logistic_regression
 from mlx_mcmc_tpu_torch.models.hierarchical import HierarchicalSpec, eight_schools
+from mlx_mcmc_tpu_torch.models.poisson import PoissonSpec, make_poisson_event_rates
 
-__all__ = ["GLMSpec", "HierarchicalSpec", "eight_schools", "make_logistic_regression"]
+__all__ = [
+    "GLMSpec",
+    "HierarchicalSpec",
+    "PoissonSpec",
+    "eight_schools",
+    "make_linear_regression",
+    "make_logistic_regression",
+    "make_poisson_event_rates",
+]

@@ -1,9 +1,10 @@
-"""Logistic regression, the main path's model.
+"""Logistic and Gaussian linear regression.
 
-Counterpart of ``make_logistic_regression`` in ``mlx_mcmc_tpu/models/glm.py``
-with the same recipe (X ~ N(0, 1)/sqrt(D), beta ~ N(0, 1),
-y ~ Bernoulli(sigmoid(X beta))), drawn from numpy's generator because the
-port cannot use ``jax.random``: the data are not the reference's dataset.
+Counterparts of ``make_logistic_regression`` and ``make_linear_regression``
+in ``mlx_mcmc_tpu/models/glm.py`` with the same recipes (X ~ N(0, 1)/sqrt(D),
+beta ~ N(0, 1), then y ~ Bernoulli(sigmoid(X beta)) or
+y = X beta + noise_scale N(0, 1)), drawn from numpy's generator because the
+port cannot use ``jax.random``: the data are not the reference's datasets.
 """
 
 from __future__ import annotations
@@ -27,6 +28,16 @@ class GLMSpec(NamedTuple):
     true_beta: torch.Tensor
 
 
+def _design(rng, num_obs: int, num_features: int, data_dtype):
+    """X ~ N(0, 1) / sqrt(D) in ``data_dtype`` and beta ~ N(0, 1)."""
+    X = torch.from_numpy(
+        rng.standard_normal((num_obs, num_features), dtype=np.float32)
+        / np.float32(np.sqrt(num_features))
+    ).to(data_dtype)
+    true_beta = torch.from_numpy(rng.standard_normal(num_features, dtype=np.float32))
+    return X, true_beta
+
+
 def make_logistic_regression(
     num_features: int = 100,
     num_obs: int = 10_000,
@@ -40,11 +51,7 @@ def make_logistic_regression(
     outcomes are drawn from the stored (rounded) X."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    X = torch.from_numpy(
-        rng.standard_normal((num_obs, num_features), dtype=np.float32)
-        / np.float32(np.sqrt(num_features))
-    ).to(data_dtype)
-    true_beta = torch.from_numpy(rng.standard_normal(num_features, dtype=np.float32))
+    X, true_beta = _design(rng, num_obs, num_features, data_dtype)
     p = torch.sigmoid(X.float() @ true_beta).numpy()
     y = torch.from_numpy((rng.random(num_obs) < p).astype(np.float32))
     X, y, true_beta = X.to(dev), y.to(dev), true_beta.to(dev)
@@ -55,6 +62,42 @@ def make_logistic_regression(
         log_lik = (y * s - torch.logaddexp(s, torch.zeros_like(s))).sum()
         log_prior = Normal(0.0, prior_scale).log_prob(beta).sum()
         return log_lik + log_prior
+
+    return GLMSpec(
+        log_prob=log_prob,
+        initial_params={"beta": torch.zeros(num_features, device=dev)},
+        X=X,
+        y=y,
+        true_beta=true_beta,
+    )
+
+
+def make_linear_regression(
+    num_features: int = 100,
+    num_obs: int = 10_000,
+    noise_scale: float = 1.0,
+    seed: int = 0,
+    prior_scale: float = 1.0,
+    data_dtype=torch.float32,
+    device=None,
+) -> GLMSpec:
+    """Bayesian linear regression with known noise scale: beta ~
+    N(0, prior_scale), y = X beta + noise_scale N(0, 1). The posterior is
+    Gaussian, so its moments can be checked in closed form. The outcomes
+    are drawn from the stored (rounded) X; ``log_prob`` omits the
+    normalizers, as the reference's does."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    X, true_beta = _design(rng, num_obs, num_features, data_dtype)
+    noise = torch.from_numpy(rng.standard_normal(num_obs, dtype=np.float32))
+    y = X.float() @ true_beta + noise_scale * noise
+    X, y, true_beta = X.to(dev), y.to(dev), true_beta.to(dev)
+
+    def log_prob(params):
+        beta = params["beta"]
+        resid = y - X.float() @ beta.to(X.dtype).float()
+        log_lik = -0.5 * (resid * resid).sum() / noise_scale**2
+        return log_lik - 0.5 * (beta * beta).sum() / prior_scale**2
 
     return GLMSpec(
         log_prob=log_prob,

@@ -5,28 +5,49 @@ package, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -m cuda
 
-Tolerances as in ``chip_smoke.py``: ll within 0.05 nats (f32 sums over N
-rows in another order), g within 1e-2 of max|g| + 1e-3 (a last-bit change
-of s can flip the bf16 rounding of single residuals).
+Tolerances as in ``chip_smoke.py``:
+- GLM kernels (K1 logistic, K2 linear): ll within 0.05 nats (f32 sums over
+  N rows in another order), g within 1e-2 of max|g| + 1e-3 (a last-bit
+  change of s can flip the bf16 rounding of single residuals).
+- Poisson kernel (K3), all float32: ll within 0.05 nats + 1e-6 relative,
+  r_theta and g_beta within 1e-4 of their max + 1e-3 (FMA contraction and
+  summation order move single rates by an ulp).
+- Philox: integer words and uniforms bit for bit; normals within 2e-6
+  (``logf``/``sincosf`` against torch's ``log``/``cos``/``sin``).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from mlx_mcmc_tpu_torch.ops import glm
+from mlx_mcmc_tpu_torch.ops import glm, poisson
+from mlx_mcmc_tpu_torch.ops import random as prng
+
+
+def _need_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+
+
+def _glm_case(n, d, c, family, seed=2):
+    rng = np.random.default_rng(seed)
+    X = (rng.standard_normal((n, d)) / np.sqrt(d)).astype(np.float32)
+    if family == "logistic":
+        y = (rng.random(n) < 0.5).astype(np.float32)
+        prep = glm.prepare_fused_logistic_data
+    else:
+        y = (X @ rng.standard_normal(d) + rng.standard_normal(n)).astype(np.float32)
+        prep = glm.prepare_fused_linear_data
+    data = prep(torch.from_numpy(X).bfloat16(), torch.from_numpy(y))
+    Z = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32)).cuda()
+    return data, Z
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d,c", [(10_000, 100, 4096), (777, 37, 1000), (1, 5, 65), (130, 128, 64)])
 def test_glm_kernel_matches_plain_version(n, d, c):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU and nvcc")
-    rng = np.random.default_rng(2)
-    X = (rng.standard_normal((n, d)) / np.sqrt(d)).astype(np.float32)
-    y = (rng.random(n) < 0.5).astype(np.float32)
-    data = glm.prepare_fused_logistic_data(torch.from_numpy(X).bfloat16(), torch.from_numpy(y))
-    Z = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32)).cuda()
+    _need_gpu()
+    data, Z = _glm_case(n, d, c, "logistic")
     before = glm.fused_logistic_vag_cuda.launches
     ll_k, g_k = glm.fused_logistic_value_and_grad(data["Xp"], data["yp"], Z)
     assert glm.fused_logistic_vag_cuda.launches == before + 1
@@ -37,15 +58,105 @@ def test_glm_kernel_matches_plain_version(n, d, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,d,c", [(10_000, 100, 4096), (777, 37, 1000), (130, 128, 64)])
+def test_linear_kernel_matches_plain_version(n, d, c):
+    _need_gpu()
+    data, Z = _glm_case(n, d, c, "linear")
+    before = glm.fused_linear_vag_cuda.launches
+    ll_k, g_k = glm.fused_linear_value_and_grad(data["Xp"], data["yp"], Z)
+    assert glm.fused_linear_vag_cuda.launches == before + 1
+    ll_p, g_p = glm.fused_linear_vag_reference(data["Xp"], data["yp"], Z)
+    torch.cuda.synchronize()
+    assert float((ll_k - ll_p).abs().max()) <= 0.05 + 1e-6 * float(ll_p.abs().max())
+    assert float((g_k - g_p).abs().max()) <= 1e-2 * float(g_p.abs().max()) + 1e-3
+
+
+@pytest.mark.cuda
 def test_glm_kernel_refuses_what_it_does_not_take():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU and nvcc")
+    _need_gpu()
     Xp = torch.zeros(10, 16, dtype=torch.bfloat16, device="cuda")
     y = torch.zeros(10, device="cuda")
     Z = torch.zeros(3, 16, device="cuda")
-    with pytest.raises(ValueError, match="bf16"):
-        glm.fused_logistic_vag_cuda(Xp.float(), y, Z)
-    with pytest.raises(ValueError, match="Dp"):
-        glm.fused_logistic_vag_cuda(torch.zeros(10, 144, dtype=torch.bfloat16, device="cuda"), y, Z)
+    for launch in (glm.fused_logistic_vag_cuda, glm.fused_linear_vag_cuda):
+        with pytest.raises(ValueError, match="bf16"):
+            launch(Xp.float(), y, Z)
+        with pytest.raises(ValueError, match="Dp"):
+            launch(torch.zeros(10, 144, dtype=torch.bfloat16, device="cuda"), y, Z)
+        with pytest.raises(ValueError, match="contiguous"):
+            launch(Xp, y, torch.zeros(16, 3, device="cuda").T)
+
+
+def _poisson_case(c, g, n, k, seed=3):
+    rng = np.random.default_rng(seed)
+    X = (0.5 * rng.standard_normal((g, n, k))).astype(np.float32)
+    beta_true = (0.3 * rng.standard_normal(k)).astype(np.float32)
+    theta_true = (1.0 + 0.5 * rng.standard_normal(g)).astype(np.float32)
+    y = rng.poisson(np.exp(theta_true[:, None] + X @ beta_true)).astype(np.float32)
+    data = poisson.prepare_fused_poisson_data(torch.from_numpy(y), torch.from_numpy(X))
+    theta = torch.from_numpy((theta_true + 0.1 * rng.standard_normal((c, g))).astype(np.float32)).cuda()
+    beta = torch.from_numpy((beta_true + 0.1 * rng.standard_normal((c, k))).astype(np.float32)).cuda()
+    return data, theta, beta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,g,n,k", [(512, 1000, 100, 4), (300, 37, 61, 3), (1, 1, 300, 8)])
+def test_poisson_kernel_matches_plain_version(c, g, n, k):
+    _need_gpu()
+    data, theta, beta = _poisson_case(c, g, n, k)
+    args = (data["X"], data["y"], data["shat"], data["lamhat"], theta, beta)
+    before = poisson.fused_poisson_vag_cuda.launches
+    out_k = poisson.fused_poisson_value_and_grad(*args)
+    assert poisson.fused_poisson_vag_cuda.launches == before + 1
+    out_p = poisson.fused_poisson_vag_reference(*args)
+    torch.cuda.synchronize()
+    ll_k, rt_k, gb_k = out_k
+    ll_p, rt_p, gb_p = out_p
+    assert float((ll_k - ll_p).abs().max()) <= 0.05 + 1e-6 * float(ll_p.abs().max())
+    for k_out, p_out in ((rt_k, rt_p), (gb_k, gb_p)):
+        assert float((k_out - p_out).abs().max()) <= 1e-4 * float(p_out.abs().max()) + 1e-3
+
+
+@pytest.mark.cuda
+def test_poisson_kernel_refuses_what_it_does_not_take():
+    _need_gpu()
+    data, theta, beta = _poisson_case(4, 3, 5, 2)
+    args = [data["X"], data["y"], data["shat"], data["lamhat"], theta, beta]
+    with pytest.raises(ValueError, match="float32"):
+        poisson.fused_poisson_vag_cuda(*args[:4], theta.double(), beta)
     with pytest.raises(ValueError, match="contiguous"):
-        glm.fused_logistic_vag_cuda(Xp, y, torch.zeros(16, 3, device="cuda").T)
+        poisson.fused_poisson_vag_cuda(*args[:5], torch.zeros(2, 4, device="cuda").T)
+    with pytest.raises(ValueError, match="shape"):
+        poisson.fused_poisson_vag_cuda(*args[:4], theta[:, :2].contiguous(), beta)
+    wide = torch.zeros(3, 5, 9, device="cuda")
+    with pytest.raises(ValueError, match="K"):
+        poisson.fused_poisson_vag_cuda(wide, *args[1:4], theta, torch.zeros(4, 9, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,dim,n_slots", [(4096, 100, 32), (512, 1006, 128), (37, 7, 1)])
+def test_philox_kernel_matches_plain_version(c, dim, n_slots):
+    _need_gpu()
+    chains = torch.arange(5, 5 + c, device="cuda")
+    before = prng.step_draws_cuda.launches
+    z_k, u_k = prng.step_draws(123456789012345, chains, 17, dim, n_slots)
+    assert prng.step_draws_cuda.launches == before + 1
+    z_p, u_p = prng.step_draws_reference(123456789012345, chains, 17, dim, n_slots)
+    assert torch.equal(u_k, u_p)
+    assert float((z_k - z_p).abs().max()) <= 2e-6
+    for stream in (prng.STREAM_NORMAL, prng.STREAM_UNIFORM):
+        w_k = prng.words_cuda(2**63 + 11, chains, 0x7FFFFFFF, 3, stream)
+        assert torch.equal(w_k, prng.words(2**63 + 11, chains, 0x7FFFFFFF, 3, stream))
+
+
+@pytest.mark.cuda
+def test_philox_kernel_known_answers_and_arguments():
+    _need_gpu()
+    # Random123's vector: counter (0, 0, 0, 0), key (0, 0).
+    w = prng.words_cuda(0, torch.zeros(1, dtype=torch.int64, device="cuda"), 0, 1, 0)
+    assert w.flatten().tolist() == [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+    with pytest.raises(ValueError, match="int64"):
+        prng.step_draws_cuda(0, torch.arange(4, device="cuda").int(), 0, 3, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        prng.step_draws_cuda(0, torch.arange(4), 0, 3, 2)
+    _, u = prng.step_draws_cuda(0, torch.arange(4, device="cuda"), 0, 3, 0)
+    assert u.shape == (4, 0, 4)
