@@ -6,20 +6,29 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. Device: requires ``torch.cuda.is_available()``; prints the card's name
    and power limit as nvidia-smi gives them.
-2. Build: compiles every CUDA source of the sampling paths (``glm_fused``,
-   ``poisson_fused``, ``philox``; one ``nvcc`` each, started together,
-   sm_90a) into ``build/mlx_mcmc_tpu_torch/`` and prints the build time and
-   ptxas's register report.
+2. Build: compiles every CUDA source (``glm_fused`` with its one-pass and
+   wide paths, ``poisson_fused``, ``philox``; one ``nvcc`` each, started
+   together, sm_90a) into ``build/mlx_mcmc_tpu_torch/`` and prints the
+   build time and ptxas's register report.
 3. Kernels against their plain versions on the card, at each path's shape
    and at a ragged one, with CUDA-event timings and the bound: K1 (logistic)
-   and K2 (linear) at C=4096, N=10K, D=100 bf16; K3 (Poisson) at C=512,
-   G=1000, n=100, K=4 and C=300, G=37, n=61, K=3; Philox at the glm100 step
-   shape (4096 chains, D=100, a 32-row uniform table).
+   and K2 (linear) at C=4096, N=10K, D=100 bf16; K1 on the wide path at
+   glm1000's shape (C=256, N=100K, D=1000) in bf16 and int8, and K2 there
+   in bf16; K1 wide and int8, K2 wide and K4 (hoisted) at ragged wide
+   shapes; K4 at the glm100 shape, with its rebuilt ll against K1's (the
+   reference's rejected variant, measured); K3 (Poisson) at C=512, G=1000,
+   n=100, K=4 and C=300, G=37, n=61, K=3; Philox at the glm100 step shape
+   (4096 chains, D=100, a 32-row uniform table).
 4. ``glm100_fused`` at full width through ``sample()`` and K1 (100 params,
    10K obs, bf16 X, 4096 chains, 300 warmup + 2000 draws, depth 6, target
    0.8, bf16 store): accept 0.8 +- 0.05, mean tree depth < 5, divergence
    rate <= 1%, finite draws, posterior moments against a Laplace
    approximation.
+4b. ``glm1000_fused`` at full width through ``sample()`` and K1's wide path
+   (1000 params, 100K obs, bf16 X, 256 chains, 400 + 400, depth 8, target
+   0.8, f32 store): accept 0.8 +- 0.05, mean tree depth < 7, divergence
+   rate <= 1%, finite draws of shape (256, 400, 1000), the Laplace check at
+   D = 1000.
 5. Funnel detail: centered eight schools, 512 chains, target 0.9, depth 10,
    with warmup and draws cut from the bench's 400 + 400 to 200 + 100 so the
    whole smoke stays near half its time limit (the eager NUTS pair loop
@@ -36,7 +45,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 8. Layout invariance: three NUTS steps of a small elementwise model at fixed
    tunables, driven by the engine's per-chain draws, for 4 and for 8 chains:
    chains 0-3 must be bit-identical.
-9. The kernels JSON line, then the contract line
+9. The kernels JSON line (K1, K2, K3, K4, Philox; K4, on no sampling
+   path, with its phase-3 launches), then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Every path runs with the launch counts set to 0 just before it and read
@@ -62,7 +72,7 @@ H100_F32_FLOPS = 67e12
 H100_INT32_OPS = 33.5e12
 H100_BYTES_PER_S = 3.35e12
 
-# GLM (K1, K2) tolerances against the plain version, which rounds at the
+# GLM (K1, K2, K4) tolerances against the plain version, which rounds at the
 # same points:
 # - ll: both sum 10K f32 terms of O(1) in different orders (~1e-3 nats);
 #   0.05 nats stays well below the 0.1-0.5 nats of noise that collapsed
@@ -72,6 +82,11 @@ H100_BYTES_PER_S = 3.35e12
 #   g by about 1e-3 of max|g|.
 LL_TOL_NATS = 0.05
 G_TOL_REL, G_TOL_ABS = 1e-2, 1e-3
+# Sums that grow with N add 1e-6 of their size: the linear ll (a sum of
+# squares, ~1e4 nats), K4's sum of softplus, and K1's ll at N = 100K, where
+# |ll| ~ 7e4 and one float32 ulp is 0.0078 nats, so the summation order
+# alone moves ll by several ulps.
+LL_TOL_REL = 1e-6
 # K3 is float32 throughout: FMA contraction and summation order move single
 # rates by an ulp, so its gradients get 1e-4 of their max (+1e-3) and its
 # centered ll the same 0.05 nats (+1e-6 relative).
@@ -122,11 +137,12 @@ def roofline_ms(nbytes: float, op_seconds: float) -> tuple:
     return t_bytes * 1e3, "bytes"
 
 
-def glm_bound_ms(n: int, d: int, c: int, epilogue_ops: int) -> tuple:
-    """Least time for one K1/K2 call: bytes (X bf16, y, Z in; ll, g out)
-    over HBM rate, against the two products on bf16 tensor cores and the
-    epilogue's f32 operations per (row, chain) (~12 logistic, ~4 linear)."""
-    nbytes = n * d * 2 + n * 4 + c * d * 4 + c * 4 + c * d * 4
+def glm_bound_ms(n: int, d: int, c: int, epilogue_ops: int, x_bytes: int = 2) -> tuple:
+    """Least time for one K1/K2/K4 call: bytes (X at ``x_bytes`` per value,
+    y, Z in; ll, g out) over HBM rate, against the two products on bf16
+    tensor cores and the epilogue's f32 operations per (row, chain) (~12
+    logistic and hoisted, ~4 linear)."""
+    nbytes = n * d * x_bytes + n * 4 + c * d * 4 + c * 4 + c * d * 4
     ops = max(4.0 * n * d * c / H100_BF16_FLOPS, epilogue_ops * n * c / H100_F32_FLOPS)
     return roofline_ms(nbytes, ops)
 
@@ -165,39 +181,97 @@ def timed_row(row, kernel_call, plain_call, bound) -> dict:
     return row
 
 
-def check_glm(family: str, name: str, Xp, y, Z, timed: bool) -> dict:
+def device_breakdown_ms(fn, parts, calls: int = 10) -> dict:
+    """Device ms per call of each CUDA kernel ``fn`` launches, summed by
+    the first of ``parts`` that its name contains, from torch.profiler.
+    A diagnostic: if the profiler records no device time here, it says so
+    and the smoke goes on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(parts, 0.0)
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+            part = next((p for p in parts if p in ev.key), None)
+            if part is not None:
+                out[part] += us / 1e3 / calls
+    except Exception as exc:  # noqa: BLE001 -- a diagnostic must not end the smoke
+        log(f"  breakdown: not measured ({type(exc).__name__}: {exc})")
+        return {}
+    if not any(out.values()):
+        log("  breakdown: not measured (the profiler saw no device time)")
+        return {}
+    log("  breakdown per call: " + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
+    return out
+
+
+def check_glm(family: str, name: str, Xp, y, Z, timed: bool, ll_rel: float = None) -> dict:
+    """K1 (logistic), K2 (linear) or K4 (hoisted: y unused; ll is its sum
+    of softplus) against the plain version. For int8 ``Xp``, ``Z`` is the
+    scaled operand. ``ll_rel`` defaults to 0 for K1, LL_TOL_REL otherwise."""
     from mlx_mcmc_tpu_torch.ops import glm
 
-    kernel, plain = {
-        "logistic": (glm.fused_logistic_vag_cuda, glm.fused_logistic_vag_reference),
-        "linear": (glm.fused_linear_vag_cuda, glm.fused_linear_vag_reference),
-    }[family]
-    tag = {"logistic": "K1", "linear": "K2"}[family]
-    ll_k, g_k = kernel(Xp, y, Z)
-    ll_p, g_p = plain(Xp, y, Z)
+    if family == "hoisted":
+        kernel = lambda: glm.fused_hoisted_vag_cuda(Xp, Z)  # noqa: E731
+        plain = lambda: glm.fused_hoisted_vag_reference(Xp, Z)  # noqa: E731
+    else:
+        k, p = {
+            "logistic": (glm.fused_logistic_vag_cuda, glm.fused_logistic_vag_reference),
+            "linear": (glm.fused_linear_vag_cuda, glm.fused_linear_vag_reference),
+        }[family]
+        kernel = lambda: k(Xp, y, Z)  # noqa: E731
+        plain = lambda: p(Xp, y, Z)  # noqa: E731
+    tag = {"logistic": "K1", "linear": "K2", "hoisted": "K4"}[family]
+    ll_k, g_k = kernel()
+    ll_p, g_p = plain()
     torch.cuda.synchronize()
     if not (torch.isfinite(ll_k).all() and torch.isfinite(g_k).all()):
         fail(f"{tag} {name}: non-finite output")
     err_ll = float((ll_k - ll_p).abs().max())
     err_g = float((g_k - g_p).abs().max())
     g_max = float(g_p.abs().max())
-    # the linear ll is a sum of squares, O(1e4) nats at these shapes
-    ll_tol = LL_TOL_NATS + (1e-6 * float(ll_p.abs().max()) if family == "linear" else 0.0)
+    if ll_rel is None:
+        ll_rel = 0.0 if family == "logistic" else LL_TOL_REL
+    ll_tol = LL_TOL_NATS + ll_rel * float(ll_p.abs().max())
     c, d = Z.shape
-    n = Xp.shape[0]
-    log(f"{tag} {name}: C={c} N={n} D={d} max|dll|={err_ll:.3e} nats "
-        f"max|dg|={err_g:.3e} (max|g|={g_max:.3e})")
+    n, d_pad = Xp.shape
+    dtype = "int8" if Xp.dtype == torch.int8 else "bf16"
+    log(f"{tag} {name}: C={c} N={n} D={d} Dp={d_pad} {dtype} max|dll|={err_ll:.3e} nats "
+        f"(tol {ll_tol:.3e}) max|dg|={err_g:.3e} (max|g|={g_max:.3e})")
     if err_ll > ll_tol:
         fail(f"{tag} {name}: ll error {err_ll} > {ll_tol}")
     if err_g > G_TOL_REL * g_max + G_TOL_ABS:
         fail(f"{tag} {name}: grad error {err_g} > {G_TOL_REL} * {g_max} + {G_TOL_ABS}")
-    row = {"shape_c_n_d": [c, n, d], "max_abs_err": max(err_ll, err_g),
+    row = {"shape_c_n_d": [c, n, d], "x_dtype": dtype, "max_abs_err": max(err_ll, err_g),
            "max_abs_err_ll": err_ll, "max_abs_err_g": err_g}
     if timed:
-        ops = 12 if family == "logistic" else 4
-        timed_row(row, lambda: kernel(Xp, y, Z), lambda: plain(Xp, y, Z),
-                  glm_bound_ms(n, d, c, ops))
+        ops = 4 if family == "linear" else 12
+        timed_row(row, kernel, plain, glm_bound_ms(n, d, c, ops, Xp.element_size()))
     return row
+
+
+def hoisted_gap(data, Z) -> dict:
+    """K4's rebuilt ll (yX . bf16(z) - sum softplus) against K1's one-pass
+    ll on the same inputs, in nats over the chains: the reference rejected
+    K4 for 0.1-0.5 nats of such noise on its TPU. Fails only on non-finite
+    output."""
+    from mlx_mcmc_tpu_torch.ops import glm
+
+    yX = glm.hoisted_outcomes(data["Xp"], data["yp"], data["dim"])
+    ll_h, _ = glm.hoisted_logistic_value_and_grad(data["Xp"], yX, Z)
+    ll_1, _ = glm.fused_logistic_vag_cuda(data["Xp"], data["yp"], Z)
+    gap = (ll_h - ll_1).abs()
+    if not bool(torch.isfinite(gap).all()):
+        fail("K4 rebuilt ll: non-finite")
+    out = {"max_abs_dll_vs_k1": float(gap.max()), "median_abs_dll_vs_k1": float(gap.median())}
+    log(f"K4 rebuilt ll vs K1 ll over {Z.shape[0]} chains: max |dll| "
+        f"{out['max_abs_dll_vs_k1']:.4e} nats, median {out['median_abs_dll_vs_k1']:.4e} nats "
+        f"(|ll| ~ {float(ll_1.abs().mean()):.1f})")
+    return out
 
 
 def check_poisson(name: str, data: dict, theta, beta, timed: bool) -> dict:
@@ -396,7 +470,12 @@ def main() -> None:
 
     from mlx_mcmc_tpu_torch.bench import CONFIGS, build_problem
     from mlx_mcmc_tpu_torch.models import make_poisson_event_rates
-    from mlx_mcmc_tpu_torch.ops.glm import prepare_fused_logistic_data
+    from mlx_mcmc_tpu_torch.ops.glm import (
+        fused_hoisted_vag_cuda,
+        fused_logistic_vag_cuda,
+        prepare_fused_linear_data,
+        prepare_fused_logistic_data,
+    )
     from mlx_mcmc_tpu_torch.ops.poisson import prepare_fused_poisson_data
 
     # --- kernels against their plain versions -----------------------------
@@ -423,6 +502,53 @@ def main() -> None:
     y_lin = (x_r.float() @ torch.randn(d_r, generator=gen, device="cuda")
              + torch.randn(n_r, generator=gen, device="cuda"))
     check_glm("linear", "ragged", ragged["Xp"], y_lin, z_r, timed=False)
+
+    # K1 on the wide path (Dp = 1008) at glm1000_fused's shape, bf16 and
+    # int8 (the scales folded into Z); K1, K2 and K4 at a ragged wide shape.
+    wcfg = CONFIGS["glm1000_fused"]
+    w_problem = build_problem(wcfg)
+    w_data = w_problem[2]
+    z_w = torch.randn(wcfg["num_chains"], w_data["dim"], generator=gen, device="cuda")
+    variants = {"K1": {}, "K2": {}, "K4": {}}
+    variants["K1"]["wide_glm1000"] = check_glm(
+        "logistic", "wide glm1000", w_data["Xp"], w_data["yp"], z_w, timed=True, ll_rel=LL_TOL_REL)
+    variants["K1"]["wide_glm1000"]["breakdown_ms"] = device_breakdown_ms(
+        lambda: fused_logistic_vag_cuda(w_data["Xp"], w_data["yp"], z_w),
+        ("round_z", "glm_wide_value", "glm_wide_grad", "sum_splits"))
+    q_data = prepare_fused_logistic_data(w_data["Xp"][:, :w_data["dim"]], w_data["yp"], quantize="int8")
+    variants["K1"]["int8_glm1000"] = check_glm(
+        "logistic", "int8 glm1000", q_data["Xp"], q_data["yp"], z_w * q_data["col_scale"],
+        timed=True, ll_rel=LL_TOL_REL)
+    del q_data
+    x_wf = w_data["Xp"][:, :w_data["dim"]].float()
+    y_wl = x_wf @ torch.randn(w_data["dim"], generator=gen, device="cuda") + torch.randn(
+        x_wf.shape[0], generator=gen, device="cuda")
+    del x_wf
+    variants["K2"]["wide_glm1000"] = check_glm("linear", "wide glm1000", w_data["Xp"], y_wl, z_w, timed=True)
+    del y_wl
+    n_w, d_w, c_w = 777, 300, 70
+    x_w = (torch.randn(n_w, d_w, generator=gen, device="cuda") / math.sqrt(d_w)).bfloat16()
+    y_w = (torch.rand(n_w, generator=gen, device="cuda") < 0.5).float()
+    z_rw = torch.randn(c_w, d_w, generator=gen, device="cuda")
+    rw = prepare_fused_logistic_data(x_w, y_w)
+    variants["K1"]["wide_ragged"] = check_glm("logistic", "wide ragged", rw["Xp"], y_w, z_rw, timed=False)
+    rq = prepare_fused_logistic_data(x_w, y_w, quantize="int8")
+    variants["K1"]["int8_wide_ragged"] = check_glm(
+        "logistic", "int8 wide ragged", rq["Xp"], y_w, z_rw * rq["col_scale"], timed=False)
+    y_wl = (x_w.float() @ torch.randn(d_w, generator=gen, device="cuda")
+            + torch.randn(n_w, generator=gen, device="cuda"))
+    variants["K2"]["wide_ragged"] = check_glm(
+        "linear", "wide ragged", prepare_fused_linear_data(x_w, y_wl)["Xp"], y_wl, z_rw, timed=False)
+
+    # K4, the hoisted variant (no sampling path): its launches are this
+    # phase's.
+    fused_hoisted_vag_cuda.launches = 0
+    rows["K4"] = check_glm("hoisted", "main", data["Xp"], None, z_main, timed=True)
+    rows["K4"].update(hoisted_gap(data, z_main))
+    variants["K4"]["wide_ragged"] = check_glm("hoisted", "wide ragged", rw["Xp"], None, z_rw, timed=False)
+    variants["K4"]["int8_wide_ragged"] = check_glm(
+        "hoisted", "int8 wide ragged", rq["Xp"], None, z_rw * rq["col_scale"], timed=False)
+    k4_launches = fused_hoisted_vag_cuda.launches
 
     p_problem = build_problem(pcfg)
     p_data = p_problem[2]
@@ -464,6 +590,24 @@ def main() -> None:
     if z_gap > 0.25 or not (0.9 <= sd_lo and sd_hi <= 1.1):
         fail("posterior moments disagree with the Laplace approximation")
     del result, beta, problem
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # --- glm1000_fused: the wide path --------------------------------------
+    wmetrics, wresult = drive("glm1000_fused", wcfg, w_problem)
+    variants["K1"]["wide_glm1000"]["launches"] = wmetrics["launches"]["glm_fused_logistic"]
+    beta = wresult.samples["beta"]
+    want = (wcfg["num_chains"], wcfg["num_samples"], wcfg["num_features"])
+    if tuple(beta.shape) != want or beta.dtype != torch.float32:
+        fail(f"glm1000_fused draws have shape {tuple(beta.shape)} {beta.dtype}, want {want} float32")
+    if not bool(torch.isfinite(beta).all()):
+        fail("glm1000_fused: non-finite draws")
+    check_sampler("glm1000_fused", wmetrics, 0.8, 7, ["glm_fused_logistic", "philox_step_draws"])
+    z_gap, sd_lo, sd_hi = laplace_check(w_data, beta)
+    log(f"glm1000_fused vs Laplace: max |mean - MAP| / sd = {z_gap:.4f}, "
+        f"sd ratio in [{sd_lo:.4f}, {sd_hi:.4f}]")
+    if z_gap > 0.25 or not (0.9 <= sd_lo and sd_hi <= 1.1):
+        fail("glm1000_fused: posterior moments disagree with the Laplace approximation")
+    del wresult, beta, w_problem, w_data
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- funnel detail ----------------------------------------------------
@@ -524,18 +668,26 @@ def main() -> None:
                "mlx_mcmc_tpu/ops/pallas/glm.py:281"),
         "K3": ("poisson_fused", "mlx_mcmc_tpu_torch/csrc/poisson_fused.cu",
                "mlx_mcmc_tpu/ops/pallas/poisson.py:62"),
+        "K4": ("glm_fused_hoisted", "mlx_mcmc_tpu_torch/csrc/glm_fused.cu",
+               "mlx_mcmc_tpu/ops/pallas/glm.py:113"),
         "philox": ("philox_step_draws", "mlx_mcmc_tpu_torch/csrc/philox.cu",
                    "mlx_mcmc_tpu/inference/engine.py:390"),
     }
+    launches["K4"] = k4_launches
     kernels = []
     for key, (name, source, replaces) in sources.items():
         row = rows[key]
+        extra = {k: v for k, v in row.items() if k not in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        if key in variants:
+            extra["variants"] = variants[key]
+        if key == "K4":
+            extra["sampling_path"] = False
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[key], "max_abs_err": row["max_abs_err"],
              "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
              "bound_by": row["bound_by"], "library_ms": None},
-            **{k: v for k, v in row.items() if k not in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            **extra,
         ))
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,10 @@
-"""The port's benchmark entries: ``glm100_fused`` (with the ``funnel8``
-detail) and ``poisson1000_cov``.
+"""The port's benchmark entries: ``glm100_fused`` and ``glm1000_fused``
+(each with the ``funnel8`` detail) and ``poisson1000_cov``.
 
 Counterpart of the repository's ``bench.py`` for these configs, with the
 same settings and the same JSON line. Run on the GPU:
 
-    python -m mlx_mcmc_tpu_torch.bench [glm100_fused | poisson1000_cov]
+    python -m mlx_mcmc_tpu_torch.bench [glm100_fused | glm1000_fused | poisson1000_cov]
     python -m mlx_mcmc_tpu_torch.bench loop    # costs inside the NUTS loop
 
 The timed run follows a warm run (kernel build, allocator and library
@@ -35,6 +35,7 @@ from mlx_mcmc_tpu_torch.models import (
     make_poisson_event_rates,
 )
 from mlx_mcmc_tpu_torch.ops.glm import (
+    fused_hoisted_vag_cuda,
     fused_linear_vag_cuda,
     fused_logistic_vag_cuda,
     make_fused_linear_vag,
@@ -49,10 +50,12 @@ from mlx_mcmc_tpu_torch.ops.poisson import (
 )
 from mlx_mcmc_tpu_torch.ops.random import step_draws_cuda
 
-# Every kernel wrapper of a sampling path, by the name of its kernel entry.
+# Every kernel wrapper, by the name of its kernel entry (the hoisted GLM
+# kernel is on no sampling path: its count stays 0 in a run).
 KERNELS = {
     "glm_fused_logistic": fused_logistic_vag_cuda,
     "glm_fused_linear": fused_linear_vag_cuda,
+    "glm_fused_hoisted": fused_hoisted_vag_cuda,
     "poisson_fused": fused_poisson_vag_cuda,
     "philox_step_draws": step_draws_cuda,
 }
@@ -75,6 +78,17 @@ CONFIGS = {
         label=(
             "min-ESS/sec/chip, NUTS 100-param logistic GLM "
             "(10K obs, {chains} chains, bf16 fused CUDA)"
+        ),
+    ),
+    # The reference's wide GLM row (bench.py:105-113, run as at 387-415):
+    # D = 1000 takes the kernel's two-kernel wide path; f32 draw store.
+    "glm1000_fused": dict(
+        family="glm", num_features=1000, num_obs=100_000, num_chains=256,
+        num_warmup=400, num_samples=400, max_tree_depth=8,
+        target_accept=0.8, store_dtype=None, baseline_ess_per_sec=0.03,
+        label=(
+            "min-ESS/sec/chip, NUTS 1000-param logistic GLM "
+            "(100K obs, {chains} chains, bf16 fused CUDA)"
         ),
     ),
     # The non-collapsible Poisson row (bench.py:164-181): per-count

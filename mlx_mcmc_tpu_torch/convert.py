@@ -36,19 +36,21 @@ def fused_logistic_data_from_jax(np_dict: Mapping[str, Any], device=None) -> dic
     """The reference's ``prepare_fused_logistic_data`` pytree -> port data.
 
     Its zero-padded rows stay as rows of ``Xp``: each adds ``-log 2`` in the
-    kernel, and ``pad_const`` adds it back, as in the reference.
+    kernel, and ``pad_const`` adds it back, as in the reference. int8 data
+    (``quantize="int8"``) keep their int8 ``Xp`` and float32 ``col_scale``.
     """
-    if "col_scale" in np_dict:
-        raise NotImplementedError("int8 (col_scale) data is not ported yet")
     dev = resolve_device(device)
     Xp = to_tensor(np_dict["Xp"], dev).contiguous()
     yp = to_tensor(np_dict["yp"], dev).float().reshape(-1).contiguous()
-    return {
+    data = {
         "Xp": Xp,
         "yp": yp,
         "pad_const": float(np.asarray(np_dict["pad_const"])),
         "dim": int(np.asarray(np_dict["dim"]).shape[0]),
     }
+    if "col_scale" in np_dict:
+        data["col_scale"] = to_tensor(np_dict["col_scale"], dev).float().contiguous()
+    return data
 
 
 def fused_linear_data_from_jax(np_dict: Mapping[str, Any], device=None) -> dict:

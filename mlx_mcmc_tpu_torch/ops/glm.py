@@ -1,19 +1,28 @@
 """Fused GLM log-likelihood + gradient for a batch of chains.
 
-Counterpart of ``mlx_mcmc_tpu/ops/pallas/glm.py`` (the logistic and the
-Gaussian linear likelihoods). For chain positions ``Z (C, D)``:
+Counterpart of ``mlx_mcmc_tpu/ops/pallas/glm.py`` (the logistic, the
+Gaussian linear and the hoisted-outcome likelihoods). For chain positions
+``Z (C, D)``:
 
     s    = X z                                   per chain
     ll   = sum_i y_i s_i - softplus(s_i)         (logistic)
          = -1/2 sum_i (y_i - s_i)^2              (linear, unit noise)
     grad = X^T (y - sigmoid(s))  or  X^T (y - s)
 
-``fused_logistic_vag_cuda`` and ``fused_linear_vag_cuda`` launch the two
-entries of the hand-written Hopper kernel ``csrc/glm_fused.cu`` (bf16 X);
-``fused_*_vag_reference`` are their plain PyTorch versions, which round
-where the kernel rounds (Z and the residual to X's dtype).
-``fused_*_value_and_grad`` take the plain version only for CPU tensors; for
-CUDA tensors they launch the kernel or raise.
+``fused_logistic_vag_cuda``, ``fused_linear_vag_cuda`` and
+``fused_hoisted_vag_cuda`` launch the three entries of the hand-written
+Hopper kernel ``csrc/glm_fused.cu`` (bf16 or int8 X; the linear one bf16
+only); ``fused_*_vag_reference`` are their plain PyTorch versions, which
+round where the kernel rounds (Z and the residual to bf16 when X is bf16 or
+int8). ``fused_*_value_and_grad`` take the plain version only for CPU
+tensors; for CUDA tensors they launch the kernel or raise. The kernel takes
+any padded width ``Dp`` that is a multiple of 16: up to 128 in one pass
+over X, above that in two kernels (the launch picks by ``Dp``).
+
+int8 data (``quantize="int8"``) stores X ~ Xq diag(col_scale) with
+symmetric per-column scales, as the reference does; at the kernel level Z
+is the scaled operand ``Z * col_scale`` and g comes back unscaled
+(``make_fused_logistic_vag`` folds both).
 
 The kernel masks the ragged last row tile itself, so the port's data carries
 no padded rows and ``pad_const`` is 0. Data converted from the reference's
@@ -31,51 +40,73 @@ import torch
 from mlx_mcmc_tpu_torch import _build
 from mlx_mcmc_tpu_torch._device import resolve_device, sm_count
 
-_ROW_TILE = 64  # rows per tile in the kernel (kRows)
 _CHAIN_TILE = 64  # chains per block (kChains)
-_MAX_D_PAD = 128  # kMaxDp
-_BLOCKS_PER_SM = 3  # grid target: the ~64 KB of shared memory fits 3 per SM
+_MAX_D_PAD = 128  # widest Dp of the one-pass kernel (kMaxDp)
+_ROW_TILE = 64  # rows per tile, one-pass kernel (kRows)
+_BLOCKS_PER_SM = 3  # its grid target: the ~64 KB of shared memory fits 3 per SM
+_WIDE_ROW_TILE = 128  # rows per tile, wide value kernel (kARows)
+_WIDE_BLOCKS_PER_SM = 2  # 256 threads of ~128 registers: 2 per SM
+_GRAD_ROW_CHUNK = 32  # rows per chunk, wide gradient kernel (kGK)
+_GRAD_D_TILE = 64  # columns of g per block (kGD)
+_GRAD_BLOCKS_PER_SM = 4  # its grid target; more splits only add partial sums of g
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def _quantize_int8(X: torch.Tensor):
+    """Symmetric per-column int8, as ``prepare_fused_logistic_data``
+    (glm.py:521-525) of the reference: ``X ~ Xq * col_scale``."""
+    Xf = X.float()
+    col_scale = Xf.abs().amax(dim=0).clamp_min(1e-30) / 127.0
+    return torch.clamp(torch.round(Xf / col_scale), -127, 127).to(torch.int8), col_scale
+
+
 def _pack(X, y, quantize, num_shards: int, device):
-    """``X`` keeps its dtype (pass bf16 for the kernel); its columns are
-    padded with zeros to a multiple of 16, the depth of one tensor-core
-    step. Rows are not padded. int8 storage and observation sharding are
-    not ported."""
-    if quantize is not None:
-        raise NotImplementedError(f"quantize={quantize!r} is not ported yet")
+    """``X`` keeps its dtype (pass bf16 for the kernel) or, with
+    ``quantize="int8"``, is stored as int8 with per-column scales; its
+    columns are padded with zeros to a multiple of 16, the depth of one
+    tensor-core step. Rows are not padded. Observation sharding is not
+    ported. Returns ``(Xp, yp, dim, col_scale or None)``."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize mode: {quantize!r}")
     if num_shards != 1:
         raise NotImplementedError("num_shards > 1 (observation sharding) is not ported yet")
     dev = resolve_device(device)
     X = torch.as_tensor(X, device=dev)
     if not X.is_floating_point() or X.dim() != 2:
         raise ValueError(f"X must be a 2-D float tensor, got {X.dtype} {tuple(X.shape)}")
+    col_scale = None
+    if quantize == "int8":
+        X, col_scale = _quantize_int8(X)
     n, d = X.shape
     Xp = X.new_zeros((n, _round_up(d, 16)))
     Xp[:, :d] = X
     yp = torch.as_tensor(y, dtype=torch.float32, device=dev).reshape(n).contiguous()
-    return Xp, yp, d
+    return Xp, yp, d, col_scale
 
 
 def prepare_fused_logistic_data(X, y, quantize=None, num_shards: int = 1, device=None) -> dict:
     """Pack a logistic-GLM dataset for :func:`make_fused_logistic_vag`
-    (layout as :func:`_pack` says)."""
-    Xp, yp, d = _pack(X, y, quantize, num_shards, device)
-    return {"Xp": Xp, "yp": yp, "pad_const": 0.0, "dim": d}
+    (layout as :func:`_pack` says; int8 data also carry ``col_scale``)."""
+    Xp, yp, d, col_scale = _pack(X, y, quantize, num_shards, device)
+    data = {"Xp": Xp, "yp": yp, "pad_const": 0.0, "dim": d}
+    if col_scale is not None:
+        data["col_scale"] = col_scale
+    return data
 
 
 def prepare_fused_linear_data(
     X, y, noise_scale: float = 1.0, quantize=None, num_shards: int = 1, device=None
 ) -> dict:
     """Pack a linear-regression dataset for :func:`make_fused_linear_vag`
-    (layout as :func:`_pack` says). The noise scale travels in the data as
-    ``inv_noise_var`` and the Gaussian normalizer as ``ll_norm``, so the vag
-    cannot disagree with them."""
-    Xp, yp, d = _pack(X, y, quantize, num_shards, device)
+    (layout as :func:`_pack` says; no int8, as in the reference). The noise
+    scale travels in the data as ``inv_noise_var`` and the Gaussian
+    normalizer as ``ll_norm``, so the vag cannot disagree with them."""
+    if quantize is not None:
+        raise ValueError(f"quantize={quantize!r}: the linear kernel takes f32/bf16 X only")
+    Xp, yp, d, _ = _pack(X, y, None, num_shards, device)
     return {
         "Xp": Xp,
         "yp": yp,
@@ -96,15 +127,28 @@ def _gaussian_epilogue(y, s):
     return -0.5 * (r * r), r
 
 
+def _hoisted_epilogue(y, s):
+    del y  # the hoisted kernel never reads y
+    h = torch.tanh(0.5 * s)
+    return torch.clamp(s, min=0.0) - torch.log(0.5 + 0.5 * h.abs()), 0.5 + 0.5 * h
+
+
+def _operand_dtype(Xp: torch.Tensor) -> torch.dtype:
+    """The type both products take: int8 X is widened to bf16."""
+    return torch.bfloat16 if Xp.dtype == torch.int8 else Xp.dtype
+
+
 def _vag_reference(Xp, y, Z, epilogue):
-    """Rounds at the kernel's points when ``Xp`` is bf16: ``Z`` to bf16
-    before the first product and the residual to bf16 before the second.
-    The products run in float32 on the rounded operands."""
+    """Rounds at the kernel's points when ``Xp`` is bf16 or int8: ``Z`` to
+    bf16 before the first product and the residual to bf16 before the
+    second (int8 values convert to float32 exactly). The products run in
+    float32 on the rounded operands."""
     d = Z.shape[1]
     X = Xp[:, :d].float()
-    s = Z.to(Xp.dtype).float() @ X.T  # (C, N)
+    cdt = _operand_dtype(Xp)
+    s = Z.to(cdt).float() @ X.T  # (C, N)
     term, res = epilogue(y, s)
-    return term.sum(dim=-1), res.to(Xp.dtype).float() @ X
+    return term.sum(dim=-1), res.to(cdt).float() @ X
 
 
 def fused_logistic_vag_reference(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor):
@@ -120,69 +164,104 @@ def fused_linear_vag_reference(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tenso
     return _vag_reference(Xp, y, Z, _gaussian_epilogue)
 
 
-def _row_splits(n: int, c: int, device: torch.device):
-    """Grid rows: enough row splits that (chain tiles x splits) fills the
-    SMs about ``_BLOCKS_PER_SM`` deep. Returns (splits, rows_per_split)."""
-    row_tiles = -(-n // _ROW_TILE)
-    chain_tiles = -(-c // _CHAIN_TILE)
-    want = -(-_BLOCKS_PER_SM * sm_count(device.index or 0) // chain_tiles)
+def fused_hoisted_vag_reference(Xp: torch.Tensor, Z: torch.Tensor):
+    """Plain PyTorch version of the hoisted kernel, on any device:
+    ``(sum_i softplus(s_i) (C,), X^T bf16(sigmoid(s)) (C, D))``."""
+    return _vag_reference(Xp, None, Z, _hoisted_epilogue)
+
+
+def _row_splits(n: int, blocks_across: int, row_tile: int, blocks_per_sm: int, sms: int):
+    """Row splits of a grid of ``blocks_across`` x splits blocks: enough
+    that the grid fills ``sms`` SMs about ``blocks_per_sm`` deep, each
+    split a whole number of row tiles. Returns (splits, rows_per_split)."""
+    row_tiles = -(-n // row_tile)
+    want = -(-blocks_per_sm * sms // blocks_across)
     splits = max(1, min(row_tiles, want))
-    rows_per_split = -(-row_tiles // splits) * _ROW_TILE
+    rows_per_split = -(-row_tiles // splits) * row_tile
     return -(-n // rows_per_split), rows_per_split
 
 
+def launch_plan(n: int, d_pad: int, c: int, sms: int) -> dict:
+    """The kernel's grid for X (n, d_pad) and c chains on ``sms`` SMs: the
+    one-pass kernel up to ``Dp = 128`` (``wide`` False), else the two wide
+    kernels with their scratch shapes (bf16 Z (c_pad, Dp) and residual
+    (c_pad, n rounded up to the value kernel's row tile))."""
+    chain_tiles = -(-c // _CHAIN_TILE)
+    if d_pad <= _MAX_D_PAD:
+        splits, rows = _row_splits(n, chain_tiles, _ROW_TILE, _BLOCKS_PER_SM, sms)
+        return {"wide": False, "splits": splits, "rows_per_split": rows,
+                "g_splits": splits, "g_rows_per_split": rows}
+    splits, rows = _row_splits(n, chain_tiles, _WIDE_ROW_TILE, _WIDE_BLOCKS_PER_SM, sms)
+    g_splits, g_rows = _row_splits(
+        n, chain_tiles * -(-d_pad // _GRAD_D_TILE), _GRAD_ROW_CHUNK, _GRAD_BLOCKS_PER_SM, sms
+    )
+    c_pad = chain_tiles * _CHAIN_TILE
+    return {"wide": True, "splits": splits, "rows_per_split": rows,
+            "g_splits": g_splits, "g_rows_per_split": g_rows,
+            "zb_shape": (c_pad, d_pad), "rt_shape": (c_pad, _round_up(n, _WIDE_ROW_TILE))}
+
+
 def _check_kernel_args(Xp, y, Z):
-    if not (Xp.is_cuda and y.is_cuda and Z.is_cuda):
+    tensors = (Xp, Z) if y is None else (Xp, y, Z)
+    if not all(t.is_cuda for t in tensors):
         raise ValueError("the CUDA kernel takes CUDA tensors only")
-    if not (Xp.device == y.device == Z.device):
+    if any(t.device != Xp.device for t in tensors):
         raise ValueError("Xp, y and Z must be on one device")
-    if Xp.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA kernel takes bf16 X, got {Xp.dtype}")
-    if y.dtype != torch.float32 or Z.dtype != torch.float32:
-        raise ValueError(f"y and Z must be float32, got {y.dtype}, {Z.dtype}")
-    if Xp.dim() != 2 or y.dim() != 1 or Z.dim() != 2:
+    if Xp.dtype not in (torch.bfloat16, torch.int8):
+        raise ValueError(f"the CUDA kernel takes bf16 or int8 X, got {Xp.dtype}")
+    if Z.dtype != torch.float32 or (y is not None and y.dtype != torch.float32):
+        raise ValueError(f"y and Z must be float32, got {None if y is None else y.dtype}, {Z.dtype}")
+    if Xp.dim() != 2 or Z.dim() != 2 or (y is not None and y.dim() != 1):
         raise ValueError("expected Xp (N, Dp), y (N,), Z (C, D)")
     n, d_pad = Xp.shape
     c, d = Z.shape
-    if y.shape[0] != n or n < 1 or c < 1:
-        raise ValueError(f"shape mismatch: Xp {tuple(Xp.shape)}, y {tuple(y.shape)}, Z {tuple(Z.shape)}")
-    if d_pad % 16 or d_pad > _MAX_D_PAD or d > d_pad:
+    if (y is not None and y.shape[0] != n) or n < 1 or c < 1 or d < 1:
         raise ValueError(
-            f"the kernel takes D <= Dp <= {_MAX_D_PAD} with Dp a multiple of 16; "
-            f"got D={d}, Dp={d_pad}"
+            f"shape mismatch: Xp {tuple(Xp.shape)}, y {None if y is None else tuple(y.shape)}, "
+            f"Z {tuple(Z.shape)}"
         )
-    if not (Xp.is_contiguous() and y.is_contiguous() and Z.is_contiguous()):
+    if d_pad % 16 or d > d_pad:
+        raise ValueError(f"the kernel takes D <= Dp with Dp a multiple of 16; got D={d}, Dp={d_pad}")
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError("Xp, y and Z must be contiguous")
     if Xp.data_ptr() % 16:
         raise ValueError("Xp must be 16-byte aligned")
-    if c * d >= 2**31:
-        raise ValueError("C * D must fit in int32")
+    if c * d >= 2**31 or n >= 2**31:
+        raise ValueError("C * D and N must fit in int32")
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_entry(name: str):
     fn = getattr(_build.load("glm_fused"), name)
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i] + [p] * 8 + [i] * 8 + [p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name: str, Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor):
+def _launch(name: str, Xp: torch.Tensor, y, Z: torch.Tensor):
     _check_kernel_args(Xp, y, Z)
     fn = _kernel_entry(name)
     n, d_pad = Xp.shape
     c, d = Z.shape
-    splits, rows_per_split = _row_splits(n, c, Xp.device)
-    f32 = dict(dtype=torch.float32, device=Xp.device)
-    ll_part = torch.empty((splits, c), **f32)
-    g_part = torch.empty((splits, c, d), **f32)
+    dev = Xp.device
+    plan = launch_plan(n, d_pad, c, sm_count(dev.index or 0))
+    f32 = dict(dtype=torch.float32, device=dev)
+    ll_part = torch.empty((plan["splits"], c), **f32)
+    g_part = torch.empty((plan["g_splits"], c, d), **f32)
     ll = torch.empty((c,), **f32)
     g = torch.empty((c, d), **f32)
+    scratch = [None, None]  # the wide path's bf16 Z and residual
+    if plan["wide"]:
+        scratch = [torch.empty(plan[k], dtype=torch.bfloat16, device=dev)
+                   for k in ("zb_shape", "rt_shape")]
     err = fn(
-        Xp.data_ptr(), y.data_ptr(), Z.data_ptr(), ll_part.data_ptr(),
-        g_part.data_ptr(), ll.data_ptr(), g.data_ptr(),
-        n, d_pad, d, c, splits, rows_per_split,
-        torch.cuda.current_stream(Xp.device).cuda_stream,
+        Xp.data_ptr(), int(Xp.dtype == torch.int8), None if y is None else y.data_ptr(),
+        Z.data_ptr(), ll_part.data_ptr(), g_part.data_ptr(), ll.data_ptr(), g.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in scratch),
+        n, d_pad, d, c, plan["splits"], plan["rows_per_split"],
+        plan["g_splits"], plan["g_rows_per_split"],
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
@@ -191,8 +270,9 @@ def _launch(name: str, Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor):
 
 def fused_logistic_vag_cuda(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor):
     """Launch the logistic kernel: ``(ll (C,), grad (C, D))``, likelihood
-    only. Raises on anything the kernel does not take. Launches on the
-    current stream and adds one to ``fused_logistic_vag_cuda.launches``."""
+    only; for int8 ``Xp``, ``Z`` is the scaled operand. Raises on anything
+    the kernel does not take. Launches on the current stream and adds one
+    to ``fused_logistic_vag_cuda.launches``."""
     out = _launch("glm_fused_logistic", Xp, y, Z)
     fused_logistic_vag_cuda.launches += 1
     return out
@@ -200,14 +280,27 @@ def fused_logistic_vag_cuda(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor):
 
 def fused_linear_vag_cuda(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor):
     """Launch the linear kernel: unit-noise ``(ll (C,), grad (C, D))``,
-    likelihood only. Adds one to ``fused_linear_vag_cuda.launches``."""
+    likelihood only, bf16 ``Xp`` only. Adds one to
+    ``fused_linear_vag_cuda.launches``."""
+    if Xp.dtype == torch.int8:
+        raise ValueError("the linear kernel takes bf16 X only (no int8, as in the reference)")
     out = _launch("glm_fused_linear", Xp, y, Z)
     fused_linear_vag_cuda.launches += 1
     return out
 
 
+def fused_hoisted_vag_cuda(Xp: torch.Tensor, Z: torch.Tensor):
+    """Launch the hoisted kernel: ``(sum softplus(s) (C,), X^T
+    bf16(sigmoid(s)) (C, D))``; it reads no y. Adds one to
+    ``fused_hoisted_vag_cuda.launches``."""
+    out = _launch("glm_fused_hoisted", Xp, None, Z)
+    fused_hoisted_vag_cuda.launches += 1
+    return out
+
+
 fused_logistic_vag_cuda.launches = 0
 fused_linear_vag_cuda.launches = 0
+fused_hoisted_vag_cuda.launches = 0
 
 
 def fused_logistic_value_and_grad(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor):
@@ -224,17 +317,53 @@ def fused_linear_value_and_grad(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tens
     return fused_linear_vag_cuda(Xp, y, Z)
 
 
+def fused_hoisted_value_and_grad(Xp: torch.Tensor, Z: torch.Tensor):
+    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+    if Z.device.type == "cpu":
+        return fused_hoisted_vag_reference(Xp, Z)
+    return fused_hoisted_vag_cuda(Xp, Z)
+
+
+def hoisted_outcomes(Xp: torch.Tensor, y: torch.Tensor, dim: int) -> torch.Tensor:
+    """``X^T y (D,)`` in float32 from the stored X: the data-prep constant
+    that the hoisted kernel moves out of its loop."""
+    return y.float() @ Xp[:, :dim].float()
+
+
+def hoisted_logistic_value_and_grad(Xp: torch.Tensor, yX: torch.Tensor, Z: torch.Tensor):
+    """The logistic likelihood rebuilt from the hoisted kernel, as the
+    reference's benchmark rebuilds it (benchmarks/glm_kernel_variants.py:186,
+    216-220): ``ll = yX . bf16(z) - sum softplus(s)`` and ``g = yX - X^T
+    sigmoid(s)``, with ``yX`` from :func:`hoisted_outcomes`.
+
+    Not a sampling path, and no ``make_*_vag`` offers it: ``ll`` is the
+    difference of two float32 sums of order N, so it carries rounding noise
+    of order ulp(N) (0.1-0.5 nats at N = 10K), which no step size can
+    reduce; NUTS adaptation collapsed on it in the reference
+    (mlx_mcmc_tpu/ops/pallas/glm.py:125-136, docs/DESIGN.md §4b). It is
+    kept beside K1 as a kernel held against its plain version."""
+    sp, gs = fused_hoisted_value_and_grad(Xp, Z)
+    zr = Z.to(_operand_dtype(Xp)).float()
+    return zr @ yX - sp, yX - gs
+
+
 def make_fused_logistic_vag(prior_scale: float = 1.0):
     """``vag(Z (C, D), data) -> (log_post (C,), grad (C, D))`` of the
     logistic log-posterior with an N(0, prior_scale) prior, for ``data``
-    from :func:`prepare_fused_logistic_data`."""
+    from :func:`prepare_fused_logistic_data`. int8 data fold their column
+    scales into the kernel's Z operand and out of its gradient
+    (glm.py:580-606)."""
     inv_var = 1.0 / (prior_scale * prior_scale)
 
     def vag(Z: torch.Tensor, data: dict):
         d = data["dim"]
         if Z.shape[-1] != d:
             raise ValueError(f"Z has {Z.shape[-1]} columns, data has dim {d}")
-        ll, g = fused_logistic_value_and_grad(data["Xp"], data["yp"], Z)
+        col_scale = data.get("col_scale")
+        Z_op = Z if col_scale is None else Z * col_scale
+        ll, g = fused_logistic_value_and_grad(data["Xp"], data["yp"], Z_op)
+        if col_scale is not None:
+            g = g * col_scale
         ll = ll + data["pad_const"]
         log_norm = -0.5 * d * math.log(2.0 * math.pi * prior_scale * prior_scale)
         return ll + (log_norm - 0.5 * inv_var * (Z * Z).sum(dim=-1)), g - inv_var * Z

@@ -6,9 +6,11 @@ package, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -m cuda
 
 Tolerances as in ``chip_smoke.py``:
-- GLM kernels (K1 logistic, K2 linear): ll within 0.05 nats (f32 sums over
-  N rows in another order), g within 1e-2 of max|g| + 1e-3 (a last-bit
-  change of s can flip the bf16 rounding of single residuals).
+- GLM kernels (K1 logistic, K2 linear, K4 hoisted; bf16 or int8 X, one-pass
+  and wide paths): ll within 0.05 nats (f32 sums over N rows in another
+  order; K2's and K4's sums of squares or softplus, which grow with N, add
+  1e-6 relative), g within 1e-2 of max|g| + 1e-3 (a last-bit change of s
+  can flip the bf16 rounding of single residuals).
 - Poisson kernel (K3), all float32: ll within 0.05 nats + 1e-6 relative,
   r_theta and g_beta within 1e-4 of their max + 1e-3 (FMA contraction and
   summation order move single rates by an ulp).
@@ -29,25 +31,33 @@ def _need_gpu():
         pytest.skip("needs an NVIDIA GPU and nvcc")
 
 
-def _glm_case(n, d, c, family, seed=2):
+def _glm_case(n, d, c, family, seed=2, quantize=None):
     rng = np.random.default_rng(seed)
     X = (rng.standard_normal((n, d)) / np.sqrt(d)).astype(np.float32)
     if family == "logistic":
         y = (rng.random(n) < 0.5).astype(np.float32)
-        prep = glm.prepare_fused_logistic_data
+        data = glm.prepare_fused_logistic_data(torch.from_numpy(X).bfloat16(), torch.from_numpy(y),
+                                               quantize=quantize)
     else:
         y = (X @ rng.standard_normal(d) + rng.standard_normal(n)).astype(np.float32)
-        prep = glm.prepare_fused_linear_data
-    data = prep(torch.from_numpy(X).bfloat16(), torch.from_numpy(y))
+        data = glm.prepare_fused_linear_data(torch.from_numpy(X).bfloat16(), torch.from_numpy(y))
     Z = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32)).cuda()
+    if quantize:  # the kernel's operand is the scaled Z
+        Z = Z * data["col_scale"]
     return data, Z
 
 
+_GLM_SHAPES = [(10_000, 100, 4096), (777, 37, 1000), (1, 5, 65), (130, 128, 64),
+               (2000, 1000, 256), (300, 130, 70), (129, 144, 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,c", [(10_000, 100, 4096), (777, 37, 1000), (1, 5, 65), (130, 128, 64)])
-def test_glm_kernel_matches_plain_version(n, d, c):
+@pytest.mark.parametrize("quantize", [None, "int8"])
+@pytest.mark.parametrize("n,d,c", _GLM_SHAPES)
+def test_glm_kernel_matches_plain_version(n, d, c, quantize):
     _need_gpu()
-    data, Z = _glm_case(n, d, c, "logistic")
+    data, Z = _glm_case(n, d, c, "logistic", quantize=quantize)
+    assert data["Xp"].dtype == (torch.int8 if quantize else torch.bfloat16)
     before = glm.fused_logistic_vag_cuda.launches
     ll_k, g_k = glm.fused_logistic_value_and_grad(data["Xp"], data["yp"], Z)
     assert glm.fused_logistic_vag_cuda.launches == before + 1
@@ -58,7 +68,23 @@ def test_glm_kernel_matches_plain_version(n, d, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,c", [(10_000, 100, 4096), (777, 37, 1000), (130, 128, 64)])
+@pytest.mark.parametrize("quantize", [None, "int8"])
+@pytest.mark.parametrize("n,d,c", _GLM_SHAPES)
+def test_hoisted_kernel_matches_plain_version(n, d, c, quantize):
+    _need_gpu()
+    data, Z = _glm_case(n, d, c, "logistic", quantize=quantize)
+    before = glm.fused_hoisted_vag_cuda.launches
+    sp_k, gs_k = glm.fused_hoisted_value_and_grad(data["Xp"], Z)
+    assert glm.fused_hoisted_vag_cuda.launches == before + 1
+    sp_p, gs_p = glm.fused_hoisted_vag_reference(data["Xp"], Z)
+    torch.cuda.synchronize()
+    assert float((sp_k - sp_p).abs().max()) <= 0.05 + 1e-6 * float(sp_p.abs().max())
+    assert float((gs_k - gs_p).abs().max()) <= 1e-2 * float(gs_p.abs().max()) + 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,c", [(10_000, 100, 4096), (777, 37, 1000), (130, 128, 64),
+                                   (2000, 1000, 256), (300, 130, 70)])
 def test_linear_kernel_matches_plain_version(n, d, c):
     _need_gpu()
     data, Z = _glm_case(n, d, c, "linear")
@@ -77,13 +103,17 @@ def test_glm_kernel_refuses_what_it_does_not_take():
     Xp = torch.zeros(10, 16, dtype=torch.bfloat16, device="cuda")
     y = torch.zeros(10, device="cuda")
     Z = torch.zeros(3, 16, device="cuda")
-    for launch in (glm.fused_logistic_vag_cuda, glm.fused_linear_vag_cuda):
+    hoisted = lambda X, y, Z: glm.fused_hoisted_vag_cuda(X, Z)  # noqa: E731
+    for launch in (glm.fused_logistic_vag_cuda, glm.fused_linear_vag_cuda, hoisted):
         with pytest.raises(ValueError, match="bf16"):
             launch(Xp.float(), y, Z)
         with pytest.raises(ValueError, match="Dp"):
-            launch(torch.zeros(10, 144, dtype=torch.bfloat16, device="cuda"), y, Z)
+            launch(torch.zeros(10, 24, dtype=torch.bfloat16, device="cuda"), y, Z)
         with pytest.raises(ValueError, match="contiguous"):
             launch(Xp, y, torch.zeros(16, 3, device="cuda").T)
+        launch(torch.zeros(10, 144, dtype=torch.bfloat16, device="cuda"), y, Z)  # wide: taken
+    with pytest.raises(ValueError, match="int8"):
+        glm.fused_linear_vag_cuda(Xp.to(torch.int8), y, Z)
 
 
 def _poisson_case(c, g, n, k, seed=3):

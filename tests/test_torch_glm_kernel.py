@@ -113,7 +113,10 @@ def test_cpu_tensors_take_the_plain_version_and_kernel_refuses_them():
     assert glm.fused_logistic_vag_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         glm.fused_logistic_vag_cuda(data["Xp"], data["yp"], torch.from_numpy(Z))
-    with pytest.raises(NotImplementedError):
-        glm.prepare_fused_logistic_data(X, y, quantize="int8", device="cpu")
+    # int8 X is taken: the same int8 values and scales as the reference's.
+    q = glm.prepare_fused_logistic_data(X, y, quantize="int8", device="cpu")
+    jq = j_prepare(jnp.asarray(X), jnp.asarray(y), tile_n=64, quantize="int8")
+    np.testing.assert_array_equal(q["Xp"][:, :3].numpy(), np.asarray(jq["Xp"])[:40, :3])
+    np.testing.assert_array_equal(q["col_scale"].numpy(), np.asarray(jq["col_scale"]))
     with pytest.raises(NotImplementedError):
         glm.prepare_fused_logistic_data(X, y, num_shards=2, device="cpu")

@@ -111,7 +111,7 @@ def test_cpu_tensors_take_the_plain_version_and_kernel_refuses_them():
     assert glm.fused_linear_vag_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         glm.fused_linear_vag_cuda(data["Xp"], data["yp"], torch.from_numpy(Z))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="quantize"):  # as the reference: no int8
         glm.prepare_fused_linear_data(X, y, quantize="int8", device="cpu")
     with pytest.raises(NotImplementedError):
         glm.prepare_fused_linear_data(X, y, num_shards=2, device="cpu")
