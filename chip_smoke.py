@@ -13,12 +13,17 @@ Phases, each fatal on failure (exit code 1, no result line):
 3. Kernels against their plain versions on the card, at each path's shape
    and at a ragged one, with CUDA-event timings and the bound: K1 (logistic)
    and K2 (linear) at C=4096, N=10K, D=100 bf16; K1 on the wide path at
-   glm1000's shape (C=256, N=100K, D=1000) in bf16 and int8, and K2 there
-   in bf16; K1 wide and int8, K2 wide and K4 (hoisted) at ragged wide
-   shapes; K4 at the glm100 shape, with its rebuilt ll against K1's (the
-   reference's rejected variant, measured); K3 (Poisson) at C=512, G=1000,
-   n=100, K=4 and C=300, G=37, n=61, K=3; Philox at the glm100 step shape
-   (4096 chains, D=100, a 32-row uniform table).
+   glm1000's shape (C=256, N=100K, D=1000) in bf16 (the TMA + wgmma value
+   and gradient kernels: their torch.profiler split, the design floor, the
+   two products as torch.matmul on bf16 as a yardstick, two calls bit for
+   bit and chains 0-3 of a C=4 call equal to those of the C=256 call) and
+   int8, and K2 there in bf16; K1 wide and int8, K2 wide and K4 (hoisted)
+   at ragged wide shapes; K1, K2 and K4 on f32 X (the FFMA kernels) at the
+   glm100 shape (timed) and at C=70, N=777, D=300; K4 at the glm100 shape,
+   with its rebuilt ll against K1's (the reference's rejected variant,
+   measured); K3 (Poisson) at C=512, G=1000, n=100, K=4 and C=300, G=37,
+   n=61, K=3; Philox at the glm100 step shape (4096 chains, D=100, a 32-row
+   uniform table).
 4. ``glm100_fused`` at full width through ``sample()`` and K1 (100 params,
    10K obs, bf16 X, 4096 chains, 300 warmup + 2000 draws, depth 6, target
    0.8, bf16 store): accept 0.8 +- 0.05, mean tree depth < 5, divergence
@@ -30,9 +35,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    rate <= 1%, finite draws of shape (256, 400, 1000), the Laplace check at
    D = 1000.
 5. Funnel detail: centered eight schools, 512 chains, target 0.9, depth 10,
-   with warmup and draws cut from the bench's 400 + 400 to 200 + 100 so the
-   whole smoke stays near half its time limit (the eager NUTS pair loop
-   costs ~9 ms per iteration there; the full row took 919 s on the H100).
+   with warmup and draws cut from the bench's 400 + 400 to 100 + 50 so the
+   whole smoke stays near half its time limit on a slow host too (the eager
+   NUTS pair loop costs ~9-14 ms per iteration there; 200 + 100 took
+   289-599 s on the H100, the full row 919 s).
 6. Linear path through K2: Gaussian linear regression, 100 features, 10K
    obs, bf16 X, 4096 chains, 300 + 2000, depth 6, target 0.8, bf16 store:
    accept 0.8 +- 0.05, depth < 5, divergence rate <= 1%, posterior mean and
@@ -45,8 +51,9 @@ Phases, each fatal on failure (exit code 1, no result line):
 8. Layout invariance: three NUTS steps of a small elementwise model at fixed
    tunables, driven by the engine's per-chain draws, for 4 and for 8 chains:
    chains 0-3 must be bit-identical.
-9. The kernels JSON line (K1, K2, K3, K4, Philox; K4, on no sampling
-   path, with its phase-3 launches), then the contract line
+9. The kernels JSON line (K1 one-pass, K1 wide, K2, K3, K4, Philox, and
+   K1, K2 and K4 on f32 X; K4 and the f32 rows, on no sampling path, with
+   their phase-3 launches), then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Every path runs with the launch counts set to 0 just before it and read
@@ -73,7 +80,7 @@ H100_INT32_OPS = 33.5e12
 H100_BYTES_PER_S = 3.35e12
 
 # GLM (K1, K2, K4) tolerances against the plain version, which rounds at the
-# same points:
+# same points (bf16 and int8 X; f32 X rounds nowhere, see below):
 # - ll: both sum 10K f32 terms of O(1) in different orders (~1e-3 nats);
 #   0.05 nats stays well below the 0.1-0.5 nats of noise that collapsed
 #   adaptation in the reference (its rejected hoisted kernel).
@@ -82,11 +89,21 @@ H100_BYTES_PER_S = 3.35e12
 #   g by about 1e-3 of max|g|.
 LL_TOL_NATS = 0.05
 G_TOL_REL, G_TOL_ABS = 1e-2, 1e-3
+# The wide bf16 kernels at glm1000's shape (N = 100K): there max|g| ~ 150 to
+# 650 grows with N while a single residual flip does not, so 1e-2 of max|g|
+# would let a whole 64-row chunk of the gradient kernel's split schedule be
+# dropped or taken twice. Their measured error is ~1e-5 of max|g|; g is held
+# to 1e-4 of max|g| (+1e-3), still ~10x that.
+WIDE_G_TOL_REL = 1e-4
 # Sums that grow with N add 1e-6 of their size: the linear ll (a sum of
 # squares, ~1e4 nats), K4's sum of softplus, and K1's ll at N = 100K, where
 # |ll| ~ 7e4 and one float32 ulp is 0.0078 nats, so the summation order
 # alone moves ll by several ulps.
 LL_TOL_REL = 1e-6
+# f32 X: nothing is rounded, so single residuals no longer flip by a bf16 ulp
+# and g is held to 1e-4 of max|g| (+1e-4): FMA contraction and summation
+# order move it by a few f32 ulps of its terms. ll as above.
+F32_G_TOL_REL, F32_G_TOL_ABS = 1e-4, 1e-4
 # K3 is float32 throughout: FMA contraction and summation order move single
 # rates by an ulp, so its gradients get 1e-4 of their max (+1e-3) and its
 # centered ll the same 0.05 nats (+1e-6 relative).
@@ -105,30 +122,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, reps: int = 7, inner: int = 10, hide_host: bool = True) -> float:
-    """Median over ``reps`` of the mean time of ``inner`` back-to-back calls,
-    from CUDA events. With ``hide_host`` the stream first sleeps on the card
-    (~10 ms, longer than the host takes to enqueue the calls), so the events
-    time the device work and not the pace of the Python wrapper; without it
-    the time is what a caller that launches and moves on pays per call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        if hide_host:
-            torch.cuda._sleep(20_000_000)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    times.sort()
-    return times[len(times) // 2]
-
-
 def roofline_ms(nbytes: float, op_seconds: float) -> tuple:
     """The larger of bytes over HBM rate and the operations' time."""
     t_bytes = nbytes / H100_BYTES_PER_S
@@ -139,12 +132,22 @@ def roofline_ms(nbytes: float, op_seconds: float) -> tuple:
 
 def glm_bound_ms(n: int, d: int, c: int, epilogue_ops: int, x_bytes: int = 2) -> tuple:
     """Least time for one K1/K2/K4 call: bytes (X at ``x_bytes`` per value,
-    y, Z in; ll, g out) over HBM rate, against the two products on bf16
-    tensor cores and the epilogue's f32 operations per (row, chain) (~12
-    logistic and hoisted, ~4 linear)."""
+    y, Z in; ll, g out) over HBM rate, against the two products (on bf16
+    tensor cores for bf16 and int8 X, in f32 outside the tensor cores for
+    f32 X) and the epilogue's f32 operations per (row, chain) (~12 logistic
+    and hoisted, ~4 linear)."""
     nbytes = n * d * x_bytes + n * 4 + c * d * 4 + c * 4 + c * d * 4
-    ops = max(4.0 * n * d * c / H100_BF16_FLOPS, epilogue_ops * n * c / H100_F32_FLOPS)
+    peak = H100_F32_FLOPS if x_bytes == 4 else H100_BF16_FLOPS
+    ops = max(4.0 * n * d * c / peak, epilogue_ops * n * c / H100_F32_FLOPS)
     return roofline_ms(nbytes, ops)
+
+
+def wide_design_floor_ms(n: int, d_pad: int, c: int) -> float:
+    """Least time of the two-kernel wide bf16 design by its bytes: X read
+    by both kernels and the bf16 residual R^T (chains padded to 256, rows
+    to 128) written once and read once, over HBM rate."""
+    rt_bytes = -(-c // 256) * 256 * (-(-n // 128) * 128) * 2
+    return (2 * n * d_pad * 2 + 2 * rt_bytes) / H100_BYTES_PER_S * 1e3
 
 
 def poisson_bound_ms(c: int, g: int, n: int, k: int) -> tuple:
@@ -172,33 +175,30 @@ def philox_bound_ms(c: int, dim: int, n_slots: int) -> tuple:
 def timed_row(row, kernel_call, plain_call, bound) -> dict:
     """Device times of the kernel and of its plain version, the bound, and
     ``call_ms``: the wrapper's time per call when the host sets the pace."""
-    row["ms"] = cuda_time_ms(kernel_call)
-    row["plain_ms"] = cuda_time_ms(plain_call, reps=5, inner=3)
-    row["call_ms"] = cuda_time_ms(kernel_call, hide_host=False)
+    from mlx_mcmc_tpu_torch.bench import device_ms
+
+    row["ms"] = device_ms(kernel_call)
+    row["plain_ms"] = device_ms(plain_call, reps=5, inner=3)
+    row["call_ms"] = device_ms(kernel_call, hide_host=False)
     row["bound_ms"], row["bound_by"] = bound
     log(f"  kernel {row['ms']:.4f} ms (per wrapper call {row['call_ms']:.4f} ms), "
         f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
 
-def device_breakdown_ms(fn, parts, calls: int = 10) -> dict:
-    """Device ms per call of each CUDA kernel ``fn`` launches, summed by
-    the first of ``parts`` that its name contains, from torch.profiler.
-    A diagnostic: if the profiler records no device time here, it says so
-    and the smoke goes on."""
-    from torch.profiler import ProfilerActivity, profile
+def device_breakdown_ms(fn, parts) -> dict:
+    """Device ms per call of each CUDA kernel ``fn`` launches (the bench's
+    ``kernels_ms``), summed by the first of ``parts`` that its name
+    contains. A diagnostic: if the profiler records no device time here, it
+    says so and the smoke goes on."""
+    from mlx_mcmc_tpu_torch.bench import kernels_ms
 
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
         out = dict.fromkeys(parts, 0.0)
-        for ev in prof.key_averages():
-            us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
-            part = next((p for p in parts if p in ev.key), None)
+        for name, ms in kernels_ms(fn).items():
+            part = next((p for p in parts if p in name), None)
             if part is not None:
-                out[part] += us / 1e3 / calls
+                out[part] += ms
     except Exception as exc:  # noqa: BLE001 -- a diagnostic must not end the smoke
         log(f"  breakdown: not measured ({type(exc).__name__}: {exc})")
         return {}
@@ -209,10 +209,12 @@ def device_breakdown_ms(fn, parts, calls: int = 10) -> dict:
     return out
 
 
-def check_glm(family: str, name: str, Xp, y, Z, timed: bool, ll_rel: float = None) -> dict:
+def check_glm(family: str, name: str, Xp, y, Z, timed: bool, ll_rel: float = None,
+              g_rel: float = None) -> dict:
     """K1 (logistic), K2 (linear) or K4 (hoisted: y unused; ll is its sum
     of softplus) against the plain version. For int8 ``Xp``, ``Z`` is the
-    scaled operand. ``ll_rel`` defaults to 0 for K1, LL_TOL_REL otherwise."""
+    scaled operand. ``ll_rel`` defaults to 0 for K1, LL_TOL_REL otherwise;
+    ``g_rel`` to F32_G_TOL_REL for f32 X, G_TOL_REL otherwise."""
     from mlx_mcmc_tpu_torch.ops import glm
 
     if family == "hoisted":
@@ -239,19 +241,62 @@ def check_glm(family: str, name: str, Xp, y, Z, timed: bool, ll_rel: float = Non
     ll_tol = LL_TOL_NATS + ll_rel * float(ll_p.abs().max())
     c, d = Z.shape
     n, d_pad = Xp.shape
-    dtype = "int8" if Xp.dtype == torch.int8 else "bf16"
+    dtype = {torch.int8: "int8", torch.float32: "f32"}.get(Xp.dtype, "bf16")
+    g_abs = F32_G_TOL_ABS if dtype == "f32" else G_TOL_ABS
+    if g_rel is None:
+        g_rel = F32_G_TOL_REL if dtype == "f32" else G_TOL_REL
     log(f"{tag} {name}: C={c} N={n} D={d} Dp={d_pad} {dtype} max|dll|={err_ll:.3e} nats "
-        f"(tol {ll_tol:.3e}) max|dg|={err_g:.3e} (max|g|={g_max:.3e})")
+        f"(tol {ll_tol:.3e}) max|dg|={err_g:.3e} (tol {g_rel * g_max + g_abs:.3e}, "
+        f"max|g|={g_max:.3e})")
     if err_ll > ll_tol:
         fail(f"{tag} {name}: ll error {err_ll} > {ll_tol}")
-    if err_g > G_TOL_REL * g_max + G_TOL_ABS:
-        fail(f"{tag} {name}: grad error {err_g} > {G_TOL_REL} * {g_max} + {G_TOL_ABS}")
+    if err_g > g_rel * g_max + g_abs:
+        fail(f"{tag} {name}: grad error {err_g} > {g_rel} * {g_max} + {g_abs}")
     row = {"shape_c_n_d": [c, n, d], "x_dtype": dtype, "max_abs_err": max(err_ll, err_g),
            "max_abs_err_ll": err_ll, "max_abs_err_g": err_g}
     if timed:
         ops = 4 if family == "linear" else 12
         timed_row(row, kernel, plain, glm_bound_ms(n, d, c, ops, Xp.element_size()))
     return row
+
+
+def wide_bits_check(Xp, y, Z) -> None:
+    """K1's wide bf16 kernels are reproducible and batch-invariant: two
+    calls on the same inputs give the same bits, and chains 0-3 of a call
+    with only those four chains give the bits of the full call."""
+    from mlx_mcmc_tpu_torch.ops import glm
+
+    a = glm.fused_logistic_vag_cuda(Xp, y, Z)
+    b = glm.fused_logistic_vag_cuda(Xp, y, Z)
+    four = glm.fused_logistic_vag_cuda(Xp, y, Z[:4].contiguous())
+    torch.cuda.synchronize()
+    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+        fail("K1 wide: two calls on the same inputs give different bits")
+    if not (torch.equal(a[0][:4], four[0]) and torch.equal(a[1][:4], four[1])):
+        fail(f"K1 wide: chains 0-3 of a C=4 call differ from those of the C={Z.shape[0]} call")
+    log(f"K1 wide: two calls bit-identical; chains 0-3 bit-identical at C=4 and C={Z.shape[0]}")
+
+
+def products_yardstick_ms(Xp, Z) -> float:
+    """The wide path's two products alone as torch.matmul on bf16 at the
+    kernels' shapes (X Zb^T with chains padded to 256, then R^T X): what the
+    library's GEMMs take for them. A yardstick only; the port never calls
+    it."""
+    from mlx_mcmc_tpu_torch.bench import device_ms
+
+    n, d_pad = Xp.shape
+    c_pad = -(-Z.shape[0] // 256) * 256
+    zb = torch.zeros(c_pad, d_pad, dtype=torch.bfloat16, device=Xp.device)
+    zb[: Z.shape[0], : Z.shape[1]] = Z
+    rt = torch.randn(c_pad, n, device=Xp.device).bfloat16()
+
+    def products():
+        torch.matmul(Xp, zb.T)
+        torch.matmul(rt, Xp)
+
+    t = device_ms(products)
+    log(f"  yardstick: the two products as torch.matmul (bf16) {t:.4f} ms")
+    return t
 
 
 def hoisted_gap(data, Z) -> dict:
@@ -472,6 +517,7 @@ def main() -> None:
     from mlx_mcmc_tpu_torch.models import make_poisson_event_rates
     from mlx_mcmc_tpu_torch.ops.glm import (
         fused_hoisted_vag_cuda,
+        fused_linear_vag_cuda,
         fused_logistic_vag_cuda,
         prepare_fused_linear_data,
         prepare_fused_logistic_data,
@@ -509,12 +555,17 @@ def main() -> None:
     w_problem = build_problem(wcfg)
     w_data = w_problem[2]
     z_w = torch.randn(wcfg["num_chains"], w_data["dim"], generator=gen, device="cuda")
-    variants = {"K1": {}, "K2": {}, "K4": {}}
-    variants["K1"]["wide_glm1000"] = check_glm(
-        "logistic", "wide glm1000", w_data["Xp"], w_data["yp"], z_w, timed=True, ll_rel=LL_TOL_REL)
-    variants["K1"]["wide_glm1000"]["breakdown_ms"] = device_breakdown_ms(
+    variants = {key: {} for key in ("K1", "K1_wide", "K1_f32", "K2", "K2_f32", "K4", "K4_f32")}
+    wide = check_glm("logistic", "wide glm1000", w_data["Xp"], w_data["yp"], z_w, timed=True,
+                     ll_rel=LL_TOL_REL, g_rel=WIDE_G_TOL_REL)
+    wide["device_breakdown_ms"] = device_breakdown_ms(
         lambda: fused_logistic_vag_cuda(w_data["Xp"], w_data["yp"], z_w),
-        ("round_z", "glm_wide_value", "glm_wide_grad", "sum_splits"))
+        ("round_z", "glm_hopper_value", "glm_hopper_grad", "sum_splits"))
+    wide["products_library_ms"] = products_yardstick_ms(w_data["Xp"], z_w)
+    log(f"  design floor {wide_design_floor_ms(*w_data['Xp'].shape, z_w.shape[0]):.4f} ms "
+        "(bytes of the two-kernel design)")
+    wide_bits_check(w_data["Xp"], w_data["yp"], z_w)
+    rows["K1_wide"] = wide
     q_data = prepare_fused_logistic_data(w_data["Xp"][:, :w_data["dim"]], w_data["yp"], quantize="int8")
     variants["K1"]["int8_glm1000"] = check_glm(
         "logistic", "int8 glm1000", q_data["Xp"], q_data["yp"], z_w * q_data["col_scale"],
@@ -524,14 +575,15 @@ def main() -> None:
     y_wl = x_wf @ torch.randn(w_data["dim"], generator=gen, device="cuda") + torch.randn(
         x_wf.shape[0], generator=gen, device="cuda")
     del x_wf
-    variants["K2"]["wide_glm1000"] = check_glm("linear", "wide glm1000", w_data["Xp"], y_wl, z_w, timed=True)
+    variants["K2"]["wide_glm1000"] = check_glm("linear", "wide glm1000", w_data["Xp"], y_wl, z_w,
+                                               timed=True, g_rel=WIDE_G_TOL_REL)
     del y_wl
     n_w, d_w, c_w = 777, 300, 70
     x_w = (torch.randn(n_w, d_w, generator=gen, device="cuda") / math.sqrt(d_w)).bfloat16()
     y_w = (torch.rand(n_w, generator=gen, device="cuda") < 0.5).float()
     z_rw = torch.randn(c_w, d_w, generator=gen, device="cuda")
     rw = prepare_fused_logistic_data(x_w, y_w)
-    variants["K1"]["wide_ragged"] = check_glm("logistic", "wide ragged", rw["Xp"], y_w, z_rw, timed=False)
+    variants["K1_wide"]["wide_ragged"] = check_glm("logistic", "wide ragged", rw["Xp"], y_w, z_rw, timed=False)
     rq = prepare_fused_logistic_data(x_w, y_w, quantize="int8")
     variants["K1"]["int8_wide_ragged"] = check_glm(
         "logistic", "int8 wide ragged", rq["Xp"], y_w, z_rw * rq["col_scale"], timed=False)
@@ -549,6 +601,28 @@ def main() -> None:
     variants["K4"]["int8_wide_ragged"] = check_glm(
         "hoisted", "int8 wide ragged", rq["Xp"], None, z_rw * rq["col_scale"], timed=False)
     k4_launches = fused_hoisted_vag_cuda.launches
+
+    # f32 X through the FFMA kernels (no sampling config uses it): K1, K2 and
+    # K4 at glm100's shape, timed, and at the ragged wide shape. Their
+    # launches are this block's.
+    counters = (fused_logistic_vag_cuda, fused_linear_vag_cuda, fused_hoisted_vag_cuda)
+    before = [k.launches for k in counters]
+    x_f32 = data["Xp"].float()
+    rows["K1_f32"] = check_glm("logistic", "f32 main", x_f32, data["yp"], z_main, timed=True)
+    rows["K2_f32"] = check_glm("linear", "f32 main", lin_data["Xp"].float(), lin_data["yp"], z_main,
+                               timed=True)
+    rows["K4_f32"] = check_glm("hoisted", "f32 main", x_f32, None, z_main, timed=True)
+    del x_f32
+    rwf = prepare_fused_logistic_data(x_w.float(), y_w)
+    variants["K1_f32"]["f32_wide_ragged"] = check_glm(
+        "logistic", "f32 wide ragged", rwf["Xp"], y_w, z_rw, timed=False)
+    variants["K2_f32"]["f32_wide_ragged"] = check_glm(
+        "linear", "f32 wide ragged", prepare_fused_linear_data(x_w.float(), y_wl)["Xp"], y_wl, z_rw,
+        timed=False)
+    variants["K4_f32"]["f32_wide_ragged"] = check_glm(
+        "hoisted", "f32 wide ragged", rwf["Xp"], None, z_rw, timed=False)
+    f32_launches = {key: k.launches - b
+                    for key, k, b in zip(("K1_f32", "K2_f32", "K4_f32"), counters, before)}
 
     p_problem = build_problem(pcfg)
     p_data = p_problem[2]
@@ -594,7 +668,7 @@ def main() -> None:
 
     # --- glm1000_fused: the wide path --------------------------------------
     wmetrics, wresult = drive("glm1000_fused", wcfg, w_problem)
-    variants["K1"]["wide_glm1000"]["launches"] = wmetrics["launches"]["glm_fused_logistic"]
+    launches["K1_wide"] = wmetrics["launches"]["glm_fused_logistic"]
     beta = wresult.samples["beta"]
     want = (wcfg["num_chains"], wcfg["num_samples"], wcfg["num_features"])
     if tuple(beta.shape) != want or beta.dtype != torch.float32:
@@ -611,8 +685,8 @@ def main() -> None:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- funnel detail ----------------------------------------------------
-    fcfg = dict(CONFIGS["funnel8"], num_warmup=200, num_samples=100)
-    fmetrics, fresult = drive("funnel8 (200 + 100)", fcfg)
+    fcfg = dict(CONFIGS["funnel8"], num_warmup=100, num_samples=50)
+    fmetrics, fresult = drive("funnel8 (100 + 50)", fcfg)
     if fmetrics["launches"]["philox_step_draws"] == 0:
         fail("the funnel launched the Philox kernel no time")
     for k, v in fresult.samples.items():
@@ -661,26 +735,38 @@ def main() -> None:
     # --- layout invariance -------------------------------------------------
     layout_invariance()
 
+    glm_src = "mlx_mcmc_tpu_torch/csrc/glm_fused.cu"
+    k1, k2, k4 = ("mlx_mcmc_tpu/ops/pallas/glm.py:49", "mlx_mcmc_tpu/ops/pallas/glm.py:281",
+                  "mlx_mcmc_tpu/ops/pallas/glm.py:113")
+    # (name, source, replaces, device kernels); a path of the GLM entries
+    # that runs other device kernels has its own row.
     sources = {
-        "K1": ("glm_fused_logistic", "mlx_mcmc_tpu_torch/csrc/glm_fused.cu",
-               "mlx_mcmc_tpu/ops/pallas/glm.py:49"),
-        "K2": ("glm_fused_linear", "mlx_mcmc_tpu_torch/csrc/glm_fused.cu",
-               "mlx_mcmc_tpu/ops/pallas/glm.py:281"),
+        "K1": ("glm_fused_logistic", glm_src, k1, ["glm_fused_kernel"]),
+        "K1_wide": ("glm_fused_logistic:wide_bf16", glm_src, k1,
+                    ["glm_hopper_value_kernel", "glm_hopper_grad_kernel"]),
+        "K1_f32": ("glm_fused_logistic:f32", glm_src, k1,
+                   ["glm_f32_value_kernel", "glm_f32_grad_kernel"]),
+        "K2": ("glm_fused_linear", glm_src, k2, ["glm_fused_kernel"]),
+        "K2_f32": ("glm_fused_linear:f32", glm_src, k2,
+                   ["glm_f32_value_kernel", "glm_f32_grad_kernel"]),
         "K3": ("poisson_fused", "mlx_mcmc_tpu_torch/csrc/poisson_fused.cu",
-               "mlx_mcmc_tpu/ops/pallas/poisson.py:62"),
-        "K4": ("glm_fused_hoisted", "mlx_mcmc_tpu_torch/csrc/glm_fused.cu",
-               "mlx_mcmc_tpu/ops/pallas/glm.py:113"),
+               "mlx_mcmc_tpu/ops/pallas/poisson.py:62", ["poisson_fused_kernel"]),
+        "K4": ("glm_fused_hoisted", glm_src, k4, ["glm_fused_kernel"]),
+        "K4_f32": ("glm_fused_hoisted:f32", glm_src, k4,
+                   ["glm_f32_value_kernel", "glm_f32_grad_kernel"]),
         "philox": ("philox_step_draws", "mlx_mcmc_tpu_torch/csrc/philox.cu",
-                   "mlx_mcmc_tpu/inference/engine.py:390"),
+                   "mlx_mcmc_tpu/inference/engine.py:390", ["philox_step_kernel"]),
     }
     launches["K4"] = k4_launches
+    launches.update(f32_launches)
     kernels = []
-    for key, (name, source, replaces) in sources.items():
+    for key, (name, source, replaces, device_kernels) in sources.items():
         row = rows[key]
         extra = {k: v for k, v in row.items() if k not in ("ms", "plain_ms", "bound_ms", "bound_by")}
-        if key in variants:
+        extra["device_kernels"] = device_kernels
+        if variants.get(key):
             extra["variants"] = variants[key]
-        if key == "K4":
+        if key == "K4" or key.endswith("_f32"):
             extra["sampling_path"] = False
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,

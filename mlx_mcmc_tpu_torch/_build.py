@@ -40,19 +40,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}.so"
+def library_path(name: str, out_dir: Path = BUILD_DIR) -> Path:
+    return Path(out_dir) / f"lib{name}.so"
 
 
-def build(names: Iterable[str], verbose: bool = False) -> Dict[str, str]:
-    """Compile every stale source in ``names`` with one ``nvcc`` each, all
-    started together. Returns ``{name: compiler output}`` for the sources
-    it built (with ``verbose``, ptxas's register and shared-memory report).
-    Raises with the compiler's output if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def build(names: Iterable[str], verbose: bool = False, src_dir: Path = CSRC_DIR,
+          out_dir: Path = BUILD_DIR) -> Dict[str, str]:
+    """Compile every stale ``<src_dir>/<name>.cu`` in ``names`` into
+    ``<out_dir>/lib<name>.so`` with one ``nvcc`` each, all started together.
+    Returns ``{name: compiler output}`` for the sources it built (with
+    ``verbose``, ptxas's register and shared-memory report). Raises with the
+    compiler's output if any build fails."""
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        src, out = CSRC_DIR / f"{name}.cu", library_path(name)
+        src, out = Path(src_dir) / f"{name}.cu", library_path(name, out_dir)
         if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -77,8 +79,12 @@ def build(names: Iterable[str], verbose: bool = False) -> Dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, path=None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed.
+    With ``path``, the library there (a build of a variant of that source)
+    takes its place from now on."""
+    if path is not None:
+        _LOADED[name] = ctypes.CDLL(str(path))
     lib = _LOADED.get(name)
     if lib is None:
         build([name])

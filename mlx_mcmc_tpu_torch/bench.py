@@ -6,6 +6,8 @@ same settings and the same JSON line. Run on the GPU:
 
     python -m mlx_mcmc_tpu_torch.bench [glm100_fused | glm1000_fused | poisson1000_cov]
     python -m mlx_mcmc_tpu_torch.bench loop    # costs inside the NUTS loop
+    python -m mlx_mcmc_tpu_torch.bench wide [--against ROOT]   # K1's wide path,
+                                        # kernel and glm1000_fused, beside ROOT's
 
 The timed run follows a warm run (kernel build, allocator and library
 start-up are excluded). ESS is computed on the device. The detail adds every
@@ -19,9 +21,13 @@ reference's bench has no such config, so neither has this one.
 
 from __future__ import annotations
 
+import importlib
 import json
+import statistics
+import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -234,10 +240,135 @@ def loop_costs() -> dict:
     return out
 
 
+def device_ms(fn, reps: int = 7, inner: int = 10, hide_host: bool = True) -> float:
+    """Median over ``reps`` of the mean time of ``inner`` back-to-back calls,
+    from CUDA events. With ``hide_host`` the stream first sleeps on the card
+    (~10 ms, longer than the host takes to enqueue the calls), so the events
+    time the device work and not the pace of the Python wrapper; without it
+    the time is what a caller that launches and moves on pays per call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if hide_host:
+            torch.cuda._sleep(20_000_000)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return statistics.median(times)
+
+
+def _profile_kernels(fn) -> tuple:
+    """Runs ``fn`` once under torch.profiler (device activity only).
+    Returns (device microseconds of each kernel and copy it ran, summed by
+    name, and the wall seconds of ``fn`` up to a synchronize)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+        if us and not ev.key.startswith("cuda"):
+            name = ev.key.replace("void ", "").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0]
+            out[name] = out.get(name, 0.0) + us
+    return out, wall
+
+
+def kernels_ms(fn, calls: int = 10) -> dict:
+    """Device ms per call of each CUDA kernel ``fn`` launches, by name, from
+    torch.profiler over ``calls`` calls."""
+    totals, _ = _profile_kernels(lambda: [fn() for _ in range(calls)])
+    return {name: us / 1e3 / calls for name, us in totals.items()}
+
+
+def _device_busy(run) -> dict:
+    """The device's busy share over one call of ``run``: the device time of
+    every kernel and copy over the wall. The profiler's own cost per launch
+    lengthens the wall, so the share reads a little low."""
+    totals, wall = _profile_kernels(run)
+    busy = sum(totals.values()) / 1e6
+    return {"wall_seconds": wall, "device_seconds": busy, "busy_share": busy / wall}
+
+
+def _bench_from(root: str):
+    """This module as the checkout at ``root`` has it, imported as a module
+    tree of its own beside this one (its kernels build under ``root``)."""
+    if not (Path(root) / "mlx_mcmc_tpu_torch" / "bench.py").is_file():
+        raise FileNotFoundError(f"no mlx_mcmc_tpu_torch package under {root}")
+
+    def ours():
+        return [k for k in sys.modules if k.split(".")[0] == "mlx_mcmc_tpu_torch"]
+
+    mine = {k: sys.modules.pop(k) for k in ours()}
+    sys.path.insert(0, root)
+    try:
+        return importlib.import_module("mlx_mcmc_tpu_torch.bench")
+    finally:
+        sys.path.remove(root)
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(mine)
+
+
+def wide_times(against: str | None = None) -> dict:
+    """K1 on the wide path at glm1000_fused's shape and data: device ms per
+    call and the device ms of each kernel it launches; then one
+    glm1000_fused run (wall to the device ESS, launches, host syncs, min-ESS);
+    then the device's busy share over a 40 + 40 run under the profiler.
+    With ``against``, the root of another checkout, the same for that
+    checkout's package in this process, in turns (other, this, this, other),
+    so both are measured on one card in one call. Each package samples
+    through its own value+grad (the same data: one seed); a short run of
+    each first takes the start-up costs out of the timed runs."""
+    packages = {"this": sys.modules[__name__]}
+    if against:
+        packages["other"] = _bench_from(against)
+    order = ["other", "this", "this", "other"] if against else ["this", "this"]
+    cfg = CONFIGS["glm1000_fused"]
+    problems = {key: pkg.build_problem(cfg) for key, pkg in packages.items()}
+    data = problems["this"][2]
+    Z = 0.05 * torch.randn(256, 1000, generator=torch.Generator(device="cuda").manual_seed(1),
+                           device="cuda")
+    out = {key: {"kernel_ms": [], "runs": []} for key in packages}
+    for key in order:
+        vag = packages[key].fused_logistic_vag_cuda
+        out[key]["kernel_ms"].append(device_ms(lambda: vag(data["Xp"], data["yp"], Z)))
+    for key in packages:
+        vag = packages[key].fused_logistic_vag_cuda
+        out[key]["kernels_ms"] = kernels_ms(lambda: vag(data["Xp"], data["yp"], Z))
+    for key, pkg in packages.items():
+        pkg.run_config(dict(cfg, num_warmup=20, num_samples=20), seed=0, problem=problems[key])
+    for key in order:
+        metrics, _, _ = packages[key].run_config(cfg, seed=1, problem=problems[key])
+        out[key]["runs"].append({k: metrics[k] for k in (
+            "wall_seconds", "min_ess", "mean_accept", "mean_tree_depth", "divergences",
+            "host_syncs")} | {"k1_launches": metrics["launches"]["glm_fused_logistic"]})
+    short = dict(cfg, num_warmup=40, num_samples=40)
+    for key, pkg in packages.items():
+        out[key]["busy_40_40"] = _device_busy(
+            lambda: pkg.run_config(short, seed=2, problem=problems[key]))
+    return out
+
+
 def main() -> None:
     name = sys.argv[1] if len(sys.argv) > 1 else "glm100_fused"
     if name == "loop":
         print(json.dumps(dict(loop_costs(), device=torch.cuda.get_device_name(0))))
+        return
+    if name == "wide":
+        against = sys.argv[3] if len(sys.argv) > 3 and sys.argv[2] == "--against" else None
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True).stdout.strip()
+        print(json.dumps(dict(wide_times(against), device=smi)))
         return
     cfg = dict(CONFIGS[name])
     cfg["label"] = cfg["label"].format(chains=cfg["num_chains"])

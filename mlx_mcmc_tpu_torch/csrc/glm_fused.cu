@@ -1,16 +1,17 @@
 // Fused GLM log-likelihood and gradient for a batch of chains, for Hopper
 // (sm_90a). One kernel template per path, three likelihood epilogues that
-// differ only in the per-element step, bf16 or int8 X.
+// differ only in the per-element step, bf16, int8 or f32 X.
 //
 // Replaces three TPU kernels of mlx_mcmc_tpu/ops/pallas/glm.py:
 // _fused_kernel (logistic, entry glm_fused_logistic), _fused_linear_kernel
 // (Gaussian, entry glm_fused_linear) and _fused_hoisted_kernel (the
 // rejected hoisted-outcome variant, entry glm_fused_hoisted). For X (N, Dp)
-// bf16 or int8, y (N,) f32 and Z (C, D) f32 (cast to bf16), all compute
+// bf16, int8 or f32, y (N,) f32 and Z (C, D) f32 (cast to bf16 unless X is
+// f32), all compute
 //
 //   s      = X Z^T                        f32 accumulation
 //   ll_c   = sum_i term(y_i, s_ic)
-//   g      = X^T bf16(res(y, s))          f32 accumulation
+//   g      = X^T xdtype(res(y, s))        f32 accumulation
 //
 // with, for the logistic likelihood (h = tanh(s / 2)),
 //   term = y s - [max(s, 0) - log(0.5 + 0.5 |h|)],  res = y - (0.5 + 0.5 h),
@@ -48,31 +49,58 @@
 // with accumulators kept in registers across all row tiles: at most two
 // 16-row m-tiles of g per warp, hence Dp <= 128.
 //
-// Wide (Dp > 128, any multiple of 16), two kernels. At glm1000's shape
-// (N = 100,000, D = 1000, C = 256) the products are 1.02e11 flop, 0.104 ms
-// at 989 TFLOP/s, against 0.060 ms to read bf16 X once: bound by
-// operations. g (Dp x 64 chains) no longer fits a block's registers, so
-//   A) glm_wide_value_kernel: a block owns 64 chains and a row range, walks
-//      it in 128-row tiles, contracts s over Dp in 32-deep chunks of X and
-//      of bf16 Z streamed through shared memory (the next chunk is loaded
-//      into registers while the current one is multiplied), applies the
-//      epilogue, keeps per-chain ll in registers and writes the bf16
-//      residual R^T (C_pad x N_pad) to device memory, coalesced through a
-//      shared tile;
-//   B) glm_wide_grad_kernel: g^T = R^T X as a tiled bf16 tensor-core
-//      product, a block per (64 chains, 64 columns, row split), X fragments
-//      through ldmatrix.trans.
-// X is read twice and R (51 MB at glm1000) written and read once: ~0.5 GB,
-// ~0.15 ms at 3.35 TB/s, above the one-pass bound; a one-pass design is
-// later work.
+// Wide (Dp > 128, any multiple of 16), bf16 X: two Hopper kernels. At
+// glm1000's shape (N = 100,000, D = 1000, C = 256) the two products are
+// 1.02e11 flop, 0.1035 ms at 989 TFLOP/s, against 0.060 ms to read bf16 X
+// once: the function is bound by operations. A one-pass design would keep
+// g (Dp x chains) resident: 1008 x 64 chains of f32 is 258 KB, more than a
+// block's 256 KB of registers or 227 KB of shared memory. So the work stays
+// in two kernels, and X is read twice while the bf16 residual R^T (C_pad x
+// N_pad, 51 MB at glm1000) is written once and read once: ~0.51 GB, a
+// design floor of ~0.151 ms at 3.35 TB/s. Both kernels are warp-specialised:
+// one producer thread keeps a ring of TMA loads (128-byte swizzle, mbarrier
+// completion) in flight; two consumer warpgroups run wgmma on the stages
+// that have arrived, with registers moved to them by setmaxnreg.
+//   A) glm_hopper_value_kernel: S^T = Zb X^T, M = chains, N = rows, K = Dp.
+//      A block owns 256 chains (each warpgroup 128 of them as two m64
+//      slices, so X is read once per call up to C = 256) and a range of 128-row
+//      tiles; its producer streams X (128 x 64) and Zb (256 x 64) stages
+//      through a 4-deep ring across tile boundaries, so the next tile's
+//      first loads overlap an epilogue. With chains as M, a thread's
+//      accumulators hold 4 chains over 32 rows: the epilogue masks rows past
+//      N, sums ll in registers across all its tiles (two shuffles at the
+//      very end, a fixed order), and rounds the residual to bf16 in row
+//      pairs into a swizzled shared tile that TMA stores to R^T [chain][row].
+//   B) glm_hopper_grad_kernel: G^T = R^T X, M = chains (256 per block, two
+//      m64 slices per warpgroup), N = 128 columns of g, K = rows in 64-row
+//      stages. X is the MN-major B operand through the transpose bit of the
+//      wgmma descriptor, so it needs no transposed copy and is read once
+//      per call up to C = 256. The rows are cut into a fixed number of
+//      splits to fill the SMs.
+// Neither split schedule depends on C: a chain's ll and g are the same bits
+// whatever the number of chains in the call.
 //
-// Both paths reduce per-split partial sums with a small kernel in a fixed
-// order: no float atomics, so results are reproducible run to run. wgmma,
-// TMA and a persistent schedule are left for later.
+// Wide int8 X keeps the two mma.sync kernels of the first wide design
+// (glm_wide_value_kernel, glm_wide_grad_kernel): 64 chains per block, 32-deep
+// register-staged chunks; int8 tiles are widened to bf16 on their way to
+// shared memory.
+//
+// f32 X (any Dp): two simple kernels in exact f32 on the CUDA cores, no
+// tensor cores (TF32 is off on every value path, and a bf16 split would not
+// give f32 accuracy): glm_f32_value_kernel (s through shared-memory tiles
+// and 4x4 FFMA micro-tiles per thread, the epilogue, ll partials and the f32
+// residual R^T) and glm_f32_grad_kernel (g^T = R^T X the same way). Bound at
+// glm100's shape: 4 N D C flop / 67 TFLOP/s = 0.24 ms.
+//
+// Every path reduces per-split partial sums with a small kernel in a fixed
+// order: no float atomics, so results are reproducible run to run.
 
+#include <cuda.h>  // CUtensorMap; the encoder comes from the driver at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -358,8 +386,8 @@ __global__ void round_z_kernel(const float* __restrict__ Z, __nv_bfloat16* __res
   Zb[i] = __float2bfloat16_rn((c < C && d < D) ? Z[(size_t)c * D + d] : 0.f);
 }
 
-// Wide path, kernel A: s = X Z^T over the full depth, the epilogue, per-split
-// ll partials and the bf16 residual Rt[chain][row] (row stride ldr).
+// Wide int8 path, kernel A: s = X Z^T over the full depth, the epilogue,
+// per-split ll partials and the bf16 residual Rt[chain][row] (row stride ldr).
 template <class Epilogue, class XT>
 __global__ void __launch_bounds__(kAThreads)
 glm_wide_value_kernel(const XT* __restrict__ X, const float* __restrict__ y,
@@ -490,7 +518,7 @@ glm_wide_value_kernel(const XT* __restrict__ X, const float* __restrict__ y,
   }
 }
 
-// Wide path, kernel B: g^T (chains x Dp) = R^T X over one row split, for 64
+// Wide int8 path, kernel B: g^T (chains x Dp) = R^T X over one row split, for 64
 // chains and 64 columns of g. Warp w owns chains [16 w, 16 w + 16) and all
 // 64 columns: A = Rt rows from shared memory, B = X chunk [row][d] through
 // ldmatrix.trans.
@@ -571,6 +599,543 @@ glm_wide_grad_kernel(const XT* __restrict__ X, const __nv_bfloat16* __restrict__
   }
 }
 
+// ---- f32 X: exact f32 on the CUDA cores ------------------------------------
+
+constexpr int kFT = 64;         // rows (value) or columns of g (gradient), and chains, per block tile
+constexpr int kFK = 16;         // depth of one staged chunk
+constexpr int kFLd = kFT + 4;   // row stride of the staged chunks: float4-aligned, at most
+                                // 2-way bank conflicts on the transposing stores
+constexpr int kFThreads = 256;  // 16 x 16 threads, a 4 x 4 micro-tile each
+
+// f32 value kernel: s = X Z^T for 64 chains and one row range walked in
+// 64-row tiles, the epilogue, per-split ll partials and the f32 residual
+// Rt[chain][row] (row stride ldr, a multiple of 64). Thread (tr, tc) owns
+// rows 4 tr + i and chains 4 tc + j of a tile.
+template <class Epilogue>
+__global__ void __launch_bounds__(kFThreads)
+glm_f32_value_kernel(const float* __restrict__ X, const float* __restrict__ y,
+                     const float* __restrict__ Z, float* __restrict__ ll_part,
+                     float* __restrict__ Rt, int N, int Dp, int D, int C, int ldr,
+                     int rows_per_split) {
+  __shared__ __align__(16) float Xs[kFK * kFLd];  // [k][row]
+  __shared__ __align__(16) float Zs[kFK * kFLd];  // [k][chain]
+  __shared__ float red[16 * kFT];                 // [tr][chain]
+  const int tid = threadIdx.x, tr = tid & 15, tc = tid >> 4;
+  const int c0 = blockIdx.x * kFT, split = blockIdx.y;
+  const int row_begin = split * rows_per_split;
+  const int row_end = min(N, row_begin + rows_per_split);
+
+  float ll_acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int r0 = row_begin; r0 < row_end; r0 += kFT) {
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    for (int k0 = 0; k0 < Dp; k0 += kFK) {
+      // 64 rows of X and 64 chains of Z, 16 deep; consecutive threads read
+      // consecutive k of one row.
+#pragma unroll
+      for (int p = tid; p < kFT * kFK; p += kFThreads) {
+        const int r = p / kFK, k = p % kFK, row = r0 + r, c = c0 + r;
+        Xs[k * kFLd + r] = row < row_end ? X[(size_t)row * Dp + k0 + k] : 0.f;
+        Zs[k * kFLd + r] = (c < C && k0 + k < D) ? Z[(size_t)c * D + k0 + k] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < kFK; ++k) {
+        const float4 a = *reinterpret_cast<const float4*>(Xs + k * kFLd + 4 * tr);
+        const float4 b = *reinterpret_cast<const float4*>(Zs + k * kFLd + 4 * tc);
+        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+
+    // Epilogue: ll in registers, the residual to Rt, four rows per 16-byte
+    // store.
+    float yv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + 4 * tr + i;
+      yv[i] = (Epilogue::kUsesY && row < row_end) ? y[row] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float r4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float term, res;
+        Epilogue::apply(yv[i], acc[i][j], term, res);
+        if (r0 + 4 * tr + i >= row_end) term = res = 0.f;
+        ll_acc[j] += term;
+        r4[i] = res;
+      }
+      *reinterpret_cast<float4*>(Rt + (size_t)(c0 + 4 * tc + j) * ldr + r0 + 4 * tr) =
+          make_float4(r4[0], r4[1], r4[2], r4[3]);
+    }
+  }
+
+  // ll: the 16 row groups of the block, in a fixed order.
+#pragma unroll
+  for (int j = 0; j < 4; ++j) red[tr * kFT + 4 * tc + j] = ll_acc[j];
+  __syncthreads();
+  if (tid < kFT && c0 + tid < C) {
+    float v = red[tid];
+    for (int t = 1; t < 16; ++t) v += red[t * kFT + tid];
+    ll_part[(size_t)split * C + c0 + tid] = v;
+  }
+}
+
+// f32 gradient kernel: g^T = R^T X for 64 chains and 64 columns of g over one
+// row split, in 16-row chunks. Thread (td, tc) owns chains 4 tc + i and
+// columns 4 td + j.
+__global__ void __launch_bounds__(kFThreads)
+glm_f32_grad_kernel(const float* __restrict__ X, const float* __restrict__ Rt,
+                    float* __restrict__ g_part, int N, int Dp, int D, int C, int ldr,
+                    int rows_per_split) {
+  __shared__ __align__(16) float Rs[kFK * kFLd];  // [row][chain]
+  __shared__ __align__(16) float Xs[kFK * kFLd];  // [row][d]
+  const int tid = threadIdx.x, td = tid & 15, tc = tid >> 4;
+  const int c0 = blockIdx.x * kFT, d0 = blockIdx.y * kFT, split = blockIdx.z;
+  const int row_begin = split * rows_per_split;
+  const int row_end = min(N, row_begin + rows_per_split);
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int r0 = row_begin; r0 < row_end; r0 += kFK) {
+#pragma unroll
+    for (int p = tid; p < kFT * kFK; p += kFThreads) {
+      // R^T: consecutive threads read consecutive rows of one chain; X:
+      // consecutive columns of one row.
+      const int cl = p / kFK, kr = p % kFK, kx = p / kFT, dl = p % kFT;
+      Rs[kr * kFLd + cl] = r0 + kr < row_end ? Rt[(size_t)(c0 + cl) * ldr + r0 + kr] : 0.f;
+      Xs[kx * kFLd + dl] =
+          (r0 + kx < row_end && d0 + dl < Dp) ? X[(size_t)(r0 + kx) * Dp + d0 + dl] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kFK; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(Rs + k * kFLd + 4 * tc);
+      const float4 b = *reinterpret_cast<const float4*>(Xs + k * kFLd + 4 * td);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + 4 * tc + i, d = d0 + 4 * td + j;
+      if (c < C && d < D) g_part[((size_t)split * C + c) * D + d] = acc[i][j];
+    }
+  }
+}
+
+// ---- Hopper wide path for bf16 X: TMA rings and wgmma ----------------------
+
+constexpr int kHRows = 128;     // value kernel: rows per tile, the wgmma N
+constexpr int kHChains = 256;   // chains per block: the wgmma M of both kernels, two m64
+                                // slices per consumer warpgroup
+constexpr int kHK = 64;         // depth of a ring stage: 64 bf16, one 128-byte swizzle line
+constexpr int kHCols = 128;     // gradient kernel: columns of g per block
+constexpr int kHThreads = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+
+// One box of 128 chains x 64 bf16 (a Zb half of a value stage, an R^T half of
+// a gradient stage, a warpgroup's residual staging tile): 16 KB.
+constexpr uint32_t kHalfBoxBytes = (kHChains / 2) * kHK * 2;
+
+constexpr int kVStages = 4;
+constexpr uint32_t kVXBytes = kHRows * kHK * 2;                  // X stage, 16 KB
+constexpr uint32_t kVStageBytes = kVXBytes + 2 * kHalfBoxBytes;  // + Zb stage, 32 KB
+constexpr uint32_t kVBarOff = kVStages * kVStageBytes + 2 * kHalfBoxBytes;
+constexpr uint32_t kVSmem = kVBarOff + 2 * kVStages * 8 + 1024;  // + 1024-byte alignment slack
+
+constexpr int kGStages = 4;
+constexpr uint32_t kGRBytes = kHChains * kHK * 2;  // R^T stage: 256 chains x 64 rows, 32 KB
+constexpr uint32_t kGXBytes = kHK * kHCols * 2;    // X stage: 64 rows x two 64-column boxes
+constexpr uint32_t kGStageBytes = kGRBytes + kGXBytes;
+constexpr uint32_t kGBarOff = kGStages * kGStageBytes;
+constexpr uint32_t kGSmem = kGBarOff + 2 * kGStages * 8 + 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the phase of ``bar`` with the given parity has completed. A
+// ring that never fills (a fault in the schedule) traps after ~2^36 cycles
+// (tens of seconds) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 36)) {
+      __trap();
+    }
+  }
+}
+
+// One 2-D box of ``map`` at (c0 inner, c1 outer) into shared memory; its
+// bytes complete a transaction on ``bar``. Out-of-bounds elements are zero.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Shared-memory matrix descriptor of a wgmma operand in the 128-byte swizzle
+// layout (the layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B): start
+// address, leading byte offset (between 64-element swizzle atoms along M or
+// N, for an MN-major operand; unused for K-major), stride byte offset 1024
+// (between groups of eight 128-byte lines), layout type 1 (128B swizzle).
+// The start must lie in a 1024-byte aligned tile; stepping K by 16 bf16 adds
+// 2 (32 bytes) for K-major and 128 (16 lines) for MN-major.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo_bytes) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+#define WG_F8(d, i)                                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_F32(d, i) WG_F8(d, i), WG_F8(d, i + 8), WG_F8(d, i + 16), WG_F8(d, i + 24)
+
+// D (64 x 128, f32) += A (64 x 16) B, bf16 in shared memory. A is K-major;
+// B is 128 x 16 K-major (kTransB = 0) or 16 x 128 MN-major (kTransB = 1, the
+// transpose bit). acc[4 j + q] of thread (warp w, lane l) of the warpgroup
+// is row 16 w + l / 4 + 8 (q / 2), column 8 j + 2 (l % 4) + q % 2.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : WG_F32(d, 0), WG_F32(d, 32)
+      : "l"(da), "l"(db), "r"(1), "n"(kTransB));
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// Value kernel of the wide bf16 path: S^T = Zb X^T with M = chains and N =
+// rows, so that each thread's accumulators hold a few chains over many rows
+// (ll sums stay in registers, residual row pairs pack into 32-bit stores).
+// Grid (row splits, chain tiles of 256); warpgroup w owns chains [128 w,
+// 128 w + 128) of the tile as two m64 slices, both over the same 128-row X
+// stage. Maps: X (N x Dp, box 64 x 128 rows), Zb (Cp x Dp, box 64 x 128
+// chains), Rt (Cp x ldr, box 64 rows x 128 chains; stored to). Writes
+// ll_part[split][c] and, through TMA stores, Rt[chain][row] = bf16(res),
+// zero past N.
+template <class Epilogue>
+__global__ void __launch_bounds__(kHThreads, 1)
+glm_hopper_value_kernel(const __grid_constant__ CUtensorMap x_map,
+                        const __grid_constant__ CUtensorMap z_map,
+                        const __grid_constant__ CUtensorMap rs_map, const float* __restrict__ y,
+                        float* __restrict__ ll_part, int N, int Dp, int C, int tiles_per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kVBarOff);
+  uint64_t* empty = full + kVStages;
+  const int split = blockIdx.x, ct = blockIdx.y;
+  const int tile_begin = split * tiles_per_split;
+  const int tile_end = min(tile_begin + tiles_per_split, (N + kHRows - 1) / kHRows);
+  const int nk = (Dp + kHK - 1) / kHK;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kVStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // Producer: one thread streams the X and Zb stages of every tile, across
+    // tile boundaries, so the next tile's first stages load during an
+    // epilogue.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 2 * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = tile_begin; t < tile_end; ++t) {
+        for (int kc = 0; kc < nk; ++kc) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = smem + stage * kVStageBytes;
+          mbar_expect_tx(&full[stage], kVStageBytes);
+          tma_load_2d(st, &x_map, &full[stage], kc * kHK, t * kHRows);
+          tma_load_2d(st + kVXBytes, &z_map, &full[stage], kc * kHK, ct * kHChains);
+          tma_load_2d(st + kVXBytes + kHalfBoxBytes, &z_map, &full[stage], kc * kHK,
+                      ct * kHChains + 128);
+          if (++stage == kVStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tw = threadIdx.x & 127, warp = tw >> 5, lane = tw & 31;
+    unsigned char* stg = smem + kVStages * kVStageBytes + wg * kHalfBoxBytes;
+    // This thread's chains: 16 warp + lane / 4 + 8 h in slice s (+ 64 s).
+    const int cl = warp * 16 + (lane >> 2);
+    float acc0[64], acc1[64];
+    float ll[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // [slice][h], over the thread's rows
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = tile_begin; t < tile_end; ++t) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+      for (int kc = 0; kc < nk; ++kc) {
+        mbar_wait(&full[stage], phase);
+        unsigned char* st = smem + stage * kVStageBytes;
+        const uint64_t da0 = sw128_desc(st + kVXBytes + (wg * 128) * 128, 16);
+        const uint64_t da1 = sw128_desc(st + kVXBytes + (wg * 128 + 64) * 128, 16);
+        const uint64_t db = sw128_desc(st, 16);
+        fence_acc(acc0);
+        fence_acc(acc1);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < kHK / 16; ++k) {
+          wgmma_m64n128k16<0>(acc0, da0 + 2 * k, db + 2 * k);
+          wgmma_m64n128k16<0>(acc1, da1 + 2 * k, db + 2 * k);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(acc0);
+        fence_acc(acc1);
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == kVStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+
+      // Epilogue on the accumulators, one 64-row half at a time: rows past N
+      // masked, ll summed in registers, the residual rounded to bf16 in row
+      // pairs into the swizzled staging tile of the Rt store box (line =
+      // chain, 16-byte chunk = (row % 64) / 8 ^ chain % 8), then a TMA store.
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (tw == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        named_barrier(2 + wg, 128);  // the staging tile is free
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = 8 * half + jj;
+          const int row = t * kHRows + 8 * j + 2 * (lane & 3);
+          const bool va = row < N, vb = row + 1 < N;
+          const float ya = (Epilogue::kUsesY && va) ? __ldg(y + row) : 0.f;
+          const float yb = (Epilogue::kUsesY && vb) ? __ldg(y + row + 1) : 0.f;
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float sa = s ? acc1[4 * j + 2 * h] : acc0[4 * j + 2 * h];
+              const float sb = s ? acc1[4 * j + 2 * h + 1] : acc0[4 * j + 2 * h + 1];
+              float ta, ra, tb, rb;
+              Epilogue::apply(ya, sa, ta, ra);
+              Epilogue::apply(yb, sb, tb, rb);
+              if (!va) ta = ra = 0.f;
+              if (!vb) tb = rb = 0.f;
+              ll[s][h] += ta;
+              ll[s][h] += tb;
+              const int chain = 64 * s + cl + 8 * h;  // within the warpgroup's 128
+              __nv_bfloat162 pair = __floats2bfloat162_rn(ra, rb);
+              *reinterpret_cast<__nv_bfloat162*>(stg + chain * 128 + ((jj ^ (chain & 7)) << 4) +
+                                                 4 * (lane & 3)) = pair;
+            }
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        named_barrier(2 + wg, 128);
+        if (tw == 0)
+          tma_store_2d(&rs_map, stg, t * kHRows + 64 * half, ct * kHChains + wg * 128);
+      }
+    }
+
+    // ll: the four lanes that share a chain, then one partial per split.
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = ll[s][h];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        const int c = ct * kHChains + wg * 128 + 64 * s + cl + 8 * h;
+        if ((lane & 3) == 0 && c < C) ll_part[(size_t)split * C + c] = v;
+      }
+    }
+    if (tw == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// Gradient kernel of the wide bf16 path: g^T = R^T X over one split of
+// 64-row chunks. Grid (column tiles of 128, row splits, chain tiles of 256);
+// maps: Rt (box 64 rows x 128 chains), X (box 64 columns x 64 rows). Warpgroup
+// w owns chains [128 w, 128 w + 128) of the tile as two m64 slices.
+__global__ void __launch_bounds__(kHThreads, 1)
+glm_hopper_grad_kernel(const __grid_constant__ CUtensorMap r_map,
+                       const __grid_constant__ CUtensorMap xg_map, float* __restrict__ g_part,
+                       int N, int D, int C, int chunks_per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kGBarOff);
+  uint64_t* empty = full + kGStages;
+  const int dt = blockIdx.x, split = blockIdx.y, ct = blockIdx.z;
+  const int chunk_begin = split * chunks_per_split;
+  const int chunk_end = min(chunk_begin + chunks_per_split, (N + kHK - 1) / kHK);
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 2 * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int ch = chunk_begin; ch < chunk_end; ++ch) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = smem + stage * kGStageBytes;
+        mbar_expect_tx(&full[stage], kGStageBytes);
+        tma_load_2d(st, &r_map, &full[stage], ch * kHK, ct * kHChains);
+        tma_load_2d(st + kHalfBoxBytes, &r_map, &full[stage], ch * kHK, ct * kHChains + 128);
+        tma_load_2d(st + kGRBytes, &xg_map, &full[stage], dt * kHCols, ch * kHK);
+        tma_load_2d(st + kGRBytes + kGXBytes / 2, &xg_map, &full[stage], dt * kHCols + 64,
+                    ch * kHK);
+        if (++stage == kGStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tw = threadIdx.x & 127, warp = tw >> 5, lane = tw & 31;
+    float acc0[64], acc1[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int ch = chunk_begin; ch < chunk_end; ++ch) {
+      mbar_wait(&full[stage], phase);
+      unsigned char* st = smem + stage * kGStageBytes;
+      const uint64_t da0 = sw128_desc(st + (wg * 128) * 128, 16);
+      const uint64_t da1 = sw128_desc(st + (wg * 128 + 64) * 128, 16);
+      const uint64_t db = sw128_desc(st + kGRBytes, kGXBytes / 2);
+      fence_acc(acc0);
+      fence_acc(acc1);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kHK / 16; ++k) {
+        wgmma_m64n128k16<1>(acc0, da0 + 2 * k, db + 128 * k);
+        wgmma_m64n128k16<1>(acc1, da1 + 2 * k, db + 128 * k);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc(acc0);
+      fence_acc(acc1);
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == kGStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const int cb = ct * kHChains + wg * 128 + warp * 16 + (lane >> 2);
+    const int db0 = dt * kHCols + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = cb + 8 * (q >> 1), d = db0 + 8 * j + (q & 1);
+        if (d < D) {
+          if (c < C) g_part[((size_t)split * C + c) * D + d] = acc0[4 * j + q];
+          if (c + 64 < C) g_part[((size_t)split * C + c + 64) * D + d] = acc1[4 * j + q];
+        }
+      }
+    }
+  }
+}
+
 // out[i] = sum over splits of part[s][i], always in split order.
 __global__ void sum_splits_kernel(const float* __restrict__ part,
                                   float* __restrict__ out, int n, int splits) {
@@ -589,104 +1154,221 @@ bool covers(int N, int splits, int rows_per_split, int tile) {
          (long long)(splits - 1) * rows_per_split < N;
 }
 
+enum XDtype { kXBf16 = 0, kXInt8 = 1, kXF32 = 2 };
+
+struct Args {
+  const void* X;
+  const float* y;
+  const float* Z;
+  float* ll_part;
+  float* g_part;
+  void* zb;
+  void* rt;
+  const void* maps;
+  int N, Dp, D, C, splits, rows_per_split, g_splits, g_rows_per_split;
+  cudaStream_t st;
+};
+
+// Dp <= 128, bf16 or int8 X: one pass over X.
 template <class Epilogue, class XT>
-int launch(const void* X, const void* y, const void* Z, void* ll_part, void* g_part,
-           void* ll, void* g, void* zb, void* rt, int N, int Dp, int D, int C,
-           int splits, int rows_per_split, int g_splits, int g_rows_per_split,
-           void* stream) {
-  if (Dp <= 0 || Dp % 16 != 0 || D <= 0 || D > Dp || N <= 0 || C <= 0 ||
-      (Epilogue::kUsesY && y == nullptr))
+int launch_narrow(const Args& a) {
+  if (!covers(a.N, a.splits, a.rows_per_split, kRows) || a.g_splits != a.splits)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const XT* Xt = static_cast<const XT*>(X);
-  const float* yf = static_cast<const float*>(y);
-  cudaError_t err;
-  if (Dp <= kMaxDp) {
-    if (!covers(N, splits, rows_per_split, kRows) || g_splits != splits)
-      return (int)cudaErrorInvalidValue;
-    const size_t smem = shared_bytes(Dp);
-    err = cudaFuncSetAttribute(glm_fused_kernel<Epilogue, XT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((C + kChains - 1) / kChains, splits);
-    glm_fused_kernel<Epilogue, XT><<<grid, kThreads, smem, st>>>(
-        Xt, yf, static_cast<const float*>(Z), static_cast<float*>(ll_part),
-        static_cast<float*>(g_part), N, Dp, D, C, rows_per_split);
-  } else {
-    if (!covers(N, splits, rows_per_split, kARows) ||
-        !covers(N, g_splits, g_rows_per_split, kGK) || zb == nullptr || rt == nullptr)
-      return (int)cudaErrorInvalidValue;
-    const int Cp = round_up(C, kChains), ldr = round_up(N, kARows);
-    __nv_bfloat16* Zb = static_cast<__nv_bfloat16*>(zb);
-    __nv_bfloat16* R = static_cast<__nv_bfloat16*>(rt);
-    const size_t nz = (size_t)Cp * Dp;
-    round_z_kernel<<<(unsigned)((nz + 255) / 256), 256, 0, st>>>(
-        static_cast<const float*>(Z), Zb, C, D, Cp, Dp);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    glm_wide_value_kernel<Epilogue, XT><<<dim3(Cp / kChains, splits), kAThreads, 0, st>>>(
-        Xt, yf, Zb, static_cast<float*>(ll_part), R, N, Dp, C, ldr, rows_per_split);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    glm_wide_grad_kernel<XT><<<dim3(Cp / kChains, (Dp + kGD - 1) / kGD, g_splits), kThreads, 0,
-                               st>>>(Xt, R, static_cast<float*>(g_part), N, Dp, D, C, ldr,
-                                     g_rows_per_split);
-  }
+  const size_t smem = shared_bytes(a.Dp);
+  cudaError_t err = cudaFuncSetAttribute(glm_fused_kernel<Epilogue, XT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.C + kChains - 1) / kChains, a.splits);
+  glm_fused_kernel<Epilogue, XT><<<grid, kThreads, smem, a.st>>>(
+      static_cast<const XT*>(a.X), a.y, a.Z, a.ll_part, a.g_part, a.N, a.Dp, a.D, a.C,
+      a.rows_per_split);
+  return (int)cudaGetLastError();
+}
+
+// Dp > 128, int8 X: the two mma.sync kernels. Scratch: zb (round_up(C, 64),
+// Dp) bf16 and rt (round_up(C, 64), round_up(N, 128)) bf16.
+template <class Epilogue>
+int launch_wide_int8(const Args& a) {
+  if (!covers(a.N, a.splits, a.rows_per_split, kARows) ||
+      !covers(a.N, a.g_splits, a.g_rows_per_split, kGK) || a.zb == nullptr || a.rt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int Cp = round_up(a.C, kChains), ldr = round_up(a.N, kARows);
+  __nv_bfloat16* Zb = static_cast<__nv_bfloat16*>(a.zb);
+  __nv_bfloat16* R = static_cast<__nv_bfloat16*>(a.rt);
+  const int8_t* X = static_cast<const int8_t*>(a.X);
+  const size_t nz = (size_t)Cp * a.Dp;
+  round_z_kernel<<<(unsigned)((nz + 255) / 256), 256, 0, a.st>>>(a.Z, Zb, a.C, a.D, Cp, a.Dp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  glm_wide_value_kernel<Epilogue, int8_t><<<dim3(Cp / kChains, a.splits), kAThreads, 0, a.st>>>(
+      X, a.y, Zb, a.ll_part, R, a.N, a.Dp, a.C, ldr, a.rows_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sum_splits_kernel<<<(C + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(ll_part), static_cast<float*>(ll), C, splits);
-  const int ng = C * D;
-  sum_splits_kernel<<<(ng + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(g_part), static_cast<float*>(g), ng, g_splits);
+  glm_wide_grad_kernel<int8_t>
+      <<<dim3(Cp / kChains, (a.Dp + kGD - 1) / kGD, a.g_splits), kThreads, 0, a.st>>>(
+          X, R, a.g_part, a.N, a.Dp, a.D, a.C, ldr, a.g_rows_per_split);
+  return (int)cudaGetLastError();
+}
+
+// Dp > 128, bf16 X: the two Hopper kernels. Scratch: zb (round_up(C, 256),
+// Dp) bf16 and rt (round_up(C, 256), round_up(N, 128)) bf16, both reached
+// through the tensor maps (glm_hopper_tensor_maps).
+template <class Epilogue>
+int launch_hopper(const Args& a) {
+  if (!covers(a.N, a.splits, a.rows_per_split, kHRows) ||
+      !covers(a.N, a.g_splits, a.g_rows_per_split, kHK) || a.zb == nullptr ||
+      a.maps == nullptr)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m[4];
+  memcpy(m, a.maps, sizeof m);
+  const int Cp = round_up(a.C, kHChains);
+  const size_t nz = (size_t)Cp * a.Dp;
+  round_z_kernel<<<(unsigned)((nz + 255) / 256), 256, 0, a.st>>>(
+      a.Z, static_cast<__nv_bfloat16*>(a.zb), a.C, a.D, Cp, a.Dp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(glm_hopper_value_kernel<Epilogue>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kVSmem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(glm_hopper_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kGSmem);
+  if (err != cudaSuccess) return (int)err;
+  glm_hopper_value_kernel<Epilogue><<<dim3(a.splits, Cp / kHChains), kHThreads, kVSmem, a.st>>>(
+      m[0], m[1], m[3], a.y, a.ll_part, a.N, a.Dp, a.C, a.rows_per_split / kHRows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  glm_hopper_grad_kernel<<<dim3((a.Dp + kHCols - 1) / kHCols, a.g_splits, Cp / kHChains),
+                           kHThreads, kGSmem, a.st>>>(m[3], m[2], a.g_part, a.N, a.D, a.C,
+                                                      a.g_rows_per_split / kHK);
+  return (int)cudaGetLastError();
+}
+
+// f32 X, any Dp: the two FFMA kernels. Scratch: rt (round_up(C, 64),
+// round_up(N, 64)) f32.
+template <class Epilogue>
+int launch_f32(const Args& a) {
+  if (!covers(a.N, a.splits, a.rows_per_split, kFT) ||
+      !covers(a.N, a.g_splits, a.g_rows_per_split, kFK) || a.rt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int chain_tiles = (a.C + kFT - 1) / kFT, ldr = round_up(a.N, kFT);
+  const float* X = static_cast<const float*>(a.X);
+  float* R = static_cast<float*>(a.rt);
+  glm_f32_value_kernel<Epilogue><<<dim3(chain_tiles, a.splits), kFThreads, 0, a.st>>>(
+      X, a.y, a.Z, a.ll_part, R, a.N, a.Dp, a.D, a.C, ldr, a.rows_per_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  glm_f32_grad_kernel<<<dim3(chain_tiles, (a.Dp + kFT - 1) / kFT, a.g_splits), kFThreads, 0,
+                        a.st>>>(X, R, a.g_part, a.N, a.Dp, a.D, a.C, ldr, a.g_rows_per_split);
   return (int)cudaGetLastError();
 }
 
 template <class Epilogue>
-int dispatch(const void* X, int x_int8, const void* y, const void* Z, void* ll_part,
-             void* g_part, void* ll, void* g, void* zb, void* rt, int N, int Dp, int D,
-             int C, int splits, int rows_per_split, int g_splits, int g_rows_per_split,
-             void* stream) {
-  if (x_int8)
-    return launch<Epilogue, int8_t>(X, y, Z, ll_part, g_part, ll, g, zb, rt, N, Dp, D, C,
-                                    splits, rows_per_split, g_splits, g_rows_per_split,
-                                    stream);
-  return launch<Epilogue, __nv_bfloat16>(X, y, Z, ll_part, g_part, ll, g, zb, rt, N, Dp, D,
-                                         C, splits, rows_per_split, g_splits,
-                                         g_rows_per_split, stream);
+int launch(int x_dtype, const Args& a, void* ll, void* g) {
+  if (a.Dp <= 0 || a.Dp % 16 != 0 || a.D <= 0 || a.D > a.Dp || a.N <= 0 || a.C <= 0 ||
+      (Epilogue::kUsesY && a.y == nullptr) || x_dtype < kXBf16 || x_dtype > kXF32)
+    return (int)cudaErrorInvalidValue;
+  int err;
+  if (x_dtype == kXF32)
+    err = launch_f32<Epilogue>(a);
+  else if (a.Dp <= kMaxDp)
+    err = x_dtype == kXInt8 ? launch_narrow<Epilogue, int8_t>(a)
+                            : launch_narrow<Epilogue, __nv_bfloat16>(a);
+  else if (x_dtype == kXInt8)
+    err = launch_wide_int8<Epilogue>(a);
+  else
+    err = launch_hopper<Epilogue>(a);
+  if (err != 0) return err;
+  sum_splits_kernel<<<(a.C + 255) / 256, 256, 0, a.st>>>(a.ll_part, static_cast<float*>(ll), a.C,
+                                                          a.splits);
+  const int ng = a.C * a.D;
+  sum_splits_kernel<<<(ng + 255) / 256, 256, 0, a.st>>>(a.g_part, static_cast<float*>(g), ng,
+                                                        a.g_splits);
+  return (int)cudaGetLastError();
+}
+
+Args make_args(const void* X, const void* y, const void* Z, void* ll_part, void* g_part,
+               void* zb, void* rt, const void* maps, int N, int Dp, int D, int C, int splits,
+               int rows_per_split, int g_splits, int g_rows_per_split, void* stream) {
+  return Args{X,      static_cast<const float*>(y), static_cast<const float*>(Z),
+              static_cast<float*>(ll_part), static_cast<float*>(g_part), zb, rt, maps, N, Dp, D,
+              C,      splits, rows_per_split, g_splits, g_rows_per_split,
+              static_cast<cudaStream_t>(stream)};
+}
+
+// cuTensorMapEncodeTiled, taken from the driver that the process has loaded,
+// so the library links against the runtime only.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_LAZY);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major bf16 matrix (outer x inner, row stride ld elements) read or
+// written in boxes of box_inner x box_outer with the 128-byte swizzle; out
+// of bounds reads give zeros.
+bool encode_bf16_2d(CUtensorMap* map, const void* base, int inner, int outer, int ld,
+                    int box_inner, int box_outer) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
-// One signature for the three entries. ll_part is (splits, C) and g_part
-// (g_splits, C, D); the narrow path (Dp <= 128) takes g_splits == splits and
-// ignores zb and rt. The wide path needs zb (round_up(C, 64), Dp) bf16 and
-// rt (round_up(C, 64), round_up(N, 128)) bf16 as scratch. Returns a CUDA
-// error code, 0 on success.
-extern "C" int glm_fused_logistic(const void* X, int x_int8, const void* y, const void* Z,
-                                  void* ll_part, void* g_part, void* ll, void* g, void* zb,
-                                  void* rt, int N, int Dp, int D, int C, int splits,
-                                  int rows_per_split, int g_splits, int g_rows_per_split,
-                                  void* stream) {
-  return dispatch<Logistic>(X, x_int8, y, Z, ll_part, g_part, ll, g, zb, rt, N, Dp, D, C,
-                            splits, rows_per_split, g_splits, g_rows_per_split, stream);
+// The four tensor maps of the wide bf16 path, written to ``out`` (4 x 128
+// bytes): X (N x Dp) in 64 x 128-row boxes (value kernel B), Zb (Cp x Dp) in
+// 64 x 128-chain boxes (value kernel A, two per stage), X in 64 x 64-row
+// boxes (gradient kernel B) and Rt (Cp x ldr) in 64-row x 128-chain boxes
+// (value kernel store; gradient kernel A, two per stage). The caller keeps them with its scratch, so they are
+// encoded once per (X, scratch) and not on every call. Returns a CUDA error
+// code, 0 on success.
+extern "C" int glm_hopper_tensor_maps(const void* X, const void* zb, const void* rt, int N, int Dp,
+                                      int Cp, int ldr, void* out) {
+  CUtensorMap m[4];
+  const bool ok = Dp % 16 == 0 && Cp % kHChains == 0 && ldr % kHRows == 0 && ldr >= N &&
+                  encode_bf16_2d(&m[0], X, Dp, N, Dp, kHK, kHRows) &&
+                  encode_bf16_2d(&m[1], zb, Dp, Cp, Dp, kHK, kHChains / 2) &&
+                  encode_bf16_2d(&m[2], X, Dp, N, Dp, kHK, kHK) &&
+                  encode_bf16_2d(&m[3], rt, ldr, Cp, ldr, kHK, kHChains / 2);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  memcpy(out, m, sizeof m);
+  return 0;
 }
 
-extern "C" int glm_fused_linear(const void* X, int x_int8, const void* y, const void* Z,
-                                void* ll_part, void* g_part, void* ll, void* g, void* zb,
-                                void* rt, int N, int Dp, int D, int C, int splits,
-                                int rows_per_split, int g_splits, int g_rows_per_split,
-                                void* stream) {
-  if (x_int8) return (int)cudaErrorInvalidValue;  // no scale folding for residuals
-  return dispatch<Gaussian>(X, 0, y, Z, ll_part, g_part, ll, g, zb, rt, N, Dp, D, C, splits,
-                            rows_per_split, g_splits, g_rows_per_split, stream);
-}
+// One signature for the three entries. x_dtype: 0 bf16, 1 int8, 2 f32.
+// ll_part is (splits, C) and g_part (g_splits, C, D); the narrow path
+// (Dp <= 128, bf16 or int8) takes g_splits == splits and no scratch. The
+// wide bf16 path takes zb and the tensor maps of glm_hopper_tensor_maps
+// (which name zb and rt), the wide int8 path zb and rt, the f32 path rt
+// (shapes at each launch function). Returns a CUDA error code, 0 on success.
+#define GLM_ENTRY(name, Epilogue, refuse_int8)                                                  \
+  extern "C" int name(const void* X, int x_dtype, const void* y, const void* Z, void* ll_part,  \
+                      void* g_part, void* ll, void* g, void* zb, void* rt, const void* maps,    \
+                      int N, int Dp, int D, int C, int splits, int rows_per_split, int g_splits, \
+                      int g_rows_per_split, void* stream) {                                     \
+    if (refuse_int8 && x_dtype == kXInt8) return (int)cudaErrorInvalidValue;                    \
+    return launch<Epilogue>(x_dtype,                                                            \
+                            make_args(X, y, Z, ll_part, g_part, zb, rt, maps, N, Dp, D, C,      \
+                                      splits, rows_per_split, g_splits, g_rows_per_split,       \
+                                      stream),                                                  \
+                            ll, g);                                                             \
+  }
 
-extern "C" int glm_fused_hoisted(const void* X, int x_int8, const void* y, const void* Z,
-                                 void* ll_part, void* g_part, void* ll, void* g, void* zb,
-                                 void* rt, int N, int Dp, int D, int C, int splits,
-                                 int rows_per_split, int g_splits, int g_rows_per_split,
-                                 void* stream) {
-  return dispatch<Hoisted>(X, x_int8, y, Z, ll_part, g_part, ll, g, zb, rt, N, Dp, D, C,
-                           splits, rows_per_split, g_splits, g_rows_per_split, stream);
-}
+GLM_ENTRY(glm_fused_logistic, Logistic, false)
+GLM_ENTRY(glm_fused_linear, Gaussian, true)  // no scale folding for residuals
+GLM_ENTRY(glm_fused_hoisted, Hoisted, false)

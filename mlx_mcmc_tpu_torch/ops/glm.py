@@ -11,13 +11,15 @@ Gaussian linear and the hoisted-outcome likelihoods). For chain positions
 
 ``fused_logistic_vag_cuda``, ``fused_linear_vag_cuda`` and
 ``fused_hoisted_vag_cuda`` launch the three entries of the hand-written
-Hopper kernel ``csrc/glm_fused.cu`` (bf16 or int8 X; the linear one bf16
-only); ``fused_*_vag_reference`` are their plain PyTorch versions, which
-round where the kernel rounds (Z and the residual to bf16 when X is bf16 or
-int8). ``fused_*_value_and_grad`` take the plain version only for CPU
-tensors; for CUDA tensors they launch the kernel or raise. The kernel takes
-any padded width ``Dp`` that is a multiple of 16: up to 128 in one pass
-over X, above that in two kernels (the launch picks by ``Dp``).
+Hopper kernels ``csrc/glm_fused.cu`` (bf16, int8 or f32 X; the linear one
+not int8); ``fused_*_vag_reference`` are their plain PyTorch versions, which
+round where the kernels round (Z and the residual to bf16 when X is bf16 or
+int8, nowhere when X is f32). ``fused_*_value_and_grad`` take the plain
+version only for CPU tensors; for CUDA tensors they launch the kernels or
+raise. The kernels take any padded width ``Dp`` that is a multiple of 16;
+:func:`launch_plan` says which path a shape takes: one pass over X up to
+``Dp = 128`` (bf16, int8), two TMA + wgmma kernels above it (bf16), two
+mma.sync kernels above it (int8), two FFMA kernels at any ``Dp`` (f32).
 
 int8 data (``quantize="int8"``) stores X ~ Xq diag(col_scale) with
 symmetric per-column scales, as the reference does; at the kernel level Z
@@ -31,6 +33,7 @@ padded layout keeps its zero rows and their constant (``convert.py``).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -40,15 +43,21 @@ import torch
 from mlx_mcmc_tpu_torch import _build
 from mlx_mcmc_tpu_torch._device import resolve_device, sm_count
 
-_CHAIN_TILE = 64  # chains per block (kChains)
+_CHAIN_TILE = 64  # chains per block (kChains; also the f32 kernels' kFT)
 _MAX_D_PAD = 128  # widest Dp of the one-pass kernel (kMaxDp)
 _ROW_TILE = 64  # rows per tile, one-pass kernel (kRows)
 _BLOCKS_PER_SM = 3  # its grid target: the ~64 KB of shared memory fits 3 per SM
-_WIDE_ROW_TILE = 128  # rows per tile, wide value kernel (kARows)
-_WIDE_BLOCKS_PER_SM = 2  # 256 threads of ~128 registers: 2 per SM
-_GRAD_ROW_CHUNK = 32  # rows per chunk, wide gradient kernel (kGK)
+_WIDE_ROW_TILE = 128  # rows per tile, wide value kernels (kARows, kHRows)
+_WIDE_BLOCKS_PER_SM = 2  # int8 wide value kernel: 256 threads of ~128 registers, 2 per SM
+_GRAD_ROW_CHUNK = 32  # rows per chunk, int8 wide gradient kernel (kGK)
 _GRAD_D_TILE = 64  # columns of g per block (kGD)
 _GRAD_BLOCKS_PER_SM = 4  # its grid target; more splits only add partial sums of g
+_HOPPER_CHAIN_TILE = 256  # bf16 wide kernels: chains per block (kHChains)
+_HOPPER_ROW_CHUNK = 64  # gradient kernel: rows per ring stage (kHK)
+_HOPPER_D_TILE = 128  # gradient kernel: columns of g per block (kHCols)
+_F32_ROW_CHUNK = 16  # f32 gradient kernel: rows per chunk (kFK)
+_F32_BLOCKS_PER_SM = 4  # f32 kernels' grid target: 256 threads, ~17 KB of shared memory
+_X_DTYPE_CODE = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -64,7 +73,7 @@ def _quantize_int8(X: torch.Tensor):
 
 
 def _pack(X, y, quantize, num_shards: int, device):
-    """``X`` keeps its dtype (pass bf16 for the kernel) or, with
+    """``X`` keeps its dtype (bf16 or f32 for the kernels) or, with
     ``quantize="int8"``, is stored as int8 with per-column scales; its
     columns are padded with zeros to a multiple of 16, the depth of one
     tensor-core step. Rows are not padded. Observation sharding is not
@@ -141,8 +150,8 @@ def _operand_dtype(Xp: torch.Tensor) -> torch.dtype:
 def _vag_reference(Xp, y, Z, epilogue):
     """Rounds at the kernel's points when ``Xp`` is bf16 or int8: ``Z`` to
     bf16 before the first product and the residual to bf16 before the
-    second (int8 values convert to float32 exactly). The products run in
-    float32 on the rounded operands."""
+    second (int8 values convert to float32 exactly). For f32 ``Xp`` nothing
+    is rounded. The products run in float32 on the rounded operands."""
     d = Z.shape[1]
     X = Xp[:, :d].float()
     cdt = _operand_dtype(Xp)
@@ -181,24 +190,52 @@ def _row_splits(n: int, blocks_across: int, row_tile: int, blocks_per_sm: int, s
     return -(-n // rows_per_split), rows_per_split
 
 
-def launch_plan(n: int, d_pad: int, c: int, sms: int) -> dict:
-    """The kernel's grid for X (n, d_pad) and c chains on ``sms`` SMs: the
-    one-pass kernel up to ``Dp = 128`` (``wide`` False), else the two wide
-    kernels with their scratch shapes (bf16 Z (c_pad, Dp) and residual
-    (c_pad, n rounded up to the value kernel's row tile))."""
+def _fixed_splits(n: int, row_tile: int, target: int):
+    """``target`` splits of whole row tiles (fewer if n has fewer tiles),
+    the last one possibly short. Returns (splits, rows_per_split)."""
+    row_tiles = -(-n // row_tile)
+    per_split = -(-row_tiles // max(1, min(row_tiles, target)))
+    return -(-row_tiles // per_split), per_split * row_tile
+
+
+def launch_plan(n: int, d_pad: int, c: int, sms: int, x_dtype=torch.bfloat16) -> dict:
+    """The kernels' grid for X (n, d_pad) of ``x_dtype`` and c chains on
+    ``sms`` SMs, with the scratch shapes (``zb_shape`` bf16 Z, ``rt_shape``
+    the residual R^T of type ``rt_dtype``). ``path`` is ``"narrow"`` (one
+    pass, Dp <= 128, bf16 or int8), ``"wide"`` (bf16, Dp > 128: the TMA +
+    wgmma kernels, whose split schedule depends on n and Dp only, so a
+    chain's results do not depend on c), ``"wide_int8"`` (int8, Dp > 128)
+    or ``"f32"`` (any Dp)."""
     chain_tiles = -(-c // _CHAIN_TILE)
+    if x_dtype == torch.float32:
+        splits, rows = _row_splits(n, chain_tiles, _ROW_TILE, _F32_BLOCKS_PER_SM, sms)
+        g_splits, g_rows = _row_splits(n, chain_tiles * -(-d_pad // _CHAIN_TILE),
+                                       _F32_ROW_CHUNK, _F32_BLOCKS_PER_SM, sms)
+        return {"path": "f32", "splits": splits, "rows_per_split": rows,
+                "g_splits": g_splits, "g_rows_per_split": g_rows, "zb_shape": None,
+                "rt_shape": (chain_tiles * _CHAIN_TILE, _round_up(n, _ROW_TILE)),
+                "rt_dtype": torch.float32}
     if d_pad <= _MAX_D_PAD:
         splits, rows = _row_splits(n, chain_tiles, _ROW_TILE, _BLOCKS_PER_SM, sms)
-        return {"wide": False, "splits": splits, "rows_per_split": rows,
-                "g_splits": splits, "g_rows_per_split": rows}
-    splits, rows = _row_splits(n, chain_tiles, _WIDE_ROW_TILE, _WIDE_BLOCKS_PER_SM, sms)
-    g_splits, g_rows = _row_splits(
-        n, chain_tiles * -(-d_pad // _GRAD_D_TILE), _GRAD_ROW_CHUNK, _GRAD_BLOCKS_PER_SM, sms
-    )
-    c_pad = chain_tiles * _CHAIN_TILE
-    return {"wide": True, "splits": splits, "rows_per_split": rows,
-            "g_splits": g_splits, "g_rows_per_split": g_rows,
-            "zb_shape": (c_pad, d_pad), "rt_shape": (c_pad, _round_up(n, _WIDE_ROW_TILE))}
+        return {"path": "narrow", "splits": splits, "rows_per_split": rows,
+                "g_splits": splits, "g_rows_per_split": rows, "zb_shape": None, "rt_shape": None}
+    if x_dtype == torch.int8:
+        splits, rows = _row_splits(n, chain_tiles, _WIDE_ROW_TILE, _WIDE_BLOCKS_PER_SM, sms)
+        g_splits, g_rows = _row_splits(
+            n, chain_tiles * -(-d_pad // _GRAD_D_TILE), _GRAD_ROW_CHUNK, _GRAD_BLOCKS_PER_SM, sms
+        )
+        c_pad = chain_tiles * _CHAIN_TILE
+        return {"path": "wide_int8", "splits": splits, "rows_per_split": rows,
+                "g_splits": g_splits, "g_rows_per_split": g_rows, "zb_shape": (c_pad, d_pad),
+                "rt_shape": (c_pad, _round_up(n, _WIDE_ROW_TILE)), "rt_dtype": torch.bfloat16}
+    # One block per SM: the value kernel's row tiles spread over the SMs, the
+    # gradient kernel's row chunks over the SMs left to each column tile.
+    splits, rows = _fixed_splits(n, _WIDE_ROW_TILE, sms)
+    g_splits, g_rows = _fixed_splits(n, _HOPPER_ROW_CHUNK, sms // -(-d_pad // _HOPPER_D_TILE))
+    c_pad = _round_up(c, _HOPPER_CHAIN_TILE)
+    return {"path": "wide", "splits": splits, "rows_per_split": rows,
+            "g_splits": g_splits, "g_rows_per_split": g_rows, "zb_shape": (c_pad, d_pad),
+            "rt_shape": (c_pad, _round_up(n, _WIDE_ROW_TILE)), "rt_dtype": torch.bfloat16}
 
 
 def _check_kernel_args(Xp, y, Z):
@@ -207,8 +244,8 @@ def _check_kernel_args(Xp, y, Z):
         raise ValueError("the CUDA kernel takes CUDA tensors only")
     if any(t.device != Xp.device for t in tensors):
         raise ValueError("Xp, y and Z must be on one device")
-    if Xp.dtype not in (torch.bfloat16, torch.int8):
-        raise ValueError(f"the CUDA kernel takes bf16 or int8 X, got {Xp.dtype}")
+    if Xp.dtype not in _X_DTYPE_CODE:
+        raise ValueError(f"the CUDA kernel takes bf16, int8 or f32 X, got {Xp.dtype}")
     if Z.dtype != torch.float32 or (y is not None and y.dtype != torch.float32):
         raise ValueError(f"y and Z must be float32, got {None if y is None else y.dtype}, {Z.dtype}")
     if Xp.dim() != 2 or Z.dim() != 2 or (y is not None and y.dim() != 1):
@@ -234,9 +271,62 @@ def _check_kernel_args(Xp, y, Z):
 def _kernel_entry(name: str):
     fn = getattr(_build.load("glm_fused"), name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i] + [p] * 8 + [i] * 8 + [p]
+    if name == "glm_hopper_tensor_maps":
+        fn.argtypes = [p] * 3 + [i] * 4 + [p]
+    else:
+        fn.argtypes = [p, i] + [p] * 9 + [i] * 8 + [p]
     fn.restype = ctypes.c_int
     return fn
+
+
+_WORKSPACES: "collections.OrderedDict" = collections.OrderedDict()
+_MAX_WORKSPACES = 4
+
+
+def _workspace(Xp: torch.Tensor, c: int, d: int) -> dict:
+    """The launch plan, split partials, scratch and (wide bf16 path) tensor
+    maps for X at ``Xp``'s address and shape with c chains of D columns,
+    made once and kept for the next calls (the last few shapes), so the
+    eager loop neither re-allocates nor re-encodes them and their pointers
+    stay stable. Reusing them is safe on one stream, as the NUTS loop runs."""
+    key = (Xp.device, Xp.data_ptr(), tuple(Xp.shape), Xp.dtype, c, d)
+    ws = _WORKSPACES.get(key)
+    if ws is not None:
+        _WORKSPACES.move_to_end(key)
+        return ws
+    n, d_pad = Xp.shape
+    dev = Xp.device
+    plan = launch_plan(n, d_pad, c, sm_count(dev.index or 0), Xp.dtype)
+    f32 = dict(dtype=torch.float32, device=dev)
+    ws = {"plan": plan, "ll_part": torch.empty((plan["splits"], c), **f32),
+          "g_part": torch.empty((plan["g_splits"], c, d), **f32), "zb": None, "rt": None,
+          "maps": None}
+    if plan["zb_shape"] is not None:
+        ws["zb"] = torch.empty(plan["zb_shape"], dtype=torch.bfloat16, device=dev)
+    if plan["rt_shape"] is not None:
+        ws["rt"] = torch.empty(plan["rt_shape"], dtype=plan["rt_dtype"], device=dev)
+    if plan["path"] == "wide":
+        ws["maps"] = ctypes.create_string_buffer(4 * 128)
+        c_pad, ldr = plan["rt_shape"]
+        err = _kernel_entry("glm_hopper_tensor_maps")(
+            Xp.data_ptr(), ws["zb"].data_ptr(), ws["rt"].data_ptr(), n, d_pad, c_pad, ldr,
+            ws["maps"])
+        if err != 0:
+            raise RuntimeError(f"glm_hopper_tensor_maps failed with CUDA error {err}")
+    _WORKSPACES[key] = ws
+    if len(_WORKSPACES) > _MAX_WORKSPACES:
+        _WORKSPACES.popitem(last=False)
+    return ws
+
+
+def use_kernel_library(path) -> None:
+    """Launch the GLM entries from the library at ``path``, a build of a
+    variant of ``csrc/glm_fused.cu`` (to time variants one after another in
+    one process). Forgets the entry points and workspaces of the library
+    used before."""
+    _build.load("glm_fused", path)
+    _kernel_entry.cache_clear()
+    _WORKSPACES.clear()
 
 
 def _launch(name: str, Xp: torch.Tensor, y, Z: torch.Tensor):
@@ -244,24 +334,17 @@ def _launch(name: str, Xp: torch.Tensor, y, Z: torch.Tensor):
     fn = _kernel_entry(name)
     n, d_pad = Xp.shape
     c, d = Z.shape
-    dev = Xp.device
-    plan = launch_plan(n, d_pad, c, sm_count(dev.index or 0))
-    f32 = dict(dtype=torch.float32, device=dev)
-    ll_part = torch.empty((plan["splits"], c), **f32)
-    g_part = torch.empty((plan["g_splits"], c, d), **f32)
-    ll = torch.empty((c,), **f32)
-    g = torch.empty((c, d), **f32)
-    scratch = [None, None]  # the wide path's bf16 Z and residual
-    if plan["wide"]:
-        scratch = [torch.empty(plan[k], dtype=torch.bfloat16, device=dev)
-                   for k in ("zb_shape", "rt_shape")]
+    ws = _workspace(Xp, c, d)
+    plan = ws["plan"]
+    ll = torch.empty((c,), dtype=torch.float32, device=Xp.device)
+    g = torch.empty((c, d), dtype=torch.float32, device=Xp.device)
     err = fn(
-        Xp.data_ptr(), int(Xp.dtype == torch.int8), None if y is None else y.data_ptr(),
-        Z.data_ptr(), ll_part.data_ptr(), g_part.data_ptr(), ll.data_ptr(), g.data_ptr(),
-        *(None if t is None else t.data_ptr() for t in scratch),
-        n, d_pad, d, c, plan["splits"], plan["rows_per_split"],
+        Xp.data_ptr(), _X_DTYPE_CODE[Xp.dtype], None if y is None else y.data_ptr(),
+        Z.data_ptr(), ws["ll_part"].data_ptr(), ws["g_part"].data_ptr(), ll.data_ptr(),
+        g.data_ptr(), *(None if ws[k] is None else ws[k].data_ptr() for k in ("zb", "rt")),
+        ws["maps"], n, d_pad, d, c, plan["splits"], plan["rows_per_split"],
         plan["g_splits"], plan["g_rows_per_split"],
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(Xp.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
@@ -280,10 +363,10 @@ def fused_logistic_vag_cuda(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor):
 
 def fused_linear_vag_cuda(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor):
     """Launch the linear kernel: unit-noise ``(ll (C,), grad (C, D))``,
-    likelihood only, bf16 ``Xp`` only. Adds one to
+    likelihood only, bf16 or f32 ``Xp``. Adds one to
     ``fused_linear_vag_cuda.launches``."""
     if Xp.dtype == torch.int8:
-        raise ValueError("the linear kernel takes bf16 X only (no int8, as in the reference)")
+        raise ValueError("the linear kernel takes bf16 or f32 X (no int8, as in the reference)")
     out = _launch("glm_fused_linear", Xp, y, Z)
     fused_linear_vag_cuda.launches += 1
     return out

@@ -16,9 +16,10 @@ domain, D > 128 (the kernel's two-kernel wide path) and int8 X.
   2e-3 relative (half a bf16 ulp: each scaled coordinate moves by up to
   2^-9 of itself, ~5e-4 of ll at D = 7), g within 1e-2 of max|g| (as the
   bf16-vs-autograd check of the model).
-- The launch plan: which kernel a shape takes and that its splits cover
-  every row. The kernels themselves run on the card only
-  (``test_torch_cuda_kernels.py``).
+- The launch plan: which kernels a shape and X's type take, that their
+  splits cover every row, and that the wide bf16 path's splits do not
+  depend on the number of chains. The kernels themselves run on the card
+  only (``test_torch_cuda_kernels.py``).
 """
 
 import jax
@@ -70,7 +71,7 @@ def test_wide_plain_version_matches_pallas_interpret_bf16(family):
     ll_j, g_j = j_fused(Xb, jnp.asarray(y), jnp.asarray(Z), tile_n=_TILE, interpret=True)
     data = prep(torch.from_numpy(X).bfloat16(), torch.from_numpy(y), device="cpu")
     assert data["Xp"].shape == (n, 304)  # Dp = 304 > 128: the wide path on the card
-    assert glm.launch_plan(n, 304, c, 132)["wide"]
+    assert glm.launch_plan(n, 304, c, 132)["path"] == "wide"
     ll_t, g_t = port(data["Xp"], data["yp"], torch.from_numpy(Z))
     _close(ll_t, g_t, ll_j, g_j)
 
@@ -140,18 +141,45 @@ def test_int8_vag_matches_reference_non_pallas_through_convert(d):
     np.testing.assert_allclose(g_o.numpy(), g_t.numpy(), rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.int8, torch.float32])
 @pytest.mark.parametrize("n,d_pad,c", [(10_000, 112, 4096), (100_000, 1008, 256), (777, 304, 70),
                                        (1, 16, 65), (129, 144, 1), (5000, 128, 3)])
-def test_launch_plan_covers_every_row(n, d_pad, c):
-    plan = glm.launch_plan(n, d_pad, c, 132)
-    assert plan["wide"] == (d_pad > 128)
-    tiles = (128, 32) if plan["wide"] else (64, 64)
+def test_launch_plan_covers_every_row(n, d_pad, c, x_dtype):
+    plan = glm.launch_plan(n, d_pad, c, 132, x_dtype)
+    if x_dtype == torch.float32:
+        path = "f32"
+    elif d_pad <= 128:
+        path = "narrow"
+    else:
+        path = "wide_int8" if x_dtype == torch.int8 else "wide"
+    assert plan["path"] == path
+    tiles = {"narrow": (64, 64), "wide": (128, 64), "wide_int8": (128, 32), "f32": (64, 16)}[path]
     for (s, r), tile in zip([("splits", "rows_per_split"), ("g_splits", "g_rows_per_split")], tiles):
         splits, rows = plan[s], plan[r]
         assert rows % tile == 0 and splits * rows >= n > (splits - 1) * rows
-    if plan["wide"]:
-        c_pad = -(-c // 64) * 64
-        assert plan["zb_shape"] == (c_pad, d_pad)
-        assert plan["rt_shape"] == (c_pad, -(-n // 128) * 128)
+    c64, c256 = -(-c // 64) * 64, -(-c // 256) * 256
+    if path == "wide":
+        assert plan["zb_shape"] == (c256, d_pad)
+        assert plan["rt_shape"] == (c256, -(-n // 128) * 128) and plan["rt_dtype"] == torch.bfloat16
+    elif path == "wide_int8":
+        assert plan["zb_shape"] == (c64, d_pad)
+        assert plan["rt_shape"] == (c64, -(-n // 128) * 128) and plan["rt_dtype"] == torch.bfloat16
+    elif path == "f32":
+        assert plan["zb_shape"] is None
+        assert plan["rt_shape"] == (c64, -(-n // 64) * 64) and plan["rt_dtype"] == torch.float32
     else:
         assert plan["g_splits"] == plan["splits"]
+        assert plan["zb_shape"] is None and plan["rt_shape"] is None
+
+
+@pytest.mark.parametrize("n,d_pad", [(100_000, 1008), (777, 304), (129, 144), (5000, 2048)])
+def test_wide_plan_splits_do_not_depend_on_the_chain_count(n, d_pad):
+    keys = ("splits", "rows_per_split", "g_splits", "g_rows_per_split")
+    plans = [glm.launch_plan(n, d_pad, c, 132) for c in (1, 4, 70, 256, 300, 4096)]
+    assert {p["path"] for p in plans} == {"wide"}
+    assert len({tuple(p[k] for k in keys) for p in plans}) == 1
+    # One block per SM for one chain tile: row tiles over the SMs, and the
+    # gradient's row splits times its column tiles of 128 within the SMs.
+    plan = plans[0]
+    assert plan["splits"] <= 132
+    assert plan["g_splits"] * -(-d_pad // 128) <= 132
