@@ -11,19 +11,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    together, sm_90a) into ``build/mlx_mcmc_tpu_torch/`` and prints the
    build time and ptxas's register report.
 3. Kernels against their plain versions on the card, at each path's shape
-   and at a ragged one, with CUDA-event timings and the bound: K1 (logistic)
-   and K2 (linear) at C=4096, N=10K, D=100 bf16; K1 on the wide path at
-   glm1000's shape (C=256, N=100K, D=1000) in bf16 (the TMA + wgmma value
-   and gradient kernels: their torch.profiler split, the design floor, the
-   two products as torch.matmul on bf16 as a yardstick, two calls bit for
-   bit and chains 0-3 of a C=4 call equal to those of the C=256 call) and
-   int8, and K2 there in bf16; K1 wide and int8, K2 wide and K4 (hoisted)
-   at ragged wide shapes; K1, K2 and K4 on f32 X (the FFMA kernels) at the
-   glm100 shape (timed) and at C=70, N=777, D=300; K4 at the glm100 shape,
-   with its rebuilt ll against K1's (the reference's rejected variant,
-   measured); K3 (Poisson) at C=512, G=1000, n=100, K=4 and C=300, G=37,
-   n=61, K=3; Philox at the glm100 step shape (4096 chains, D=100, a 32-row
-   uniform table).
+   and at a ragged one, with CUDA-event timings and the bound (the largest
+   of bytes, tensor-core, float32, transcendental and integer work at the
+   H100's peaks, with the unit that binds): K1 (logistic) and K2 (linear)
+   at C=4096, N=10K, D=100 bf16 through the one-pass TMA + wgmma kernel
+   (K1 with its torch.profiler split); K1 on the wide path at glm1000's
+   shape (C=256, N=100K, D=1000) in bf16 (the TMA + wgmma value and
+   gradient kernels: their torch.profiler split, the design floor, the two
+   products as torch.matmul on bf16 as a yardstick) and int8, and K2 there
+   in bf16; K1 wide and int8, K2 wide and K4 (hoisted) at ragged wide
+   shapes; K1, K2 and K4 on f32 X (the FFMA kernels) at the glm100 shape
+   (timed) and at C=70, N=777, D=300; K4 at the glm100 shape, with its
+   rebuilt ll against K1's (the reference's rejected variant, measured); K3
+   (Poisson) at C=512, G=1000, n=100, K=4 (with its profiler split) and
+   C=300, G=37, n=61, K=3; Philox at the glm100 step shape (4096 chains,
+   D=100, a 32-row uniform table). Bits: two calls give the same bits and
+   chains 0-3 of a C=4 call equal those of the full call, for K1, K2 and K4
+   one-pass, K1 int8 one-pass and f32 at glm100 (C=4096), K1 wide and int8
+   wide at glm1000 (C=256) and K3 (C=512).
 4. ``glm100_fused`` at full width through ``sample()`` and K1 (100 params,
    10K obs, bf16 X, 4096 chains, 300 warmup + 2000 draws, depth 6, target
    0.8, bf16 store): accept 0.8 +- 0.05, mean tree depth < 5, divergence
@@ -48,9 +53,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    0.9 +- 0.05, mean depth < 7, divergence rate <= 1%, finite draws, beta,
    mu and tau posterior means within 4 posterior sd (+0.02) of the
    generator's truth.
-8. Layout invariance: three NUTS steps of a small elementwise model at fixed
-   tunables, driven by the engine's per-chain draws, for 4 and for 8 chains:
-   chains 0-3 must be bit-identical.
+8. Layout invariance: three NUTS steps at fixed tunables, driven by the
+   engine's per-chain draws, through a small elementwise model (4 and 8
+   chains), glm100_fused's K1 vag (4 and 4096 chains) and poisson1000_cov's
+   K3 vag (4 and 512 chains): chains 0-3 must be bit-identical.
 9. The kernels JSON line (K1 one-pass, K1 wide, K2, K3, K4, Philox, and
    K1, K2 and K4 on f32 X; K4 and the f32 rows, on no sampling path, with
    their phase-3 launches), then the contract line
@@ -78,6 +84,9 @@ H100_BF16_FLOPS = 989e12
 H100_F32_FLOPS = 67e12
 H100_INT32_OPS = 33.5e12
 H100_BYTES_PER_S = 3.35e12
+# Transcendentals (exp, log, tanh, sin, ...): the special-function units do
+# 16 per clock per SM, 132 SMs at the 1.98 GHz boost clock.
+H100_MUFU_OPS = 16 * 132 * 1.98e9
 
 # GLM (K1, K2, K4) tolerances against the plain version, which rounds at the
 # same points (bf16 and int8 X; f32 X rounds nowhere, see below):
@@ -122,24 +131,34 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def roofline_ms(nbytes: float, op_seconds: float) -> tuple:
-    """The larger of bytes over HBM rate and the operations' time."""
-    t_bytes = nbytes / H100_BYTES_PER_S
-    if op_seconds >= t_bytes:
-        return op_seconds * 1e3, "operations"
-    return t_bytes * 1e3, "bytes"
+def roofline_ms(nbytes: float, tensor_flops: float = 0.0, f32_ops: float = 0.0,
+                transcendentals: float = 0.0, int32_ops: float = 0.0) -> tuple:
+    """The least time for the work: the largest of the bytes over the HBM
+    rate, bf16 tensor-core operations over 989 TFLOP/s, float32 operations
+    over 67 TFLOP/s, transcendentals over the special-function units' rate
+    and 32-bit integer operations over their rate. Returns (ms, bound_by,
+    detail): ``bound_by`` is "bytes" or "operations", ``detail`` names the
+    unit that binds."""
+    times = {"bytes": nbytes / H100_BYTES_PER_S, "tensor cores": tensor_flops / H100_BF16_FLOPS,
+             "float32": f32_ops / H100_F32_FLOPS, "transcendentals": transcendentals / H100_MUFU_OPS,
+             "int32": int32_ops / H100_INT32_OPS}
+    detail = max(times, key=times.get)
+    return times[detail] * 1e3, "bytes" if detail == "bytes" else "operations", detail
 
 
-def glm_bound_ms(n: int, d: int, c: int, epilogue_ops: int, x_bytes: int = 2) -> tuple:
+def glm_bound_ms(n: int, d: int, c: int, epilogue_ops: int, transcendentals: int,
+                 x_bytes: int = 2) -> tuple:
     """Least time for one K1/K2/K4 call: bytes (X at ``x_bytes`` per value,
-    y, Z in; ll, g out) over HBM rate, against the two products (on bf16
-    tensor cores for bf16 and int8 X, in f32 outside the tensor cores for
-    f32 X) and the epilogue's f32 operations per (row, chain) (~12 logistic
-    and hoisted, ~4 linear)."""
+    y, Z in; ll, g out), the two products (4NDC on bf16 tensor cores for
+    bf16 and int8 X, in float32 outside them for f32 X), the epilogue's
+    float32 operations per (row, chain) (~12 logistic and hoisted, ~4
+    linear) and its transcendentals per (row, chain) (2 logistic and
+    hoisted: an exp and a log; 0 linear)."""
     nbytes = n * d * x_bytes + n * 4 + c * d * 4 + c * 4 + c * d * 4
-    peak = H100_F32_FLOPS if x_bytes == 4 else H100_BF16_FLOPS
-    ops = max(4.0 * n * d * c / peak, epilogue_ops * n * c / H100_F32_FLOPS)
-    return roofline_ms(nbytes, ops)
+    products = 4.0 * n * d * c
+    return roofline_ms(nbytes, tensor_flops=0.0 if x_bytes == 4 else products,
+                       f32_ops=epilogue_ops * n * c + (products if x_bytes == 4 else 0.0),
+                       transcendentals=transcendentals * n * c)
 
 
 def wide_design_floor_ms(n: int, d_pad: int, c: int) -> float:
@@ -154,22 +173,24 @@ def poisson_bound_ms(c: int, g: int, n: int, k: int) -> tuple:
     """Least time for one K3 call: X, y, shat, lamhat, theta, beta in and
     ll, r_theta, g_beta out, against (4K + 8) f32 operations per (row,
     chain): K FMAs for s, the exp, ~7 for ll, r and r_theta, K FMAs for
-    g_beta."""
+    g_beta; and the exp on the special-function units."""
     rows = g * n
     nbytes = 4 * (rows * k + rows + 2 * g + c * g + c * k + c + c * g + c * k)
-    return roofline_ms(nbytes, (4 * k + 8) * rows * c / H100_F32_FLOPS)
+    return roofline_ms(nbytes, f32_ops=(4 * k + 8) * rows * c, transcendentals=rows * c)
 
 
 def philox_bound_ms(c: int, dim: int, n_slots: int) -> tuple:
     """Least time for one Philox step: chain indices in, normals and the
     uniform table out, against ~100 32-bit integer operations per Philox
     call (10 rounds of two multiplies, their high words, three XORs and two
-    key additions) and ~40 f32 operations per Box-Muller pair."""
+    key additions), ~40 f32 operations per Box-Muller pair and its four
+    transcendentals (log, sqrt, sin, cos)."""
     blocks = -(-dim // 4)
     calls = c * (blocks + n_slots)
     nbytes = c * 8 + c * dim * 4 + c * n_slots * 16
-    ops = 100 * calls / H100_INT32_OPS + 40 * 2 * c * blocks / H100_F32_FLOPS
-    return roofline_ms(nbytes, ops)
+    pairs = 2 * c * blocks
+    return roofline_ms(nbytes, f32_ops=40 * pairs, transcendentals=4 * pairs,
+                       int32_ops=100 * calls)
 
 
 def timed_row(row, kernel_call, plain_call, bound) -> dict:
@@ -180,9 +201,11 @@ def timed_row(row, kernel_call, plain_call, bound) -> dict:
     row["ms"] = device_ms(kernel_call)
     row["plain_ms"] = device_ms(plain_call, reps=5, inner=3)
     row["call_ms"] = device_ms(kernel_call, hide_host=False)
-    row["bound_ms"], row["bound_by"] = bound
+    row["bound_ms"], row["bound_by"], row["bound_detail"] = bound
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     log(f"  kernel {row['ms']:.4f} ms (per wrapper call {row['call_ms']:.4f} ms), "
-        f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_detail']}; "
+        f"{100 * row['bound_share']:.1f}% of it)")
     return row
 
 
@@ -255,26 +278,31 @@ def check_glm(family: str, name: str, Xp, y, Z, timed: bool, ll_rel: float = Non
     row = {"shape_c_n_d": [c, n, d], "x_dtype": dtype, "max_abs_err": max(err_ll, err_g),
            "max_abs_err_ll": err_ll, "max_abs_err_g": err_g}
     if timed:
-        ops = 4 if family == "linear" else 12
-        timed_row(row, kernel, plain, glm_bound_ms(n, d, c, ops, Xp.element_size()))
+        ops, trans = (4, 0) if family == "linear" else (12, 2)
+        timed_row(row, kernel, plain, glm_bound_ms(n, d, c, ops, trans, Xp.element_size()))
     return row
 
 
-def wide_bits_check(Xp, y, Z) -> None:
-    """K1's wide bf16 kernels are reproducible and batch-invariant: two
-    calls on the same inputs give the same bits, and chains 0-3 of a call
-    with only those four chains give the bits of the full call."""
+def bits_check(label: str, call, Z, *rest) -> None:
+    """A kernel is reproducible and batch-invariant: two calls of
+    ``call(Z, *rest)`` give the same bits, and chains 0-3 of a call with
+    only those four chains (the first four rows of ``Z`` and of each of
+    ``rest``) give the bits of the full call."""
+    a = call(Z, *rest)
+    b = call(Z, *rest)
+    four = call(*(t[:4].contiguous() for t in (Z, *rest)))
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail(f"{label}: two calls on the same inputs give different bits")
+    if not all(torch.equal(x[:4], y) for x, y in zip(a, four)):
+        fail(f"{label}: chains 0-3 of a C=4 call differ from those of the C={Z.shape[0]} call")
+    log(f"{label}: two calls bit-identical; chains 0-3 bit-identical at C=4 and C={Z.shape[0]}")
+
+
+def glm_bits_check(label: str, Xp, y, Z) -> None:
     from mlx_mcmc_tpu_torch.ops import glm
 
-    a = glm.fused_logistic_vag_cuda(Xp, y, Z)
-    b = glm.fused_logistic_vag_cuda(Xp, y, Z)
-    four = glm.fused_logistic_vag_cuda(Xp, y, Z[:4].contiguous())
-    torch.cuda.synchronize()
-    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
-        fail("K1 wide: two calls on the same inputs give different bits")
-    if not (torch.equal(a[0][:4], four[0]) and torch.equal(a[1][:4], four[1])):
-        fail(f"K1 wide: chains 0-3 of a C=4 call differ from those of the C={Z.shape[0]} call")
-    log(f"K1 wide: two calls bit-identical; chains 0-3 bit-identical at C=4 and C={Z.shape[0]}")
+    bits_check(label, lambda z: glm.fused_logistic_vag_cuda(Xp, y, z), Z)
 
 
 def products_yardstick_ms(Xp, Z) -> float:
@@ -455,37 +483,35 @@ def exact_gaussian_check(data, beta_draws):
     return moment_gap(beta_draws, mean, torch.sqrt(torch.diagonal(cov)))
 
 
-def layout_invariance() -> None:
-    """Three NUTS steps at fixed tunables for chains 0-3 and for chains
-    0-7, each chain's start and random inputs from the engine's per-chain
-    streams: chains 0-3 must come out bit-identical."""
+def layout_invariance(label: str, vag, dim: int, counts: tuple, step_size: float,
+                      max_tree_depth: int, init_scale: float = 1.0) -> None:
+    """Three NUTS steps at fixed tunables through ``vag`` for chains 0-3 of
+    a run of each chain count in ``counts``, each chain's start and random
+    inputs from the engine's per-chain streams: chains 0-3 must come out
+    bit-identical."""
     from mlx_mcmc_tpu_torch.inference.engine import step_inputs
     from mlx_mcmc_tpu_torch.kernels.base import Tunables
     from mlx_mcmc_tpu_torch.kernels.nuts import make_nuts_kernel
     from mlx_mcmc_tpu_torch.ops.random import step_draws
 
-    inv_var = torch.tensor([1.0, 0.25, 4.0], device="cuda")
-
-    def vag(Z):
-        return -0.5 * (Z * Z * inv_var).sum(-1), -Z * inv_var
-
-    tun = Tunables(torch.tensor(0.4, device="cuda"), torch.ones(3, device="cuda"))
+    tun = Tunables(torch.tensor(step_size, device="cuda"), torch.ones(dim, device="cuda"))
     out = {}
-    for c in (4, 8):
+    for c in counts:
         chains = torch.arange(c, device="cuda")
-        init_fn, step_fn = make_nuts_kernel(vag, max_tree_depth=6)
-        state = init_fn(step_draws(11, chains, 999, 3, 0)[0])
+        init_fn, step_fn = make_nuts_kernel(vag, max_tree_depth=max_tree_depth)
+        state = init_fn(init_scale * step_draws(11, chains, 999, dim, 0)[0])
         infos = []
         for t in range(3):
-            r0, U = step_inputs(11, chains, t, tun.inv_mass_diag, 32)
+            r0, U = step_inputs(11, chains, t, tun.inv_mass_diag, 1 << (max_tree_depth - 1))
             state, info, _ = step_fn(state, tun, r0, U)
             infos.append(info.tree_depth)
-        out[c] = (state.position, state.log_prob, torch.stack(infos, 1))
-    for a, b in zip(out[4], out[8]):
-        if not torch.equal(a, b[:4]):
-            fail("layout invariance: chains 0-3 differ between a 4-chain and an 8-chain run")
-    log(f"layout invariance: chains 0-3 bit-identical over 3 steps (tree depths "
-        f"{out[4][2].tolist()})")
+        out[c] = (state.position[:4], state.log_prob[:4], torch.stack(infos, 1)[:4])
+    for a, b in zip(out[counts[0]], out[counts[1]]):
+        if not torch.equal(a, b):
+            fail(f"layout invariance ({label}): chains 0-3 differ between a {counts[0]}-chain "
+                 f"and a {counts[1]}-chain run")
+    log(f"layout invariance ({label}): chains 0-3 bit-identical over 3 steps at {counts[0]} and "
+        f"{counts[1]} chains (tree depths {out[counts[0]][2].tolist()})")
 
 
 def main() -> None:
@@ -510,7 +536,7 @@ def main() -> None:
     log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(logs) or 'up to date'})")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
     from mlx_mcmc_tpu_torch.bench import CONFIGS, build_problem
@@ -522,7 +548,7 @@ def main() -> None:
         prepare_fused_linear_data,
         prepare_fused_logistic_data,
     )
-    from mlx_mcmc_tpu_torch.ops.poisson import prepare_fused_poisson_data
+    from mlx_mcmc_tpu_torch.ops.poisson import fused_poisson_vag_cuda, prepare_fused_poisson_data
 
     # --- kernels against their plain versions -----------------------------
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -535,6 +561,10 @@ def main() -> None:
     # unit-scale positions, as the main path's posterior gives (|s| ~ 1)
     z_main = torch.randn(cfg["num_chains"], d, generator=gen, device="cuda")
     rows = {"K1": check_glm("logistic", "main", data["Xp"], data["yp"], z_main, timed=True)}
+    rows["K1"]["device_breakdown_ms"] = device_breakdown_ms(
+        lambda: fused_logistic_vag_cuda(data["Xp"], data["yp"], z_main),
+        ("round_z", "glm_onepass", "sum_splits"))
+    glm_bits_check("K1 one-pass", data["Xp"], data["yp"], z_main)
     n_r, d_r, c_r = 777, 37, 1000
     x_r = (torch.randn(n_r, d_r, generator=gen, device="cuda") / math.sqrt(d_r)).bfloat16()
     y_r = (torch.rand(n_r, generator=gen, device="cuda") < 0.5).float()
@@ -545,9 +575,15 @@ def main() -> None:
     lin_problem = build_problem(lin_cfg)
     lin_data = lin_problem[2]
     rows["K2"] = check_glm("linear", "main", lin_data["Xp"], lin_data["yp"], z_main, timed=True)
+    bits_check("K2 one-pass", lambda z: fused_linear_vag_cuda(lin_data["Xp"], lin_data["yp"], z),
+               z_main)
     y_lin = (x_r.float() @ torch.randn(d_r, generator=gen, device="cuda")
              + torch.randn(n_r, generator=gen, device="cuda"))
     check_glm("linear", "ragged", ragged["Xp"], y_lin, z_r, timed=False)
+
+    q100 = prepare_fused_logistic_data(data["Xp"][:, :d], data["yp"], quantize="int8")
+    glm_bits_check("K1 int8 one-pass", q100["Xp"], q100["yp"], z_main * q100["col_scale"])
+    del q100
 
     # K1 on the wide path (Dp = 1008) at glm1000_fused's shape, bf16 and
     # int8 (the scales folded into Z); K1, K2 and K4 at a ragged wide shape.
@@ -564,12 +600,13 @@ def main() -> None:
     wide["products_library_ms"] = products_yardstick_ms(w_data["Xp"], z_w)
     log(f"  design floor {wide_design_floor_ms(*w_data['Xp'].shape, z_w.shape[0]):.4f} ms "
         "(bytes of the two-kernel design)")
-    wide_bits_check(w_data["Xp"], w_data["yp"], z_w)
+    glm_bits_check("K1 wide", w_data["Xp"], w_data["yp"], z_w)
     rows["K1_wide"] = wide
     q_data = prepare_fused_logistic_data(w_data["Xp"][:, :w_data["dim"]], w_data["yp"], quantize="int8")
     variants["K1"]["int8_glm1000"] = check_glm(
         "logistic", "int8 glm1000", q_data["Xp"], q_data["yp"], z_w * q_data["col_scale"],
         timed=True, ll_rel=LL_TOL_REL)
+    glm_bits_check("K1 int8 wide", q_data["Xp"], q_data["yp"], z_w * q_data["col_scale"])
     del q_data
     x_wf = w_data["Xp"][:, :w_data["dim"]].float()
     y_wl = x_wf @ torch.randn(w_data["dim"], generator=gen, device="cuda") + torch.randn(
@@ -597,6 +634,7 @@ def main() -> None:
     fused_hoisted_vag_cuda.launches = 0
     rows["K4"] = check_glm("hoisted", "main", data["Xp"], None, z_main, timed=True)
     rows["K4"].update(hoisted_gap(data, z_main))
+    bits_check("K4 one-pass", lambda z: fused_hoisted_vag_cuda(data["Xp"], z), z_main)
     variants["K4"]["wide_ragged"] = check_glm("hoisted", "wide ragged", rw["Xp"], None, z_rw, timed=False)
     variants["K4"]["int8_wide_ragged"] = check_glm(
         "hoisted", "int8 wide ragged", rq["Xp"], None, z_rw * rq["col_scale"], timed=False)
@@ -612,6 +650,7 @@ def main() -> None:
     rows["K2_f32"] = check_glm("linear", "f32 main", lin_data["Xp"].float(), lin_data["yp"], z_main,
                                timed=True)
     rows["K4_f32"] = check_glm("hoisted", "f32 main", x_f32, None, z_main, timed=True)
+    glm_bits_check("K1 f32", x_f32, data["yp"], z_main)
     del x_f32
     rwf = prepare_fused_logistic_data(x_w.float(), y_w)
     variants["K1_f32"]["f32_wide_ragged"] = check_glm(
@@ -634,6 +673,11 @@ def main() -> None:
     theta_p = 1.0 + 0.5 * torch.randn(c_p, g_p, generator=gen, device="cuda")
     beta_p = spec_truth["beta"] + 0.05 * torch.randn(c_p, 4, generator=gen, device="cuda")
     rows["K3"] = check_poisson("main", p_data, theta_p, beta_p, timed=True)
+    p_args = (p_data["X"], p_data["y"], p_data["shat"], p_data["lamhat"])
+    rows["K3"]["device_breakdown_ms"] = device_breakdown_ms(
+        lambda: fused_poisson_vag_cuda(*p_args, theta_p, beta_p),
+        ("poisson_fused", "sum_splits"))
+    bits_check("K3", lambda th, b: fused_poisson_vag_cuda(*p_args, th, b), theta_p, beta_p)
     pr_spec = make_poisson_event_rates(37, 61, 3, seed=5)
     pr_data = prepare_fused_poisson_data(pr_spec.y, pr_spec.X)
     check_poisson("ragged", pr_data, 1.0 + 0.5 * torch.randn(300, 37, generator=gen, device="cuda"),
@@ -733,7 +777,18 @@ def main() -> None:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- layout invariance -------------------------------------------------
-    layout_invariance()
+    from mlx_mcmc_tpu_torch.ops.glm import make_fused_logistic_vag
+    from mlx_mcmc_tpu_torch.ops.poisson import make_fused_poisson_vag
+
+    inv_var = torch.tensor([1.0, 0.25, 4.0], device="cuda")
+    layout_invariance("elementwise", lambda Z: (-0.5 * (Z * Z * inv_var).sum(-1), -Z * inv_var),
+                      3, (4, 8), 0.4, 6)
+    k1_vag, k3_vag = make_fused_logistic_vag(1.0), make_fused_poisson_vag()
+    layout_invariance("glm100_fused through K1", lambda Z: k1_vag(Z, data), d,
+                      (4, cfg["num_chains"]), 0.02, cfg["max_tree_depth"], init_scale=0.1)
+    layout_invariance("poisson1000_cov through K3", lambda Z: k3_vag(Z, p_data),
+                      pcfg["covariate_dim"] + 2 + pcfg["num_groups"], (4, c_p), 0.002,
+                      pcfg["max_tree_depth"], init_scale=0.1)
 
     glm_src = "mlx_mcmc_tpu_torch/csrc/glm_fused.cu"
     k1, k2, k4 = ("mlx_mcmc_tpu/ops/pallas/glm.py:49", "mlx_mcmc_tpu/ops/pallas/glm.py:281",
@@ -741,17 +796,18 @@ def main() -> None:
     # (name, source, replaces, device kernels); a path of the GLM entries
     # that runs other device kernels has its own row.
     sources = {
-        "K1": ("glm_fused_logistic", glm_src, k1, ["glm_fused_kernel"]),
+        "K1": ("glm_fused_logistic", glm_src, k1, ["round_z_kernel", "glm_onepass_kernel", "sum_splits_kernel"]),
         "K1_wide": ("glm_fused_logistic:wide_bf16", glm_src, k1,
                     ["glm_hopper_value_kernel", "glm_hopper_grad_kernel"]),
         "K1_f32": ("glm_fused_logistic:f32", glm_src, k1,
                    ["glm_f32_value_kernel", "glm_f32_grad_kernel"]),
-        "K2": ("glm_fused_linear", glm_src, k2, ["glm_fused_kernel"]),
+        "K2": ("glm_fused_linear", glm_src, k2, ["round_z_kernel", "glm_onepass_kernel", "sum_splits_kernel"]),
         "K2_f32": ("glm_fused_linear:f32", glm_src, k2,
                    ["glm_f32_value_kernel", "glm_f32_grad_kernel"]),
         "K3": ("poisson_fused", "mlx_mcmc_tpu_torch/csrc/poisson_fused.cu",
-               "mlx_mcmc_tpu/ops/pallas/poisson.py:62", ["poisson_fused_kernel"]),
-        "K4": ("glm_fused_hoisted", glm_src, k4, ["glm_fused_kernel"]),
+               "mlx_mcmc_tpu/ops/pallas/poisson.py:62",
+               ["poisson_fused_kernel", "sum_splits_warp_kernel"]),
+        "K4": ("glm_fused_hoisted", glm_src, k4, ["round_z_kernel", "glm_onepass_kernel", "sum_splits_kernel"]),
         "K4_f32": ("glm_fused_hoisted:f32", glm_src, k4,
                    ["glm_f32_value_kernel", "glm_f32_grad_kernel"]),
         "philox": ("philox_step_draws", "mlx_mcmc_tpu_torch/csrc/philox.cu",

@@ -6,8 +6,10 @@ same settings and the same JSON line. Run on the GPU:
 
     python -m mlx_mcmc_tpu_torch.bench [glm100_fused | glm1000_fused | poisson1000_cov]
     python -m mlx_mcmc_tpu_torch.bench loop    # costs inside the NUTS loop
-    python -m mlx_mcmc_tpu_torch.bench wide [--against ROOT]   # K1's wide path,
-                                        # kernel and glm1000_fused, beside ROOT's
+    python -m mlx_mcmc_tpu_torch.bench paired [CONFIG ...] [--against ROOT] [--no-runs]
+        # the kernels of each config's main path at its shape, then its walls
+        # and device busy share, beside ROOT's package in turns (default
+        # configs glm100_fused and poisson1000_cov)
 
 The timed run follows a warm run (kernel build, allocator and library
 start-up are excluded). ESS is computed on the device. The detail adds every
@@ -319,43 +321,86 @@ def _bench_from(root: str):
         sys.modules.update(mine)
 
 
-def wide_times(against: str | None = None) -> dict:
-    """K1 on the wide path at glm1000_fused's shape and data: device ms per
-    call and the device ms of each kernel it launches; then one
-    glm1000_fused run (wall to the device ESS, launches, host syncs, min-ESS);
-    then the device's busy share over a 40 + 40 run under the profiler.
-    With ``against``, the root of another checkout, the same for that
-    checkout's package in this process, in turns (other, this, this, other),
-    so both are measured on one card in one call. Each package samples
-    through its own value+grad (the same data: one seed); a short run of
-    each first takes the start-up costs out of the timed runs."""
+# The kernels each config's main path runs, timed by ``paired_times`` at the
+# config's shape: (label, wrapper name in this module, family of the data).
+PAIRED_KERNELS = {
+    "glm100_fused": [("K1", "fused_logistic_vag_cuda", "glm"),
+                     ("K2", "fused_linear_vag_cuda", "linear"),
+                     ("K4", "fused_hoisted_vag_cuda", "glm")],
+    "glm1000_fused": [("K1", "fused_logistic_vag_cuda", "glm")],
+    "poisson1000_cov": [("K3", "fused_poisson_vag_cuda", "poisson")],
+}
+
+
+def _kernel_call(pkg, wrapper: str, cfg: dict, family: str):
+    """One call of ``pkg``'s kernel wrapper at ``cfg``'s shape, on that
+    package's own data for the config (one seed: the same numbers in every
+    package) and chain positions drawn from a fixed seed: unit scale for
+    glm100 (|s| ~ 1, as its posterior gives), 0.05 for glm1000, near the
+    generator's scale for the Poisson model."""
+    data = pkg.build_problem(dict(cfg, family=family))[2]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    fn = getattr(pkg, wrapper)
+    if family == "poisson":
+        c, g, k = cfg["num_chains"], cfg["num_groups"], cfg["covariate_dim"]
+        theta = 1.0 + 0.5 * torch.randn(c, g, generator=gen, device="cuda")
+        beta = 0.2 * torch.randn(c, k, generator=gen, device="cuda")
+        args = (data["X"], data["y"], data["shat"], data["lamhat"], theta, beta)
+        return lambda: fn(*args)
+    scale = 0.05 if cfg["num_features"] > 128 else 1.0
+    Z = scale * torch.randn(cfg["num_chains"], data["dim"], generator=gen, device="cuda")
+    if wrapper == "fused_hoisted_vag_cuda":
+        return lambda: fn(data["Xp"], Z)
+    return lambda: fn(data["Xp"], data["yp"], Z)
+
+
+def paired_times(names, against: str | None = None, runs: bool = True, emit=None) -> dict:
+    """For each config in ``names``: device ms per call of each kernel its
+    main path runs (``PAIRED_KERNELS``) at its shape, and the device ms of
+    each CUDA kernel a call launches; with ``runs``, one full run of the
+    config (wall to the device ESS, launches, host syncs, min-ESS) and the
+    device's busy share over a 20 + 20 run under the profiler (``emit(phase,
+    name, results)`` after each phase, so a run cut short keeps what it
+    measured). With
+    ``against``, the root of another checkout, the same for that checkout's
+    package in this process, in turns (other, this, this, other), so both
+    are measured on one card in one call. Each package samples through its
+    own value+grad (the same data: one seed); a short run of each first
+    takes the start-up costs out of the timed runs."""
     packages = {"this": sys.modules[__name__]}
     if against:
         packages["other"] = _bench_from(against)
     order = ["other", "this", "this", "other"] if against else ["this", "this"]
-    cfg = CONFIGS["glm1000_fused"]
-    problems = {key: pkg.build_problem(cfg) for key, pkg in packages.items()}
-    data = problems["this"][2]
-    Z = 0.05 * torch.randn(256, 1000, generator=torch.Generator(device="cuda").manual_seed(1),
-                           device="cuda")
-    out = {key: {"kernel_ms": [], "runs": []} for key in packages}
-    for key in order:
-        vag = packages[key].fused_logistic_vag_cuda
-        out[key]["kernel_ms"].append(device_ms(lambda: vag(data["Xp"], data["yp"], Z)))
-    for key in packages:
-        vag = packages[key].fused_logistic_vag_cuda
-        out[key]["kernels_ms"] = kernels_ms(lambda: vag(data["Xp"], data["yp"], Z))
-    for key, pkg in packages.items():
-        pkg.run_config(dict(cfg, num_warmup=20, num_samples=20), seed=0, problem=problems[key])
-    for key in order:
-        metrics, _, _ = packages[key].run_config(cfg, seed=1, problem=problems[key])
-        out[key]["runs"].append({k: metrics[k] for k in (
-            "wall_seconds", "min_ess", "mean_accept", "mean_tree_depth", "divergences",
-            "host_syncs")} | {"k1_launches": metrics["launches"]["glm_fused_logistic"]})
-    short = dict(cfg, num_warmup=40, num_samples=40)
-    for key, pkg in packages.items():
-        out[key]["busy_40_40"] = _device_busy(
-            lambda: pkg.run_config(short, seed=2, problem=problems[key]))
+    emit = emit or (lambda phase, name, res: None)
+    out = {}
+    for name in names:
+        cfg = CONFIGS[name]
+        res = out[name] = {key: {"kernel_ms": {}, "kernels_ms": {}, "runs": []} for key in packages}
+        for label, wrapper, family in PAIRED_KERNELS[name]:
+            calls = {key: _kernel_call(pkg, wrapper, cfg, family) for key, pkg in packages.items()}
+            for key in order:
+                res[key]["kernel_ms"].setdefault(label, []).append(device_ms(calls[key]))
+            for key in packages:
+                res[key]["kernels_ms"][label] = kernels_ms(calls[key])
+            del calls
+        emit("kernels", name, res)
+        if not runs:
+            continue
+        problems = {key: pkg.build_problem(cfg) for key, pkg in packages.items()}
+        for key, pkg in packages.items():
+            pkg.run_config(dict(cfg, num_warmup=20, num_samples=20), seed=0, problem=problems[key])
+        for key in order:
+            metrics, _, _ = packages[key].run_config(cfg, seed=1, problem=problems[key])
+            res[key]["runs"].append({k: metrics[k] for k in (
+                "wall_seconds", "min_ess", "mean_accept", "mean_tree_depth", "divergences",
+                "host_syncs")} | {"launches": metrics["launches"]})
+        emit("runs", name, res)
+        short = dict(cfg, num_warmup=20, num_samples=20)
+        for key, pkg in packages.items():
+            res[key]["busy_20_20"] = _device_busy(
+                lambda: pkg.run_config(short, seed=2, problem=problems[key]))
+        emit("busy", name, res)
+        del problems
     return out
 
 
@@ -364,11 +409,18 @@ def main() -> None:
     if name == "loop":
         print(json.dumps(dict(loop_costs(), device=torch.cuda.get_device_name(0))))
         return
-    if name == "wide":
-        against = sys.argv[3] if len(sys.argv) > 3 and sys.argv[2] == "--against" else None
+    if name == "paired":
+        args = sys.argv[2:]
+        against = args[args.index("--against") + 1] if "--against" in args else None
+        runs = "--no-runs" not in args
+        names = [a for a in args if a in CONFIGS] or ["glm100_fused", "poisson1000_cov"]
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True).stdout.strip()
-        print(json.dumps(dict(wide_times(against), device=smi)))
+
+        def emit(phase, config, res):
+            print(json.dumps({"phase": phase, "config": config, "device": smi, **res}), flush=True)
+
+        paired_times(names, against, runs, emit)
         return
     cfg = dict(CONFIGS[name])
     cfg["label"] = cfg["label"].format(chains=cfg["num_chains"])

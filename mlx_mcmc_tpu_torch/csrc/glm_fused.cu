@@ -35,19 +35,22 @@
 // Narrow (Dp <= 128), one pass over X. At glm100's shape (N = 10,000,
 // D = 100, C = 4096) the two products are 4 N D C = 1.6e10 flop, about
 // 17 us of bf16 tensor-core time at the H100's 989 TFLOP/s; the logistic
-// epilogue is 2 N C = 8.2e7 transcendentals plus about ten f32 operations
-// per element; the bytes are about 4.5 MB, 1.4 us at 3.35 TB/s. So it is
-// bound by operations. A block owns 64 chains and one contiguous range of
-// rows; the grid is (chain tiles x row splits), sized to fill the SMs. The
-// block keeps its Z tile resident in shared memory as bf16 and walks its
-// rows in 64-row tiles: each X tile is loaded once (plus a transposed copy),
-// s comes from mma.sync m16n8k16 bf16 with f32 accumulators, the epilogue
-// runs in f32 (with the accurate tanhf and logf, no fast math: the one-pass
-// y*s - softplus sum must stay within about 1e-2 nats), per-chain ll
-// accumulates in registers, the residual is written to shared memory
-// rounded to bf16, and g += X_tile^T r runs from the same resident tile
-// with accumulators kept in registers across all row tiles: at most two
-// 16-row m-tiles of g per warp, hence Dp <= 128.
+// epilogue is 2 N C = 8.2e7 transcendentals, 20 us at the special-function
+// units' 16 per clock per SM (132 SMs, 1.98 GHz); the bytes are about
+// 4.5 MB, 1.4 us at 3.35 TB/s. So the epilogue bounds it. bf16 X goes
+// through glm_onepass_kernel: FlashAttention-3's pattern with X as both K
+// and V. A TMA producer keeps a ring of X stages in flight, bf16 Z is
+// resident in shared memory, two consumer warpgroups (64 chains each)
+// compute S^T = Zb X^T with wgmma, run the epilogue on the accumulators,
+// round the residual to bf16 into the A fragments of R^T in registers, and
+// add G^T += R^T X with wgmma from those registers and the same X stage
+// (read MN-major through the transpose bit). G^T (64 chains x 128 columns)
+// stays in registers across all the block's rows: hence Dp <= 128. The
+// epilogue runs on the special-function unit (ex2, lg2, rcp .approx; the
+// Mufu structs below), within ~1e-7 nats of the accurate tanhf/logf form
+// per element. int8 X keeps the first design, glm_fused_kernel: mma.sync
+// m16n8k16 fed from shared memory with a transposed copy of each 64-row
+// tile, the residual through shared memory, the accurate epilogue.
 //
 // Wide (Dp > 128, any multiple of 16), bf16 X: two Hopper kernels. At
 // glm1000's shape (N = 100,000, D = 1000, C = 256) the two products are
@@ -77,7 +80,8 @@
 //      wgmma descriptor, so it needs no transposed copy and is read once
 //      per call up to C = 256. The rows are cut into a fixed number of
 //      splits to fill the SMs.
-// Neither split schedule depends on C: a chain's ll and g are the same bits
+// On every path the row splits depend on N, Dp and the SM count only (the
+// wrapper's launch_plan), never on C: a chain's ll and g are the same bits
 // whatever the number of chains in the call.
 //
 // Wide int8 X keeps the two mma.sync kernels of the first wide design
@@ -101,6 +105,8 @@
 #include <dlfcn.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -156,23 +162,9 @@ __device__ __forceinline__ uint32_t widen_pair(uint32_t w, int k) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-// Eight consecutive elements of X: one 16-byte load for bf16, one 8-byte
-// load for int8, widened to eight bf16 values.
-template <class XT>
-struct XPiece;
-
-template <>
-struct XPiece<__nv_bfloat16> {
-  using Raw = uint4;
-  __device__ __forceinline__ static Raw load(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint4*>(p);
-  }
-  __device__ __forceinline__ static Raw zero() { return make_uint4(0u, 0u, 0u, 0u); }
-  __device__ __forceinline__ static uint4 widen(Raw v) { return v; }
-};
-
-template <>
-struct XPiece<int8_t> {
+// Eight consecutive elements of int8 X in one 8-byte load, widened to eight
+// bf16 values (the int8 kernels; bf16 X goes through the TMA kernels).
+struct Int8Piece {
   using Raw = uint2;
   __device__ __forceinline__ static Raw load(const int8_t* p) {
     return *reinterpret_cast<const uint2*>(p);
@@ -218,9 +210,66 @@ struct Hoisted {
   }
 };
 
-template <class Epilogue, class XT>
+// The one-pass bf16 kernel's form of the logistic and hoisted epilogues:
+// softplus(s) = max(s, 0) + log1p(exp(-|s|)) and the sigmoid from the same
+// exp(-|s|), on the special-function unit (ex2, lg2 and rcp .approx, about
+// 22 bits each): three MUFU operations and ~10 f32 operations per element
+// where tanhf and logf take ~40. Per element the ll term moves by ~1e-7
+// absolute against the accurate form (1 + e rounds to half an ulp of 1; lg2
+// is good to ~2^-22 there), far below the f32 noise of a 10K-row sum.
+__device__ __forceinline__ float ex2_approx(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ float lg2_approx(float x) {
+  float r;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// softplus(s) and sigmoid(s).
+__device__ __forceinline__ void softplus_sigmoid_mufu(float s, float& sp, float& sig) {
+  const float e = ex2_approx(-1.4426950408889634f * fabsf(s));  // exp(-|s|)
+  const float one_e = 1.f + e;
+  const float r = rcp_approx(one_e);
+  sp = fmaxf(s, 0.f) + 0.6931471805599453f * lg2_approx(one_e);
+  sig = s >= 0.f ? r : e * r;
+}
+
+template <class Epilogue>
+struct Mufu;  // the MUFU form of an epilogue (the Gaussian one has no transcendentals)
+
+template <>
+struct Mufu<Logistic> {
+  static constexpr bool kUsesY = true;
+  __device__ __forceinline__ static void apply(float y, float s, float& term, float& res) {
+    float sp, sig;
+    softplus_sigmoid_mufu(s, sp, sig);
+    res = y - sig;
+    term = y * s - sp;
+  }
+};
+
+template <>
+struct Mufu<Gaussian> : Gaussian {};
+
+template <>
+struct Mufu<Hoisted> {
+  static constexpr bool kUsesY = false;
+  __device__ __forceinline__ static void apply(float, float s, float& term, float& res) {
+    softplus_sigmoid_mufu(s, term, res);
+  }
+};
+
+template <class Epilogue>
 __global__ void __launch_bounds__(kThreads)
-glm_fused_kernel(const XT* __restrict__ X,
+glm_fused_kernel(const int8_t* __restrict__ X,
                  const float* __restrict__ y, const float* __restrict__ Z,
                  float* __restrict__ ll_part, float* __restrict__ g_part,
                  int N, int Dp, int D, int C, int rows_per_split) {
@@ -258,14 +307,14 @@ glm_fused_kernel(const XT* __restrict__ X,
   }
 
   for (int r0 = row_begin; r0 < row_end; r0 += kRows) {
-    // X tile: 16-byte loads (8 bytes for int8), stored row-major and
+    // X tile: 8-byte int8 loads widened to bf16, stored row-major and
     // transposed.
     const int chunks = Dp / 8;
     for (int i = tid; i < kRows * chunks; i += kThreads) {
       const int r = i % kRows, q = i / kRows, row = r0 + r;
-      typename XPiece<XT>::Raw raw = XPiece<XT>::zero();
-      if (row < row_end) raw = XPiece<XT>::load(X + (size_t)row * Dp + q * 8);
-      const uint4 v = XPiece<XT>::widen(raw);
+      typename Int8Piece::Raw raw = Int8Piece::zero();
+      if (row < row_end) raw = Int8Piece::load(X + (size_t)row * Dp + q * 8);
+      const uint4 v = Int8Piece::widen(raw);
       *reinterpret_cast<uint4*>(Xs + r * ldz + q * 8) = v;
       const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
 #pragma unroll
@@ -388,9 +437,9 @@ __global__ void round_z_kernel(const float* __restrict__ Z, __nv_bfloat16* __res
 
 // Wide int8 path, kernel A: s = X Z^T over the full depth, the epilogue,
 // per-split ll partials and the bf16 residual Rt[chain][row] (row stride ldr).
-template <class Epilogue, class XT>
+template <class Epilogue>
 __global__ void __launch_bounds__(kAThreads)
-glm_wide_value_kernel(const XT* __restrict__ X, const float* __restrict__ y,
+glm_wide_value_kernel(const int8_t* __restrict__ X, const float* __restrict__ y,
                       const __nv_bfloat16* __restrict__ Zb, float* __restrict__ ll_part,
                       __nv_bfloat16* __restrict__ Rt, int N, int Dp, int C, int ldr,
                       int rows_per_split) {
@@ -399,7 +448,7 @@ glm_wide_value_kernel(const XT* __restrict__ X, const float* __restrict__ y,
   __shared__ __align__(16) __nv_bfloat16 Rs[kChains * kALdR];  // [chain][row]
   __shared__ float ys[kARows];
   __shared__ float red[(kAThreads / 32) * kChains];
-  using L = XPiece<XT>;
+  using L = Int8Piece;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grp = lane >> 2, t4 = lane & 3;
@@ -522,14 +571,13 @@ glm_wide_value_kernel(const XT* __restrict__ X, const float* __restrict__ y,
 // chains and 64 columns of g. Warp w owns chains [16 w, 16 w + 16) and all
 // 64 columns: A = Rt rows from shared memory, B = X chunk [row][d] through
 // ldmatrix.trans.
-template <class XT>
 __global__ void __launch_bounds__(kThreads)
-glm_wide_grad_kernel(const XT* __restrict__ X, const __nv_bfloat16* __restrict__ Rt,
+glm_wide_grad_kernel(const int8_t* __restrict__ X, const __nv_bfloat16* __restrict__ Rt,
                      float* __restrict__ g_part, int N, int Dp, int D, int C, int ldr,
                      int rows_per_split) {
   __shared__ __align__(16) __nv_bfloat16 Rs[kChains * kGLdR];  // [chain][row]
   __shared__ __align__(16) __nv_bfloat16 Xs[kGK * kGLdX];      // [row][d]
-  using L = XPiece<XT>;
+  using L = Int8Piece;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grp = lane >> 2, t4 = lane & 3;
@@ -1136,6 +1184,207 @@ glm_hopper_grad_kernel(const __grid_constant__ CUtensorMap r_map,
   }
 }
 
+// ---- one-pass bf16 kernel for Dp <= 128 on Hopper ---------------------------
+
+constexpr int kORows = 64;       // rows per X stage: the N of S^T = Zb X^T, the K of G^T += R^T X
+constexpr int kOChains = 128;    // chains per block: one m64 slice per consumer warpgroup
+constexpr int kOStages = 4;
+constexpr uint32_t kOXBox = kORows * kHK * 2;           // one 64-column box of an X stage: 8 KB
+constexpr uint32_t kOStageBytes = 2 * kOXBox;           // columns 0-63 and 64-127
+constexpr uint32_t kOZBox = kOChains * kHK * 2;         // Zb box: 128 chains x 64 columns, 16 KB
+constexpr uint32_t kOZOff = kOStages * kOStageBytes;
+constexpr uint32_t kOBarOff = kOZOff + 2 * kOZBox;
+constexpr uint32_t kOSmem = kOBarOff + (2 * kOStages + 1) * 8 + 1024;
+
+// D (64 x 64, f32) += A (64 x 16) B, A and B K-major bf16 in shared memory;
+// the accumulator layout of wgmma_m64n128k16 with j < 8.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_F32(d, 0)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16) B with A from registers (four bf16 pairs
+// in the m16n8k16 A layout of each warp's 16 rows) and B 16 x 128 MN-major
+// in shared memory (the transpose bit).
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_F32(d, 0), WG_F32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// One pass over bf16 X (Dp <= 128) for 128 chains and one row split, FA3's
+// pattern with X in the roles of both K and V. Grid (row splits, chain tiles
+// of 128). The producer thread loads the block's Zb (128 chains x Dp, once)
+// and keeps a 4-deep ring of X stages (64 rows x 128 columns as two
+// 128-byte-swizzled boxes; TMA zero-fills columns past Dp and rows past N)
+// in flight. Consumer warpgroup w owns chains [64 w, 64 w + 64): per stage it
+// computes S^T = Zb X^T (M = 64 chains, N = 64 rows, K = Dp) into 32
+// registers, runs the epilogue there (rows past N masked, ll summed in
+// registers), rounds the residual to bf16 straight into the A fragments of
+// R^T (the accumulator layout of two n8 column groups is the A layout of one
+// k16 slice), and adds G^T += R^T X (M = 64 chains, N = 128 columns, K = 64
+// rows) with B the same X stage read MN-major. G^T stays in 64 registers a
+// thread across all the block's stages. The two warpgroups work on
+// different chains, so one's epilogue overlaps the other's products. Writes
+// ll_part[split][c] and g_part[split][c][d].
+template <class Epilogue>
+__global__ void __launch_bounds__(kHThreads, 1)
+glm_onepass_kernel(const __grid_constant__ CUtensorMap x_map,
+                   const __grid_constant__ CUtensorMap z_map, const float* __restrict__ y,
+                   float* __restrict__ ll_part, float* __restrict__ g_part, int N, int Dp, int D,
+                   int C, int tiles_per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kOBarOff);
+  uint64_t* empty = full + kOStages;
+  uint64_t* zfull = empty + kOStages;
+  const int split = blockIdx.x, ct = blockIdx.y;
+  const int tile_begin = split * tiles_per_split;
+  const int tile_end = min(tile_begin + tiles_per_split, (N + kORows - 1) / kORows);
+  const int nbox = Dp > kHK ? 2 : 1;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kOStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_init(zfull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 2 * 128) {
+      mbar_expect_tx(zfull, nbox * kOZBox);
+      for (int b = 0; b < nbox; ++b)
+        tma_load_2d(smem + kOZOff + b * kOZBox, &z_map, zfull, b * kHK, ct * kOChains);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = tile_begin; t < tile_end; ++t) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = smem + stage * kOStageBytes;
+        mbar_expect_tx(&full[stage], nbox * kOXBox);
+        for (int b = 0; b < nbox; ++b)
+          tma_load_2d(st + b * kOXBox, &x_map, &full[stage], b * kHK, t * kORows);
+        if (++stage == kOStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tw = threadIdx.x & 127, warp = tw >> 5, lane = tw & 31;
+    const int cl = warp * 16 + (lane >> 2);  // this thread's chains: cl and cl + 8 of the slice
+    const unsigned char* zs = smem + kOZOff + wg * 64 * 128;
+    const int ksteps = Dp / 16;
+    float g[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) g[i] = 0.f;
+    float ll[2] = {0.f, 0.f};
+    mbar_wait(zfull, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = tile_begin; t < tile_end; ++t) {
+      // y of this thread's 16 rows: 8 j + 2 (lane % 4) + e.
+      float yv[8][2];
+      const int row0 = t * kORows + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = row0 + 8 * j + e;
+          yv[j][e] = (Epilogue::kUsesY && row < N) ? __ldg(y + row) : 0.f;
+        }
+      mbar_wait(&full[stage], phase);
+      const unsigned char* st = smem + stage * kOStageBytes;
+
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      fence_acc(s);
+      wgmma_fence();
+      for (int k = 0; k < ksteps; ++k) {
+        const int b = k >> 2, kk = k & 3;
+        wgmma_m64n64k16(s, sw128_desc(zs + b * kOZBox, 16) + 2 * kk,
+                        sw128_desc(st + b * kOXBox, 16) + 2 * kk);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc(s);
+
+      // Epilogue: s[4 j + 2 h + e] is chain cl + 8 h, row 8 j + 2 (lane % 4) + e.
+      uint32_t a[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int row = row0 + 8 * j;
+        const bool va = row < N, vb = row + 1 < N;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float ta, ra, tb, rb;
+          Epilogue::apply(yv[j][0], s[4 * j + 2 * h], ta, ra);
+          Epilogue::apply(yv[j][1], s[4 * j + 2 * h + 1], tb, rb);
+          if (!va) ta = ra = 0.f;
+          if (!vb) tb = rb = 0.f;
+          ll[h] += ta;
+          ll[h] += tb;
+          a[j >> 1][2 * (j & 1) + h] = bf16_pair(ra, rb);
+        }
+      }
+
+      // G^T += R^T X: K = the stage's 64 rows in four k16 slices.
+      fence_acc(g);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n128k16_rs(g, a[kk], sw128_desc(st, kOXBox) + 128 * kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc(g);
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == kOStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // ll: the four lanes that share a chain, in a fixed order.
+    const int cb = ct * kOChains + wg * 64 + cl;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = ll[h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if ((lane & 3) == 0 && cb + 8 * h < C) ll_part[(size_t)split * C + cb + 8 * h] = v;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = cb + 8 * (q >> 1), d = 8 * j + 2 * (lane & 3) + (q & 1);
+        if (c < C && d < D) g_part[((size_t)split * C + c) * D + d] = g[4 * j + q];
+      }
+    }
+  }
+}
+
 // out[i] = sum over splits of part[s][i], always in split order.
 __global__ void sum_splits_kernel(const float* __restrict__ part,
                                   float* __restrict__ out, int n, int splits) {
@@ -1169,19 +1418,47 @@ struct Args {
   cudaStream_t st;
 };
 
-// Dp <= 128, bf16 or int8 X: one pass over X.
-template <class Epilogue, class XT>
+// Dp <= 128, int8 X: one pass over X in the first design's mma.sync kernel.
+template <class Epilogue>
 int launch_narrow(const Args& a) {
   if (!covers(a.N, a.splits, a.rows_per_split, kRows) || a.g_splits != a.splits)
     return (int)cudaErrorInvalidValue;
   const size_t smem = shared_bytes(a.Dp);
-  cudaError_t err = cudaFuncSetAttribute(glm_fused_kernel<Epilogue, XT>,
+  cudaError_t err = cudaFuncSetAttribute(glm_fused_kernel<Epilogue>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.C + kChains - 1) / kChains, a.splits);
-  glm_fused_kernel<Epilogue, XT><<<grid, kThreads, smem, a.st>>>(
-      static_cast<const XT*>(a.X), a.y, a.Z, a.ll_part, a.g_part, a.N, a.Dp, a.D, a.C,
+  glm_fused_kernel<Epilogue><<<grid, kThreads, smem, a.st>>>(
+      static_cast<const int8_t*>(a.X), a.y, a.Z, a.ll_part, a.g_part, a.N, a.Dp, a.D, a.C,
       a.rows_per_split);
+  return (int)cudaGetLastError();
+}
+
+// Dp <= 128, bf16 X: the TMA + wgmma one-pass kernel. Scratch: zb
+// (round_up(C, 128), Dp) bf16, reached with X through the tensor maps of
+// glm_onepass_tensor_maps. The MUFU form of the epilogue unless
+// kOnePassAccurate.
+constexpr bool kOnePassAccurate = false;
+
+template <class Epilogue>
+int launch_onepass(const Args& a) {
+  if (!covers(a.N, a.splits, a.rows_per_split, kORows) || a.g_splits != a.splits ||
+      a.zb == nullptr || a.maps == nullptr || a.Dp > kMaxDp)
+    return (int)cudaErrorInvalidValue;
+  using E = typename std::conditional<kOnePassAccurate, Epilogue, Mufu<Epilogue>>::type;
+  CUtensorMap m[2];
+  memcpy(m, a.maps, sizeof m);
+  const int Cp = round_up(a.C, kOChains);
+  const size_t nz = (size_t)Cp * a.Dp;
+  round_z_kernel<<<(unsigned)((nz + 255) / 256), 256, 0, a.st>>>(
+      a.Z, static_cast<__nv_bfloat16*>(a.zb), a.C, a.D, Cp, a.Dp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(glm_onepass_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kOSmem);
+  if (err != cudaSuccess) return (int)err;
+  glm_onepass_kernel<E><<<dim3(a.splits, Cp / kOChains), kHThreads, kOSmem, a.st>>>(
+      m[0], m[1], a.y, a.ll_part, a.g_part, a.N, a.Dp, a.D, a.C, a.rows_per_split / kORows);
   return (int)cudaGetLastError();
 }
 
@@ -1200,12 +1477,11 @@ int launch_wide_int8(const Args& a) {
   round_z_kernel<<<(unsigned)((nz + 255) / 256), 256, 0, a.st>>>(a.Z, Zb, a.C, a.D, Cp, a.Dp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  glm_wide_value_kernel<Epilogue, int8_t><<<dim3(Cp / kChains, a.splits), kAThreads, 0, a.st>>>(
+  glm_wide_value_kernel<Epilogue><<<dim3(Cp / kChains, a.splits), kAThreads, 0, a.st>>>(
       X, a.y, Zb, a.ll_part, R, a.N, a.Dp, a.C, ldr, a.rows_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  glm_wide_grad_kernel<int8_t>
-      <<<dim3(Cp / kChains, (a.Dp + kGD - 1) / kGD, a.g_splits), kThreads, 0, a.st>>>(
+  glm_wide_grad_kernel<<<dim3(Cp / kChains, (a.Dp + kGD - 1) / kGD, a.g_splits), kThreads, 0, a.st>>>(
           X, R, a.g_part, a.N, a.Dp, a.D, a.C, ldr, a.g_rows_per_split);
   return (int)cudaGetLastError();
 }
@@ -1271,8 +1547,7 @@ int launch(int x_dtype, const Args& a, void* ll, void* g) {
   if (x_dtype == kXF32)
     err = launch_f32<Epilogue>(a);
   else if (a.Dp <= kMaxDp)
-    err = x_dtype == kXInt8 ? launch_narrow<Epilogue, int8_t>(a)
-                            : launch_narrow<Epilogue, __nv_bfloat16>(a);
+    err = x_dtype == kXInt8 ? launch_narrow<Epilogue>(a) : launch_onepass<Epilogue>(a);
   else if (x_dtype == kXInt8)
     err = launch_wide_int8<Epilogue>(a);
   else
@@ -1350,9 +1625,24 @@ extern "C" int glm_hopper_tensor_maps(const void* X, const void* zb, const void*
   return 0;
 }
 
+// The two tensor maps of the one-pass bf16 kernel, written to ``out`` (2 x
+// 128 bytes): X (N x Dp) in 64-column x 64-row boxes and Zb (Cp x Dp) in
+// 64-column x 128-chain boxes. Returns a CUDA error code, 0 on success.
+extern "C" int glm_onepass_tensor_maps(const void* X, const void* zb, int N, int Dp, int Cp,
+                                       void* out) {
+  CUtensorMap m[2];
+  const bool ok = Dp % 16 == 0 && Dp <= kMaxDp && Cp % kOChains == 0 &&
+                  encode_bf16_2d(&m[0], X, Dp, N, Dp, kHK, kORows) &&
+                  encode_bf16_2d(&m[1], zb, Dp, Cp, Dp, kHK, kOChains);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  memcpy(out, m, sizeof m);
+  return 0;
+}
+
 // One signature for the three entries. x_dtype: 0 bf16, 1 int8, 2 f32.
 // ll_part is (splits, C) and g_part (g_splits, C, D); the narrow path
-// (Dp <= 128, bf16 or int8) takes g_splits == splits and no scratch. The
+// (Dp <= 128) takes g_splits == splits, and for bf16 X zb and the tensor
+// maps of glm_onepass_tensor_maps (int8 X: no scratch). The
 // wide bf16 path takes zb and the tensor maps of glm_hopper_tensor_maps
 // (which name zb and rt), the wide int8 path zb and rt, the f32 path rt
 // (shapes at each launch function). Returns a CUDA error code, 0 on success.

@@ -13,6 +13,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from mlx_mcmc_tpu_torch.ops.math import row_sum
+
 
 class IntegratorState(NamedTuple):
     z: torch.Tensor  # position (C, D)
@@ -23,7 +25,7 @@ class IntegratorState(NamedTuple):
 
 def kinetic_energy(r: torch.Tensor, inv_mass_diag: torch.Tensor) -> torch.Tensor:
     """Per-chain ``0.5 * r^T M^{-1} r`` for diagonal M."""
-    return 0.5 * (inv_mass_diag * r * r).sum(dim=-1)
+    return 0.5 * row_sum(inv_mass_diag * r * r)
 
 
 def total_energy(state: IntegratorState, inv_mass_diag: torch.Tensor) -> torch.Tensor:

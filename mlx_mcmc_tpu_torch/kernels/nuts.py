@@ -38,6 +38,7 @@ from mlx_mcmc_tpu_torch.kernels.integrators import (
     leapfrog,
     total_energy,
 )
+from mlx_mcmc_tpu_torch.ops.math import row_sum
 
 DELTA_MAX = 1000.0  # max energy error before declaring divergence
 
@@ -85,7 +86,7 @@ def _is_turning(r_sum, r_first, r_last, inv_mass_diag) -> torch.Tensor:
     """Generalized U-turn criterion, per chain."""
     v_first = inv_mass_diag * r_first
     v_last = inv_mass_diag * r_last
-    return ((r_sum * v_first).sum(-1) <= 0.0) | ((r_sum * v_last).sum(-1) <= 0.0)
+    return (row_sum(r_sum * v_first) <= 0.0) | (row_sum(r_sum * v_last) <= 0.0)
 
 
 def _leaf_turning_check(check_mask, r_sum, r_leaf, r_ckpts, r_sum_ckpts, inv_mass):
@@ -95,8 +96,8 @@ def _leaf_turning_check(check_mask, r_sum, r_leaf, r_ckpts, r_sum_ckpts, inv_mas
     sub_sum = r_sum[:, None, :] - r_sum_ckpts + r_ckpts  # (C, T, D)
     v_first = inv_mass * r_ckpts
     v_leaf = inv_mass * r_leaf
-    turning_t = ((sub_sum * v_first).sum(-1) <= 0.0) | (
-        (sub_sum * v_leaf[:, None, :]).sum(-1) <= 0.0
+    turning_t = (row_sum(sub_sum * v_first) <= 0.0) | (
+        row_sum(sub_sum * v_leaf[:, None, :]) <= 0.0
     )
     return (turning_t & check_mask).any(-1)
 

@@ -42,21 +42,22 @@ import torch
 
 from mlx_mcmc_tpu_torch import _build
 from mlx_mcmc_tpu_torch._device import resolve_device, sm_count
+from mlx_mcmc_tpu_torch.ops.math import row_sum
 
 _CHAIN_TILE = 64  # chains per block (kChains; also the f32 kernels' kFT)
-_MAX_D_PAD = 128  # widest Dp of the one-pass kernel (kMaxDp)
-_ROW_TILE = 64  # rows per tile, one-pass kernel (kRows)
-_BLOCKS_PER_SM = 3  # its grid target: the ~64 KB of shared memory fits 3 per SM
+_MAX_D_PAD = 128  # widest Dp of the one-pass kernels (kMaxDp)
+_ROW_TILE = 64  # rows per tile of the one-pass kernels (kRows, kORows) and f32 value kernel
+_NARROW_SPLITS = 4  # one-pass row splits: bounds the g partials (splits x C x Dp x 4 B)
+_ONEPASS_CHAIN_TILE = 128  # bf16 one-pass kernel: chains per block (kOChains)
 _WIDE_ROW_TILE = 128  # rows per tile, wide value kernels (kARows, kHRows)
-_WIDE_BLOCKS_PER_SM = 2  # int8 wide value kernel: 256 threads of ~128 registers, 2 per SM
+_WIDE_INT8_SPLITS_PER_SM = 0.5  # int8 wide value kernel's row splits per SM
 _GRAD_ROW_CHUNK = 32  # rows per chunk, int8 wide gradient kernel (kGK)
 _GRAD_D_TILE = 64  # columns of g per block (kGD)
-_GRAD_BLOCKS_PER_SM = 4  # its grid target; more splits only add partial sums of g
 _HOPPER_CHAIN_TILE = 256  # bf16 wide kernels: chains per block (kHChains)
 _HOPPER_ROW_CHUNK = 64  # gradient kernel: rows per ring stage (kHK)
 _HOPPER_D_TILE = 128  # gradient kernel: columns of g per block (kHCols)
 _F32_ROW_CHUNK = 16  # f32 gradient kernel: rows per chunk (kFK)
-_F32_BLOCKS_PER_SM = 4  # f32 kernels' grid target: 256 threads, ~17 KB of shared memory
+_F32_SPLITS_PER_SM = 1 / 16  # f32 value kernel's row splits per SM; the gradient's half that
 _X_DTYPE_CODE = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
 
 
@@ -179,17 +180,6 @@ def fused_hoisted_vag_reference(Xp: torch.Tensor, Z: torch.Tensor):
     return _vag_reference(Xp, None, Z, _hoisted_epilogue)
 
 
-def _row_splits(n: int, blocks_across: int, row_tile: int, blocks_per_sm: int, sms: int):
-    """Row splits of a grid of ``blocks_across`` x splits blocks: enough
-    that the grid fills ``sms`` SMs about ``blocks_per_sm`` deep, each
-    split a whole number of row tiles. Returns (splits, rows_per_split)."""
-    row_tiles = -(-n // row_tile)
-    want = -(-blocks_per_sm * sms // blocks_across)
-    splits = max(1, min(row_tiles, want))
-    rows_per_split = -(-row_tiles // splits) * row_tile
-    return -(-n // rows_per_split), rows_per_split
-
-
 def _fixed_splits(n: int, row_tile: int, target: int):
     """``target`` splits of whole row tiles (fewer if n has fewer tiles),
     the last one possibly short. Returns (splits, rows_per_split)."""
@@ -202,29 +192,29 @@ def launch_plan(n: int, d_pad: int, c: int, sms: int, x_dtype=torch.bfloat16) ->
     """The kernels' grid for X (n, d_pad) of ``x_dtype`` and c chains on
     ``sms`` SMs, with the scratch shapes (``zb_shape`` bf16 Z, ``rt_shape``
     the residual R^T of type ``rt_dtype``). ``path`` is ``"narrow"`` (one
-    pass, Dp <= 128, bf16 or int8), ``"wide"`` (bf16, Dp > 128: the TMA +
-    wgmma kernels, whose split schedule depends on n and Dp only, so a
-    chain's results do not depend on c), ``"wide_int8"`` (int8, Dp > 128)
-    or ``"f32"`` (any Dp)."""
-    chain_tiles = -(-c // _CHAIN_TILE)
+    pass, Dp <= 128: the TMA + wgmma kernel for bf16, the mma.sync kernel
+    for int8), ``"wide"`` (bf16, Dp > 128: the TMA + wgmma pair),
+    ``"wide_int8"`` (int8, Dp > 128) or ``"f32"`` (any Dp). On every path
+    the row splits depend on n, Dp and ``sms`` only, never on c: a chain's
+    ll and g are summed in the same order, to the same bits, whatever the
+    number of chains in the call; chain tiles only add blocks."""
     if x_dtype == torch.float32:
-        splits, rows = _row_splits(n, chain_tiles, _ROW_TILE, _F32_BLOCKS_PER_SM, sms)
-        g_splits, g_rows = _row_splits(n, chain_tiles * -(-d_pad // _CHAIN_TILE),
-                                       _F32_ROW_CHUNK, _F32_BLOCKS_PER_SM, sms)
+        target = max(1, round(sms * _F32_SPLITS_PER_SM))
+        splits, rows = _fixed_splits(n, _ROW_TILE, target)
+        g_splits, g_rows = _fixed_splits(n, _F32_ROW_CHUNK, max(1, target // 2))
         return {"path": "f32", "splits": splits, "rows_per_split": rows,
                 "g_splits": g_splits, "g_rows_per_split": g_rows, "zb_shape": None,
-                "rt_shape": (chain_tiles * _CHAIN_TILE, _round_up(n, _ROW_TILE)),
+                "rt_shape": (_round_up(c, _CHAIN_TILE), _round_up(n, _ROW_TILE)),
                 "rt_dtype": torch.float32}
     if d_pad <= _MAX_D_PAD:
-        splits, rows = _row_splits(n, chain_tiles, _ROW_TILE, _BLOCKS_PER_SM, sms)
+        splits, rows = _fixed_splits(n, _ROW_TILE, _NARROW_SPLITS)
+        zb = (_round_up(c, _ONEPASS_CHAIN_TILE), d_pad) if x_dtype == torch.bfloat16 else None
         return {"path": "narrow", "splits": splits, "rows_per_split": rows,
-                "g_splits": splits, "g_rows_per_split": rows, "zb_shape": None, "rt_shape": None}
+                "g_splits": splits, "g_rows_per_split": rows, "zb_shape": zb, "rt_shape": None}
     if x_dtype == torch.int8:
-        splits, rows = _row_splits(n, chain_tiles, _WIDE_ROW_TILE, _WIDE_BLOCKS_PER_SM, sms)
-        g_splits, g_rows = _row_splits(
-            n, chain_tiles * -(-d_pad // _GRAD_D_TILE), _GRAD_ROW_CHUNK, _GRAD_BLOCKS_PER_SM, sms
-        )
-        c_pad = chain_tiles * _CHAIN_TILE
+        splits, rows = _fixed_splits(n, _WIDE_ROW_TILE, max(1, round(sms * _WIDE_INT8_SPLITS_PER_SM)))
+        g_splits, g_rows = _fixed_splits(n, _GRAD_ROW_CHUNK, max(1, sms // -(-d_pad // _GRAD_D_TILE)))
+        c_pad = _round_up(c, _CHAIN_TILE)
         return {"path": "wide_int8", "splits": splits, "rows_per_split": rows,
                 "g_splits": g_splits, "g_rows_per_split": g_rows, "zb_shape": (c_pad, d_pad),
                 "rt_shape": (c_pad, _round_up(n, _WIDE_ROW_TILE)), "rt_dtype": torch.bfloat16}
@@ -273,6 +263,8 @@ def _kernel_entry(name: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "glm_hopper_tensor_maps":
         fn.argtypes = [p] * 3 + [i] * 4 + [p]
+    elif name == "glm_onepass_tensor_maps":
+        fn.argtypes = [p] * 2 + [i] * 3 + [p]
     else:
         fn.argtypes = [p, i] + [p] * 9 + [i] * 8 + [p]
     fn.restype = ctypes.c_int
@@ -313,6 +305,12 @@ def _workspace(Xp: torch.Tensor, c: int, d: int) -> dict:
             ws["maps"])
         if err != 0:
             raise RuntimeError(f"glm_hopper_tensor_maps failed with CUDA error {err}")
+    elif plan["path"] == "narrow" and ws["zb"] is not None:
+        ws["maps"] = ctypes.create_string_buffer(2 * 128)
+        err = _kernel_entry("glm_onepass_tensor_maps")(
+            Xp.data_ptr(), ws["zb"].data_ptr(), n, d_pad, plan["zb_shape"][0], ws["maps"])
+        if err != 0:
+            raise RuntimeError(f"glm_onepass_tensor_maps failed with CUDA error {err}")
     _WORKSPACES[key] = ws
     if len(_WORKSPACES) > _MAX_WORKSPACES:
         _WORKSPACES.popitem(last=False)
@@ -449,7 +447,7 @@ def make_fused_logistic_vag(prior_scale: float = 1.0):
             g = g * col_scale
         ll = ll + data["pad_const"]
         log_norm = -0.5 * d * math.log(2.0 * math.pi * prior_scale * prior_scale)
-        return ll + (log_norm - 0.5 * inv_var * (Z * Z).sum(dim=-1)), g - inv_var * Z
+        return ll + (log_norm - 0.5 * inv_var * row_sum(Z * Z)), g - inv_var * Z
 
     return vag
 
@@ -471,6 +469,6 @@ def make_fused_linear_vag(prior_scale: float = 1.0, include_prior: bool = True):
         if not include_prior:
             return ll, g
         log_norm = -0.5 * d * math.log(2.0 * math.pi * prior_scale * prior_scale)
-        return ll + (log_norm - 0.5 * inv_var * (Z * Z).sum(dim=-1)), g - inv_var * Z
+        return ll + (log_norm - 0.5 * inv_var * row_sum(Z * Z)), g - inv_var * Z
 
     return vag

@@ -13,6 +13,24 @@ from typing import Callable, NamedTuple
 import torch
 
 
+_INVARIANT_ROWS = 16
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x.sum(-1)`` for chain-major ``x`` (chains first), summed in an order
+    that does not depend on how many chains ``x`` holds, so a chain's
+    result is the same bits in a batch of any size. PyTorch's CUDA
+    reduction picks how many lanes share one output from the number of
+    outputs while that is below 16 (``set_block_dimension`` in ATen's
+    ``Reduce.cuh``), and from the row length alone from 16 up; batches of
+    fewer than 16 chains are padded with zero rows to 16."""
+    c = x.shape[0]
+    if c >= _INVARIANT_ROWS or x.device.type != "cuda":
+        return x.sum(-1)
+    pad = x.new_zeros((_INVARIANT_ROWS - c,) + tuple(x.shape[1:]))
+    return torch.cat([x, pad]).sum(-1)[:c]
+
+
 def safe_where_log_prob(
     in_support: torch.Tensor,
     value,

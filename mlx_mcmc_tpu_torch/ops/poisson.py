@@ -35,12 +35,14 @@ import torch
 
 from mlx_mcmc_tpu_torch import _build
 from mlx_mcmc_tpu_torch._device import resolve_device, sm_count
+from mlx_mcmc_tpu_torch.ops.math import row_sum
 from mlx_mcmc_tpu_torch.ops.ravel import ravel_params
 
-_CHAIN_TILE = 128  # chains per block (kChains)
-_MAX_GROUPS = 32  # groups per block at most (kMaxGroups)
+_CHAIN_TILE = 256  # chains per block (kChains)
+_MAX_GROUPS = 16  # groups per block at most (kMaxGroups)
+_MAX_CHUNK_ROWS = 1024  # rows of a slab staged at a time (kMaxChunkRows)
 _MAX_K = 8  # kMaxK
-_BLOCKS_PER_SM = 8  # grid target: about 30 warps per SM
+_SPLITS_PER_SM = 1  # group splits per SM the slab size aims at (1, 2, 4 measured on an H100)
 
 
 def prepare_fused_poisson_data(y, X, device=None) -> dict:
@@ -81,12 +83,23 @@ def fused_poisson_vag_reference(X, y, shat, lamhat, theta, beta):
     return ll, r.sum(dim=-1), r.reshape(-1, G * n) @ Xf
 
 
-def _groups_per_block(G: int, C: int, device: torch.device) -> int:
-    """Enough group splits that (chain tiles x splits) fills the SMs about
-    ``_BLOCKS_PER_SM`` deep, within ``_MAX_GROUPS`` groups per block."""
-    chain_tiles = -(-C // _CHAIN_TILE)
-    want = -(-_BLOCKS_PER_SM * sm_count(device.index or 0) // chain_tiles)
-    return min(_MAX_GROUPS, max(1, -(-G // want), -(-G // 65535)))
+def _groups_per_block(G: int, n: int, sms: int) -> int:
+    """Groups in one block's slab, from the data's shape and the SM count
+    only (never the chain count, so a chain's sums are taken in the same
+    order whatever C is): about ``_SPLITS_PER_SM`` split per SM, a slab
+    of at most ``_MAX_CHUNK_ROWS`` rows where groups are that short, at
+    most ``_MAX_GROUPS`` groups, and at most 65535 splits."""
+    gpb = min(-(-G // (_SPLITS_PER_SM * sms)), max(1, _MAX_CHUNK_ROWS // n), _MAX_GROUPS)
+    return max(1, gpb, -(-G // 65535))
+
+
+def launch_plan(G: int, n: int, C: int, sms: int) -> dict:
+    """The kernel's grid for G groups of n counts and C chains on ``sms``
+    SMs: ``groups_per_block`` and ``splits`` (the blocks along the groups)
+    depend on G, n and ``sms`` only; C adds ``chain_tiles`` of 256."""
+    gpb = _groups_per_block(G, n, sms)
+    return {"groups_per_block": gpb, "splits": -(-G // gpb),
+            "chain_tiles": -(-C // _CHAIN_TILE)}
 
 
 def _check_kernel_args(X, y, shat, lamhat, theta, beta):
@@ -111,16 +124,24 @@ def _check_kernel_args(X, y, shat, lamhat, theta, beta):
         )
     if not (1 <= K <= _MAX_K):
         raise ValueError(f"the kernel takes 1 <= K <= {_MAX_K} covariates, got K={K}")
-    if G < 1 or n < 1 or C < 1 or G * n * K >= 2**31 or C * G >= 2**31:
+    if G < 1 or n < 1 or C < 1 or G * n * K >= 2**31 or C * G >= 2**31 or G > 65535 * _MAX_GROUPS:
         raise ValueError(f"sizes out of range: C={C}, G={G}, n={n}, K={K}")
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_entry():
     fn = _build.load("poisson_fused").poisson_fused
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def use_kernel_library(path) -> None:
+    """Launch the kernel from the library at ``path``, a build of a variant
+    of ``csrc/poisson_fused.cu`` (to time variants one after another in one
+    process)."""
+    _build.load("poisson_fused", path)
+    _kernel_entry.cache_clear()
 
 
 def fused_poisson_vag_cuda(X, y, shat, lamhat, theta, beta):
@@ -131,19 +152,16 @@ def fused_poisson_vag_cuda(X, y, shat, lamhat, theta, beta):
     _check_kernel_args(X, y, shat, lamhat, theta, beta)
     G, n, K = X.shape
     C = theta.shape[0]
-    gpb = _groups_per_block(G, C, X.device)
-    splits = -(-G // gpb)
+    plan = launch_plan(G, n, C, sm_count(X.device.index or 0))
     f32 = dict(dtype=torch.float32, device=X.device)
-    ll_part = torch.empty((splits, C), **f32)
-    gb_part = torch.empty((splits, C, K), **f32)
+    part = torch.empty((C * (1 + K), plan["splits"]), **f32)
     ll = torch.empty((C,), **f32)
     g_beta = torch.empty((C, K), **f32)
     r_theta = torch.empty((C, G), **f32)
     err = _kernel_entry()(
         X.data_ptr(), y.data_ptr(), shat.data_ptr(), lamhat.data_ptr(), theta.data_ptr(),
-        beta.data_ptr(), ll_part.data_ptr(), gb_part.data_ptr(), ll.data_ptr(),
-        g_beta.data_ptr(), r_theta.data_ptr(), C, G, n, K, gpb,
-        torch.cuda.current_stream(X.device).cuda_stream,
+        beta.data_ptr(), part.data_ptr(), ll.data_ptr(), g_beta.data_ptr(), r_theta.data_ptr(),
+        C, G, n, K, plan["groups_per_block"], torch.cuda.current_stream(X.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"poisson_fused launch failed with CUDA error {err}")
@@ -193,14 +211,14 @@ def make_fused_poisson_vag(prior_mu_scale: float = 5.0, prior_log_tau_scale: flo
             + const
             - 0.5 * inv_mu_var * mu * mu
             - 0.5 * inv_lt_var * log_tau * log_tau
-            - 0.5 * (theta_raw * theta_raw).sum(dim=-1)
-            - 0.5 * (beta * beta).sum(dim=-1)
+            - 0.5 * row_sum(theta_raw * theta_raw)
+            - 0.5 * row_sum(beta * beta)
         )
         grad = torch.cat(
             [
                 g_beta - beta,
-                (tau * (r_theta * theta_raw).sum(dim=-1) - inv_lt_var * log_tau)[:, None],
-                (r_theta.sum(dim=-1) - inv_mu_var * mu)[:, None],
+                (tau * row_sum(r_theta * theta_raw) - inv_lt_var * log_tau)[:, None],
+                (row_sum(r_theta) - inv_mu_var * mu)[:, None],
                 tau[:, None] * r_theta - theta_raw,
             ],
             dim=1,

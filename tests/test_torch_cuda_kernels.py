@@ -18,10 +18,11 @@ Tolerances as in ``chip_smoke.py``:
 - GLM kernels on f32 X (nothing rounded): ll as above, g within 1e-4 of
   max|g| + 1e-4 (FMA contraction and summation order move g by a few f32
   ulps of its terms).
-- The wide bf16 kernels are also held to exact equality where the design
-  promises it: two calls on the same inputs give the same bits, and chains
-  0-3 give the same bits in a call with 4 chains as in one with 256 (their
-  split schedule does not depend on C).
+- Every kernel is also held to exact equality where the design promises
+  it: two calls on the same inputs give the same bits, and chains 0-3 give
+  the same bits in a call with 4 chains as in one with 4096 (glm100's shape,
+  every X type and path; the wide bf16 path at 256) or 512 (K3): no split
+  schedule depends on C.
 - Poisson kernel (K3), all float32: ll within 0.05 nats + 1e-6 relative,
   r_theta and g_beta within 1e-4 of their max + 1e-3 (FMA contraction and
   summation order move single rates by an ulp).
@@ -183,6 +184,48 @@ def test_wide_bf16_kernels_are_reproducible_and_batch_invariant(n, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("family", ["logistic", "linear", "hoisted"])
+@pytest.mark.parametrize("n,d,c", [(10_000, 100, 4096), (777, 128, 70), (1, 16, 1), (4097, 112, 300),
+                                   (130, 5, 129), (64, 33, 128)])
+def test_onepass_bf16_kernel_matches_plain_version(n, d, c, family):
+    # The TMA + wgmma one-pass kernel (bf16, Dp <= 128): Dp = 16 to 128,
+    # ragged N (one row, a partial last tile) and C (one chain, a partial
+    # chain tile).
+    _need_gpu()
+    data, Z = _glm_case(n, d, c, "linear" if family == "linear" else "logistic")
+    assert glm.launch_plan(n, data["Xp"].shape[1], c, 132)["path"] == "narrow"
+    kernel, plain = _vag(family)
+    ll_k, g_k = kernel(data["Xp"], data["yp"], Z)
+    ll_p, g_p = plain(data["Xp"], data["yp"], Z)
+    torch.cuda.synchronize()
+    ll_rel = 0.0 if family == "logistic" else 1e-6
+    assert float((ll_k - ll_p).abs().max()) <= 0.05 + ll_rel * float(ll_p.abs().max())
+    assert float((g_k - g_p).abs().max()) <= 1e-2 * float(g_p.abs().max()) + 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["logistic", "linear", "hoisted"])
+@pytest.mark.parametrize("x_dtype,quantize,d", [(torch.bfloat16, None, 100), (torch.bfloat16, "int8", 100),
+                                                (torch.float32, None, 100), (torch.bfloat16, "int8", 300)])
+def test_glm_kernels_are_reproducible_and_batch_invariant(x_dtype, quantize, d, family):
+    # glm100's shape on every other path (one-pass bf16 and int8, f32, wide
+    # int8): two calls give the same bits, and chains 0-3 give the same bits
+    # at C = 4 as at C = 4096.
+    _need_gpu()
+    if family == "linear" and quantize:
+        pytest.skip("the linear kernel takes no int8 X, as the reference")
+    data, Z = _glm_case(10_000, d, 4096, "linear" if family == "linear" else "logistic",
+                        quantize=quantize, x_dtype=x_dtype)
+    kernel, _ = _vag(family)
+    a = kernel(data["Xp"], data["yp"], Z)
+    b = kernel(data["Xp"], data["yp"], Z)
+    four = kernel(data["Xp"], data["yp"], Z[:4].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[0][:4], four[0]) and torch.equal(a[1][:4], four[1])
+
+
+@pytest.mark.cuda
 def test_glm_kernel_refuses_what_it_does_not_take():
     _need_gpu()
     Xp = torch.zeros(10, 16, dtype=torch.bfloat16, device="cuda")
@@ -216,7 +259,9 @@ def _poisson_case(c, g, n, k, seed=3):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,g,n,k", [(512, 1000, 100, 4), (300, 37, 61, 3), (1, 1, 300, 8)])
+@pytest.mark.parametrize("c,g,n,k", [(512, 1000, 100, 4), (300, 37, 61, 3), (1, 1, 300, 8),
+                                     (70, 5, 2500, 1), (257, 1001, 13, 8), (4, 3, 1025, 4),
+                                     (513, 4000, 9, 1)])
 def test_poisson_kernel_matches_plain_version(c, g, n, k):
     _need_gpu()
     data, theta, beta = _poisson_case(c, g, n, k)
@@ -231,6 +276,20 @@ def test_poisson_kernel_matches_plain_version(c, g, n, k):
     assert float((ll_k - ll_p).abs().max()) <= 0.05 + 1e-6 * float(ll_p.abs().max())
     for k_out, p_out in ((rt_k, rt_p), (gb_k, gb_p)):
         assert float((k_out - p_out).abs().max()) <= 1e-4 * float(p_out.abs().max()) + 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n,k", [(1000, 100, 4), (37, 61, 3), (3, 1025, 8)])
+def test_poisson_kernel_is_reproducible_and_batch_invariant(g, n, k):
+    _need_gpu()
+    data, theta, beta = _poisson_case(512, g, n, k)
+    args = (data["X"], data["y"], data["shat"], data["lamhat"])
+    a = poisson.fused_poisson_vag_cuda(*args, theta, beta)
+    b = poisson.fused_poisson_vag_cuda(*args, theta, beta)
+    four = poisson.fused_poisson_vag_cuda(*args, theta[:4].contiguous(), beta[:4].contiguous())
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(x[:4], y) for x, y in zip(a, four))
 
 
 @pytest.mark.cuda
@@ -277,3 +336,16 @@ def test_philox_kernel_known_answers_and_arguments():
         prng.step_draws_cuda(0, torch.arange(4), 0, 3, 2)
     _, u = prng.step_draws_cuda(0, torch.arange(4, device="cuda"), 0, 3, 0)
     assert u.shape == (4, 0, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 100, 1006])
+def test_row_sum_is_batch_invariant(d):
+    # The NUTS loop's and the vags' row sums: chains 0-3 of a 4-row batch
+    # give the bits of a 512-row batch (torch's own sum need not).
+    _need_gpu()
+    from mlx_mcmc_tpu_torch.ops.math import row_sum
+
+    x = torch.randn(512, d, generator=torch.Generator(device="cuda").manual_seed(d), device="cuda")
+    assert torch.equal(row_sum(x[:4].contiguous()), row_sum(x)[:4])
+    assert torch.equal(row_sum(x), x.sum(-1))

@@ -168,18 +168,35 @@ def test_launch_plan_covers_every_row(n, d_pad, c, x_dtype):
         assert plan["zb_shape"] is None
         assert plan["rt_shape"] == (c64, -(-n // 64) * 64) and plan["rt_dtype"] == torch.float32
     else:
-        assert plan["g_splits"] == plan["splits"]
-        assert plan["zb_shape"] is None and plan["rt_shape"] is None
+        # bf16: the TMA + wgmma kernel reads Z as bf16 (chains padded to 128)
+        assert plan["g_splits"] == plan["splits"] and plan["rt_shape"] is None
+        c128 = -(-c // 128) * 128
+        assert plan["zb_shape"] == ((c128, d_pad) if x_dtype == torch.bfloat16 else None)
 
 
-@pytest.mark.parametrize("n,d_pad", [(100_000, 1008), (777, 304), (129, 144), (5000, 2048)])
-def test_wide_plan_splits_do_not_depend_on_the_chain_count(n, d_pad):
+@pytest.mark.parametrize("x_dtype,n,d_pad,path", [
+    (torch.bfloat16, 10_000, 112, "narrow"), (torch.bfloat16, 777, 48, "narrow"),
+    (torch.bfloat16, 1, 16, "narrow"), (torch.int8, 10_000, 112, "narrow"),
+    (torch.int8, 777, 128, "narrow"), (torch.float32, 10_000, 112, "f32"),
+    (torch.float32, 777, 304, "f32"), (torch.int8, 100_000, 1008, "wide_int8"),
+    (torch.int8, 777, 304, "wide_int8"), (torch.bfloat16, 100_000, 1008, "wide"),
+    (torch.bfloat16, 777, 304, "wide"), (torch.bfloat16, 129, 144, "wide"),
+    (torch.bfloat16, 5000, 2048, "wide"),
+])
+def test_wide_plan_splits_do_not_depend_on_the_chain_count(x_dtype, n, d_pad, path):
+    # Every path: the row splits of both products are the same at every C,
+    # so a chain's ll and g are summed in one order whatever the batch.
     keys = ("splits", "rows_per_split", "g_splits", "g_rows_per_split")
-    plans = [glm.launch_plan(n, d_pad, c, 132) for c in (1, 4, 70, 256, 300, 4096)]
-    assert {p["path"] for p in plans} == {"wide"}
+    plans = [glm.launch_plan(n, d_pad, c, 132, x_dtype) for c in (1, 4, 70, 256, 300, 4096)]
+    assert {p["path"] for p in plans} == {path}
     assert len({tuple(p[k] for k in keys) for p in plans}) == 1
-    # One block per SM for one chain tile: row tiles over the SMs, and the
-    # gradient's row splits times its column tiles of 128 within the SMs.
     plan = plans[0]
-    assert plan["splits"] <= 132
-    assert plan["g_splits"] * -(-d_pad // 128) <= 132
+    if path == "wide":
+        # One block per SM for one chain tile: row tiles over the SMs, and
+        # the gradient's row splits times its column tiles of 128 within the
+        # SMs.
+        assert plan["splits"] <= 132
+        assert plan["g_splits"] * -(-d_pad // 128) <= 132
+    if path == "narrow":
+        # At most four splits: the g partials stay 4 x C x Dp x 4 bytes.
+        assert plan["splits"] == min(4, -(-n // 64))

@@ -171,3 +171,17 @@ def test_sampling_recovers_beta():
     beta_hat = res.samples["beta"].double().mean(dim=(0, 1))
     np.testing.assert_allclose(beta_hat.numpy(), spec.truth["beta"].numpy(), atol=0.25)
     assert res.divergences == 0 and abs(res.acceptance_rate - 0.9) < 0.05
+
+
+@pytest.mark.parametrize("g,n", [(1000, 100), (37, 61), (1, 300), (5000, 7), (3, 5000)])
+def test_poisson_plan_does_not_depend_on_the_chain_count(g, n):
+    # K3's slab of whole groups is set by G, n and the SM count only, so a
+    # chain's ll and gradients are summed in one order whatever C is.
+    plans = [poisson.launch_plan(g, n, c, 132) for c in (1, 4, 70, 256, 300, 512, 4096)]
+    assert len({(p["groups_per_block"], p["splits"]) for p in plans}) == 1
+    gpb, splits = plans[0]["groups_per_block"], plans[0]["splits"]
+    assert 1 <= gpb <= 16 and splits == -(-g // gpb) and splits * gpb >= g
+    assert gpb == 1 or gpb * n <= 1024  # a slab of short groups is staged whole
+    assert [p["chain_tiles"] for p in plans] == [-(-c // 256) for c in (1, 4, 70, 256, 300, 512, 4096)]
+    if (g, n) == (1000, 100):
+        assert (gpb, splits) == (8, 125)  # about one split per SM on an H100

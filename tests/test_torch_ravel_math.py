@@ -137,3 +137,13 @@ def test_safe_where_log_prob_matches_jax(value):
         out = torch.where(torch.isinf(out), torch.zeros(()), out)
     out.backward()
     assert torch.isfinite(v.grad)
+
+
+@pytest.mark.parametrize("shape", [(4, 1006), (1, 3), (20, 100), (5, 7, 33)])
+def test_row_sum_is_the_last_axis_sum(shape):
+    # row_sum only changes how the card orders a batch of fewer than 16
+    # rows; on the CPU, and for every shape, it is x.sum(-1).
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(shape).astype(np.float32))
+    np.testing.assert_array_equal(tmath.row_sum(x).numpy(), x.sum(-1).numpy())
+    y = jnp.asarray(x.numpy()).sum(-1)
+    np.testing.assert_allclose(tmath.row_sum(x).numpy(), np.asarray(y), rtol=1e-5, atol=1e-5)
