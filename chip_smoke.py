@@ -15,12 +15,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    of bytes, tensor-core, float32, transcendental and integer work at the
    H100's peaks, with the unit that binds): K1 (logistic) and K2 (linear)
    at C=4096, N=10K, D=100 bf16 through the one-pass TMA + wgmma kernel
-   (K1 with its torch.profiler split); K1 on the wide path at glm1000's
-   shape (C=256, N=100K, D=1000) in bf16 (the TMA + wgmma value and
-   gradient kernels: their torch.profiler split, the design floor, the two
-   products as torch.matmul on bf16 as a yardstick) and int8, and K2 there
-   in bf16; K1 wide and int8, K2 wide and K4 (hoisted) at ragged wide
-   shapes; K1, K2 and K4 on f32 X (the FFMA kernels) at the glm100 shape
+   (K1 with its torch.profiler split), and K1 there on int8 X through the
+   same kernel's widening stage (timed, with its split; also at N=777,
+   D=37); K1 on the wide path at glm1000's shape (C=256, N=100K, D=1000) in
+   bf16 and int8 (the TMA + wgmma value and gradient kernels, int8 widened
+   in shared memory: their torch.profiler split, the two products as
+   torch.matmul on (widened) bf16 X as a yardstick; bf16 also the design
+   floor), with the seconds the glm1000 data took, and K2 there in bf16; K1
+   wide and int8, K2 wide and K4 (hoisted) at ragged wide shapes; K1, K2
+   and K4 on f32 X (the FFMA kernels) at the glm100 shape
    (timed) and at C=70, N=777, D=300; K4 at the glm100 shape, with its
    rebuilt ll against K1's (the reference's rejected variant, measured); K3
    (Poisson) at C=512, G=1000, n=100, K=4 (with its profiler split) and
@@ -28,12 +31,18 @@ Phases, each fatal on failure (exit code 1, no result line):
    D=100, a 32-row uniform table). Bits: two calls give the same bits and
    chains 0-3 of a C=4 call equal those of the full call, for K1, K2 and K4
    one-pass, K1 int8 one-pass and f32 at glm100 (C=4096), K1 wide and int8
-   wide at glm1000 (C=256) and K3 (C=512).
+   wide at glm1000 (C=256) and K3 (C=512). The int8 kernels are held to
+   the bf16 tolerances (int8 values widen to bf16 exactly), int8 wide at
+   glm1000 to the wide g tolerance below.
 4. ``glm100_fused`` at full width through ``sample()`` and K1 (100 params,
    10K obs, bf16 X, 4096 chains, 300 warmup + 2000 draws, depth 6, target
-   0.8, bf16 store): accept 0.8 +- 0.05, mean tree depth < 5, divergence
-   rate <= 1%, finite draws, posterior moments against a Laplace
-   approximation.
+   0.8, bf16 store) on the reference's dataset (its threefry streams):
+   accept 0.8 +- 0.05, mean tree depth < 5, divergence rate <= 1%, finite
+   draws, posterior moments against a Laplace approximation; the
+   statistics are printed beside the reference's (BENCH_r05.json).
+4a. The same on int8 X (``quantize="int8"``) through the int8 one-pass
+   kernel, cut to 100 + 100: the same checks, the Laplace approximation
+   on the dequantized X.
 4b. ``glm1000_fused`` at full width through ``sample()`` and K1's wide path
    (1000 params, 100K obs, bf16 X, 256 chains, 400 + 400, depth 8, target
    0.8, f32 store): accept 0.8 +- 0.05, mean tree depth < 7, divergence
@@ -55,11 +64,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    generator's truth.
 8. Layout invariance: three NUTS steps at fixed tunables, driven by the
    engine's per-chain draws, through a small elementwise model (4 and 8
-   chains), glm100_fused's K1 vag (4 and 4096 chains) and poisson1000_cov's
-   K3 vag (4 and 512 chains): chains 0-3 must be bit-identical.
-9. The kernels JSON line (K1 one-pass, K1 wide, K2, K3, K4, Philox, and
-   K1, K2 and K4 on f32 X; K4 and the f32 rows, on no sampling path, with
-   their phase-3 launches), then the contract line
+   chains), glm100_fused's K1 vag on bf16 and on int8 X (4 and 4096
+   chains) and poisson1000_cov's K3 vag (4 and 512 chains): chains 0-3
+   must be bit-identical.
+9. The kernels JSON line (K1 one-pass, K1 wide, K1 int8 one-pass and wide,
+   K2, K3, K4, Philox, and K1, K2 and K4 on f32 X; K4, int8 wide and the
+   f32 rows, on no sampling path, with their phase-3 launches), then the
+   contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Every path runs with the launch counts set to 0 just before it and read
@@ -454,9 +465,12 @@ def moment_gap(beta_draws, center, sd_ref):
 def laplace_check(data, beta_draws):
     """Posterior mean and sd of the logistic draws against a Laplace
     approximation (Newton MAP and inverse Hessian, float64, on the same
-    bf16-rounded X). At N = 10K, D = 100 the two agree to ~0.1 sd."""
+    bf16-rounded X, or int8 X times its column scales). At N = 10K, D = 100
+    the two agree to ~0.1 sd."""
     d = data["dim"]
     X = data["Xp"][:, :d].double()
+    if "col_scale" in data:
+        X = X * data["col_scale"].double()
     y = data["yp"].double()
     b = torch.zeros(d, dtype=torch.float64, device=X.device)
     eye = torch.eye(d, dtype=torch.float64, device=X.device)
@@ -555,7 +569,9 @@ def main() -> None:
     cfg = CONFIGS["glm100_fused"]
     lin_cfg = dict(cfg, family="linear", label="linear regression")
     pcfg = CONFIGS["poisson1000_cov"]
+    t0 = time.perf_counter()
     problem = build_problem(cfg)
+    log(f"glm100_fused data (the reference's threefry streams): {time.perf_counter() - t0:.2f} s")
     data = problem[2]
     d = data["dim"]
     # unit-scale positions, as the main path's posterior gives (|s| ~ 1)
@@ -581,17 +597,33 @@ def main() -> None:
              + torch.randn(n_r, generator=gen, device="cuda"))
     check_glm("linear", "ragged", ragged["Xp"], y_lin, z_r, timed=False)
 
+    # K1 on int8 X (the reference's quantize="int8", the scales folded into
+    # Z) through the one-pass kernel and its widening stage, at glm100's
+    # shape and at the ragged one (N = 777: the last stage's tail rows).
     q100 = prepare_fused_logistic_data(data["Xp"][:, :d], data["yp"], quantize="int8")
-    glm_bits_check("K1 int8 one-pass", q100["Xp"], q100["yp"], z_main * q100["col_scale"])
-    del q100
+    z_q = z_main * q100["col_scale"]
+    rows["K1_int8"] = check_glm("logistic", "int8 main", q100["Xp"], q100["yp"], z_q, timed=True)
+    rows["K1_int8"]["device_breakdown_ms"] = device_breakdown_ms(
+        lambda: fused_logistic_vag_cuda(q100["Xp"], q100["yp"], z_q),
+        ("round_z", "glm_onepass", "sum_splits"))
+    glm_bits_check("K1 int8 one-pass", q100["Xp"], q100["yp"], z_q)
+    del q100, z_q
+    rq_narrow = prepare_fused_logistic_data(x_r, y_r, quantize="int8")
+    check_glm("logistic", "int8 ragged", rq_narrow["Xp"], y_r, z_r * rq_narrow["col_scale"],
+              timed=False)
 
     # K1 on the wide path (Dp = 1008) at glm1000_fused's shape, bf16 and
     # int8 (the scales folded into Z); K1, K2 and K4 at a ragged wide shape.
     wcfg = CONFIGS["glm1000_fused"]
+    t0 = time.perf_counter()
     w_problem = build_problem(wcfg)
+    w_data_seconds = time.perf_counter() - t0
+    log(f"glm1000_fused data (the reference's threefry streams, 1e8 normals): "
+        f"{w_data_seconds:.2f} s")
     w_data = w_problem[2]
     z_w = torch.randn(wcfg["num_chains"], w_data["dim"], generator=gen, device="cuda")
-    variants = {key: {} for key in ("K1", "K1_wide", "K1_f32", "K2", "K2_f32", "K4", "K4_f32")}
+    variants = {key: {} for key in ("K1", "K1_wide", "K1_int8_wide", "K1_f32", "K2", "K2_f32", "K4",
+                                    "K4_f32")}
     wide = check_glm("logistic", "wide glm1000", w_data["Xp"], w_data["yp"], z_w, timed=True,
                      ll_rel=LL_TOL_REL, g_rel=WIDE_G_TOL_REL)
     wide["device_breakdown_ms"] = device_breakdown_ms(
@@ -601,13 +633,23 @@ def main() -> None:
     log(f"  design floor {wide_design_floor_ms(*w_data['Xp'].shape, z_w.shape[0]):.4f} ms "
         "(bytes of the two-kernel design)")
     glm_bits_check("K1 wide", w_data["Xp"], w_data["yp"], z_w)
+    wide["data_seconds"] = w_data_seconds
     rows["K1_wide"] = wide
+    # int8 X through the same pair and its widening stage; its yardstick is
+    # the two products on the widened bf16 X. Its launches are this phase's.
+    fused_logistic_vag_cuda.launches = 0
     q_data = prepare_fused_logistic_data(w_data["Xp"][:, :w_data["dim"]], w_data["yp"], quantize="int8")
-    variants["K1"]["int8_glm1000"] = check_glm(
-        "logistic", "int8 glm1000", q_data["Xp"], q_data["yp"], z_w * q_data["col_scale"],
-        timed=True, ll_rel=LL_TOL_REL)
-    glm_bits_check("K1 int8 wide", q_data["Xp"], q_data["yp"], z_w * q_data["col_scale"])
-    del q_data
+    z_wq = z_w * q_data["col_scale"]
+    rows["K1_int8_wide"] = check_glm("logistic", "int8 glm1000", q_data["Xp"], q_data["yp"], z_wq,
+                                     timed=True, ll_rel=LL_TOL_REL, g_rel=WIDE_G_TOL_REL)
+    rows["K1_int8_wide"]["device_breakdown_ms"] = device_breakdown_ms(
+        lambda: fused_logistic_vag_cuda(q_data["Xp"], q_data["yp"], z_wq),
+        ("round_z", "glm_hopper_value", "glm_hopper_grad", "sum_splits"))
+    rows["K1_int8_wide"]["products_library_ms"] = products_yardstick_ms(
+        q_data["Xp"].to(torch.bfloat16), z_wq)
+    glm_bits_check("K1 int8 wide", q_data["Xp"], q_data["yp"], z_wq)
+    int8_wide_launches = fused_logistic_vag_cuda.launches
+    del q_data, z_wq
     x_wf = w_data["Xp"][:, :w_data["dim"]].float()
     y_wl = x_wf @ torch.randn(w_data["dim"], generator=gen, device="cuda") + torch.randn(
         x_wf.shape[0], generator=gen, device="cuda")
@@ -622,8 +664,10 @@ def main() -> None:
     rw = prepare_fused_logistic_data(x_w, y_w)
     variants["K1_wide"]["wide_ragged"] = check_glm("logistic", "wide ragged", rw["Xp"], y_w, z_rw, timed=False)
     rq = prepare_fused_logistic_data(x_w, y_w, quantize="int8")
-    variants["K1"]["int8_wide_ragged"] = check_glm(
+    before = fused_logistic_vag_cuda.launches
+    variants["K1_int8_wide"]["int8_wide_ragged"] = check_glm(
         "logistic", "int8 wide ragged", rq["Xp"], y_w, z_rw * rq["col_scale"], timed=False)
+    int8_wide_launches += fused_logistic_vag_cuda.launches - before
     y_wl = (x_w.float() @ torch.randn(d_w, generator=gen, device="cuda")
             + torch.randn(n_w, generator=gen, device="cuda"))
     variants["K2"]["wide_ragged"] = check_glm(
@@ -702,12 +746,34 @@ def main() -> None:
     if not bool(torch.isfinite(beta).all()):
         fail("non-finite draws")
     check_sampler("glm100_fused", metrics, 0.8, 5, ["glm_fused_logistic", "philox_step_draws"])
+    log(f"glm100_fused on the reference's dataset: accept {metrics['mean_accept']:.4f}, depth "
+        f"{metrics['mean_tree_depth']:.3f}, divergences {metrics['divergences']}, min-ESS "
+        f"{metrics['min_ess']:.0f}; the reference (BENCH_r05.json, TPU v5e): 0.794, 3.0, 0, "
+        "14119787")
     z_gap, sd_lo, sd_hi = laplace_check(data, beta)
     log(f"glm100_fused vs Laplace: max |mean - MAP| / sd = {z_gap:.4f}, "
         f"sd ratio in [{sd_lo:.4f}, {sd_hi:.4f}]")
     if z_gap > 0.25 or not (0.9 <= sd_lo and sd_hi <= 1.1):
         fail("posterior moments disagree with the Laplace approximation")
     del result, beta, problem
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # --- glm100_fused on int8 X, cut: the int8 one-pass kernel -------------
+    icfg = dict(cfg, quantize="int8", num_warmup=100, num_samples=100)
+    i_problem = build_problem(icfg)
+    imetrics, iresult = drive("glm100_fused int8 (100 + 100)", icfg, i_problem)
+    launches["K1_int8"] = imetrics["launches"]["glm_fused_logistic"]
+    beta = iresult.samples["beta"]
+    want = (icfg["num_chains"], icfg["num_samples"], icfg["num_features"])
+    if tuple(beta.shape) != want or not bool(torch.isfinite(beta).all()):
+        fail(f"glm100_fused int8: draws of shape {tuple(beta.shape)} or non-finite, want {want}")
+    check_sampler("glm100_fused int8", imetrics, 0.8, 5, ["glm_fused_logistic", "philox_step_draws"])
+    z_gap, sd_lo, sd_hi = laplace_check(i_problem[2], beta)
+    log(f"glm100_fused int8 vs Laplace on the dequantized X: max |mean - MAP| / sd = {z_gap:.4f}, "
+        f"sd ratio in [{sd_lo:.4f}, {sd_hi:.4f}]")
+    if z_gap > 0.25 or not (0.9 <= sd_lo and sd_hi <= 1.1):
+        fail("glm100_fused int8: posterior moments disagree with the Laplace approximation")
+    del iresult, beta
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- glm1000_fused: the wide path --------------------------------------
@@ -786,6 +852,8 @@ def main() -> None:
     k1_vag, k3_vag = make_fused_logistic_vag(1.0), make_fused_poisson_vag()
     layout_invariance("glm100_fused through K1", lambda Z: k1_vag(Z, data), d,
                       (4, cfg["num_chains"]), 0.02, cfg["max_tree_depth"], init_scale=0.1)
+    layout_invariance("glm100_fused int8 through K1", lambda Z: k1_vag(Z, i_problem[2]), d,
+                      (4, cfg["num_chains"]), 0.02, cfg["max_tree_depth"], init_scale=0.1)
     layout_invariance("poisson1000_cov through K3", lambda Z: k3_vag(Z, p_data),
                       pcfg["covariate_dim"] + 2 + pcfg["num_groups"], (4, c_p), 0.002,
                       pcfg["max_tree_depth"], init_scale=0.1)
@@ -799,6 +867,10 @@ def main() -> None:
         "K1": ("glm_fused_logistic", glm_src, k1, ["round_z_kernel", "glm_onepass_kernel", "sum_splits_kernel"]),
         "K1_wide": ("glm_fused_logistic:wide_bf16", glm_src, k1,
                     ["glm_hopper_value_kernel", "glm_hopper_grad_kernel"]),
+        "K1_int8": ("glm_fused_logistic:int8", glm_src, k1,
+                    ["round_z_kernel", "glm_onepass_kernel", "sum_splits_kernel"]),
+        "K1_int8_wide": ("glm_fused_logistic:wide_int8", glm_src, k1,
+                         ["glm_hopper_value_kernel", "glm_hopper_grad_kernel"]),
         "K1_f32": ("glm_fused_logistic:f32", glm_src, k1,
                    ["glm_f32_value_kernel", "glm_f32_grad_kernel"]),
         "K2": ("glm_fused_linear", glm_src, k2, ["round_z_kernel", "glm_onepass_kernel", "sum_splits_kernel"]),
@@ -814,6 +886,7 @@ def main() -> None:
                    "mlx_mcmc_tpu/inference/engine.py:390", ["philox_step_kernel"]),
     }
     launches["K4"] = k4_launches
+    launches["K1_int8_wide"] = int8_wide_launches
     launches.update(f32_launches)
     kernels = []
     for key, (name, source, replaces, device_kernels) in sources.items():
@@ -822,7 +895,7 @@ def main() -> None:
         extra["device_kernels"] = device_kernels
         if variants.get(key):
             extra["variants"] = variants[key]
-        if key == "K4" or key.endswith("_f32"):
+        if key in ("K4", "K1_int8_wide") or key.endswith("_f32"):
             extra["sampling_path"] = False
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -13,12 +13,18 @@ same settings and the same JSON line. Run on the GPU:
 
 The timed run follows a warm run (kernel build, allocator and library
 start-up are excluded). ESS is computed on the device. The detail adds every
-kernel's launch count and the host-sync count of the timed run. The data
-come from numpy's generator, so they are not the reference's datasets:
-sampler statistics should match the reference's within run variance, not
-digit for digit. ``build_problem`` also knows the Gaussian linear regression
-(``family="linear"``) that ``chip_smoke.py`` drives through K2; the
-reference's bench has no such config, so neither has this one.
+kernel's launch count, the host-sync count of the timed run and the seconds
+``build_problem`` took to make the data. The GLM configs sample the
+reference's own datasets: ``models/glm.py`` draws them from the reference's
+threefry streams (``models/jax_random.py``), key for key. The Poisson
+config's counts come from numpy's generator (the reference draws them with
+``jax.random.poisson``, which the port does not reproduce), so its sampler
+statistics match the reference's within run variance only.
+``build_problem`` also knows the Gaussian linear regression
+(``family="linear"``) that ``chip_smoke.py`` drives through K2, and a GLM
+config with ``quantize="int8"`` stores X as the reference's int8 with
+per-column scales; the reference's bench has neither config, so neither
+has this one.
 """
 
 from __future__ import annotations
@@ -127,7 +133,7 @@ def build_problem(cfg):
             num_features=cfg["num_features"], num_obs=cfg["num_obs"], seed=0,
             data_dtype=torch.bfloat16,
         )
-        data = prepare_fused_logistic_data(spec.X, spec.y)
+        data = prepare_fused_logistic_data(spec.X, spec.y, quantize=cfg.get("quantize"))
         extra = {"value_and_grad_fn": make_fused_logistic_vag(prior_scale=1.0)}
         return None, spec.initial_params, data, extra
     if cfg["family"] == "linear":
@@ -322,23 +328,28 @@ def _bench_from(root: str):
 
 
 # The kernels each config's main path runs, timed by ``paired_times`` at the
-# config's shape: (label, wrapper name in this module, family of the data).
+# config's shape: (label, wrapper name in this module, family of the data;
+# "glm_int8" is the GLM data stored as int8, the scales folded into Z).
 PAIRED_KERNELS = {
     "glm100_fused": [("K1", "fused_logistic_vag_cuda", "glm"),
                      ("K2", "fused_linear_vag_cuda", "linear"),
-                     ("K4", "fused_hoisted_vag_cuda", "glm")],
-    "glm1000_fused": [("K1", "fused_logistic_vag_cuda", "glm")],
+                     ("K4", "fused_hoisted_vag_cuda", "glm"),
+                     ("K1_int8", "fused_logistic_vag_cuda", "glm_int8")],
+    "glm1000_fused": [("K1", "fused_logistic_vag_cuda", "glm"),
+                      ("K1_int8", "fused_logistic_vag_cuda", "glm_int8")],
     "poisson1000_cov": [("K3", "fused_poisson_vag_cuda", "poisson")],
 }
 
 
 def _kernel_call(pkg, wrapper: str, cfg: dict, family: str):
-    """One call of ``pkg``'s kernel wrapper at ``cfg``'s shape, on that
-    package's own data for the config (one seed: the same numbers in every
-    package) and chain positions drawn from a fixed seed: unit scale for
-    glm100 (|s| ~ 1, as its posterior gives), 0.05 for glm1000, near the
-    generator's scale for the Poisson model."""
-    data = pkg.build_problem(dict(cfg, family=family))[2]
+    """One call of ``pkg``'s kernel wrapper at ``cfg``'s shape, on this
+    module's data for the config (so every package gets the same inputs)
+    and chain positions drawn from a fixed seed: unit scale for glm100 (|s|
+    ~ 1, as its posterior gives), 0.05 for glm1000, near the generator's
+    scale for the Poisson model."""
+    int8 = family == "glm_int8"
+    data = build_problem(dict(cfg, family="glm" if int8 else family,
+                              quantize="int8" if int8 else None))[2]
     gen = torch.Generator(device="cuda").manual_seed(1)
     fn = getattr(pkg, wrapper)
     if family == "poisson":
@@ -349,6 +360,8 @@ def _kernel_call(pkg, wrapper: str, cfg: dict, family: str):
         return lambda: fn(*args)
     scale = 0.05 if cfg["num_features"] > 128 else 1.0
     Z = scale * torch.randn(cfg["num_chains"], data["dim"], generator=gen, device="cuda")
+    if int8:
+        Z = Z * data["col_scale"]
     if wrapper == "fused_hoisted_vag_cuda":
         return lambda: fn(data["Xp"], Z)
     return lambda: fn(data["Xp"], data["yp"], Z)
@@ -356,17 +369,19 @@ def _kernel_call(pkg, wrapper: str, cfg: dict, family: str):
 
 def paired_times(names, against: str | None = None, runs: bool = True, emit=None) -> dict:
     """For each config in ``names``: device ms per call of each kernel its
-    main path runs (``PAIRED_KERNELS``) at its shape, and the device ms of
-    each CUDA kernel a call launches; with ``runs``, one full run of the
-    config (wall to the device ESS, launches, host syncs, min-ESS) and the
-    device's busy share over a 20 + 20 run under the profiler (``emit(phase,
-    name, results)`` after each phase, so a run cut short keeps what it
-    measured). With
-    ``against``, the root of another checkout, the same for that checkout's
-    package in this process, in turns (other, this, this, other), so both
-    are measured on one card in one call. Each package samples through its
-    own value+grad (the same data: one seed); a short run of each first
-    takes the start-up costs out of the timed runs."""
+    main path runs (``PAIRED_KERNELS``) at its shape, with the host's
+    enqueue hidden (``kernel_ms``) and per wrapper call (``call_ms``), and
+    the device ms of each CUDA kernel a call launches; with ``runs``, one
+    full run of the config (wall to the device ESS, launches, host syncs,
+    min-ESS) and the device's busy share over a 20 + 20 run under the
+    profiler (``emit(phase, name, results)`` after each phase, so a run cut
+    short keeps what it measured). With ``against``, the root of another
+    checkout, the same for that checkout's package in this process, in
+    turns (other, this, this, other), so both are measured on one card in
+    one call. The kernels get this package's inputs; each package samples
+    through its own data and value+grad (an older checkout's GLM data came
+    from numpy's generator); a short run of each first takes the start-up
+    costs out of the timed runs."""
     packages = {"this": sys.modules[__name__]}
     if against:
         packages["other"] = _bench_from(against)
@@ -375,11 +390,15 @@ def paired_times(names, against: str | None = None, runs: bool = True, emit=None
     out = {}
     for name in names:
         cfg = CONFIGS[name]
-        res = out[name] = {key: {"kernel_ms": {}, "kernels_ms": {}, "runs": []} for key in packages}
+        res = out[name] = {key: {"kernel_ms": {}, "call_ms": {}, "kernels_ms": {}, "runs": []}
+                           for key in packages}
         for label, wrapper, family in PAIRED_KERNELS[name]:
             calls = {key: _kernel_call(pkg, wrapper, cfg, family) for key, pkg in packages.items()}
             for key in order:
                 res[key]["kernel_ms"].setdefault(label, []).append(device_ms(calls[key]))
+            for key in order:
+                res[key]["call_ms"].setdefault(label, []).append(
+                    device_ms(calls[key], hide_host=False))
             for key in packages:
                 res[key]["kernels_ms"][label] = kernels_ms(calls[key])
             del calls
@@ -424,11 +443,13 @@ def main() -> None:
         return
     cfg = dict(CONFIGS[name])
     cfg["label"] = cfg["label"].format(chains=cfg["num_chains"])
+    t0 = time.perf_counter()
     problem = build_problem(cfg)
+    data_seconds = time.perf_counter() - t0
     run_config(cfg, seed=0, problem=problem)  # warm run
     metrics, _, _ = run_config(cfg, seed=1, problem=problem)
     ess_per_sec = metrics.pop("ess_per_sec")
-    detail = dict(metrics, device=torch.cuda.get_device_name(0))
+    detail = dict(metrics, data_seconds=data_seconds, device=torch.cuda.get_device_name(0))
     if cfg["family"] == "glm":
         fcfg = CONFIGS["funnel8"]
         fmetrics, _, _ = run_config(fcfg, seed=1)

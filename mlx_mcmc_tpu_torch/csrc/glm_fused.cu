@@ -25,6 +25,12 @@
 // int8 X (symmetric per-column quantization, as the reference stores it) is
 // read at half the bytes of bf16 and widened to bf16 in shared memory, exact
 // for -127..127; the caller folds the column scales into Z and out of g.
+// TMA cannot convert types, so the int8 X boxes land as bytes in a raw ring
+// beside the bf16 stages, and three warps of the producer warpgroup widen
+// each into the 128-byte-swizzled bf16 layout that TMA writes for bf16 X
+// (widen_box); the consumers are the same for both types. This is the
+// counterpart of the reference's in-register dequantization of the int8
+// tile (glm.py:87-91).
 //
 // Likelihood only: the caller adds the prior. Rows past N are masked inside
 // the kernels (they contribute nothing), so unpadded data needs no pad
@@ -37,8 +43,8 @@
 // 17 us of bf16 tensor-core time at the H100's 989 TFLOP/s; the logistic
 // epilogue is 2 N C = 8.2e7 transcendentals, 20 us at the special-function
 // units' 16 per clock per SM (132 SMs, 1.98 GHz); the bytes are about
-// 4.5 MB, 1.4 us at 3.35 TB/s. So the epilogue bounds it. bf16 X goes
-// through glm_onepass_kernel: FlashAttention-3's pattern with X as both K
+// 4.5 MB, 1.4 us at 3.35 TB/s. So the epilogue bounds it. bf16 and int8 X
+// go through glm_onepass_kernel: FlashAttention-3's pattern with X as both K
 // and V. A TMA producer keeps a ring of X stages in flight, bf16 Z is
 // resident in shared memory, two consumer warpgroups (64 chains each)
 // compute S^T = Zb X^T with wgmma, run the epilogue on the accumulators,
@@ -48,11 +54,9 @@
 // stays in registers across all the block's rows: hence Dp <= 128. The
 // epilogue runs on the special-function unit (ex2, lg2, rcp .approx; the
 // Mufu structs below), within ~1e-7 nats of the accurate tanhf/logf form
-// per element. int8 X keeps the first design, glm_fused_kernel: mma.sync
-// m16n8k16 fed from shared memory with a transposed copy of each 64-row
-// tile, the residual through shared memory, the accurate epilogue.
+// per element. int8 X goes through the same kernel with the widening stage.
 //
-// Wide (Dp > 128, any multiple of 16), bf16 X: two Hopper kernels. At
+// Wide (Dp > 128, any multiple of 16), bf16 or int8 X: two Hopper kernels. At
 // glm1000's shape (N = 100,000, D = 1000, C = 256) the two products are
 // 1.02e11 flop, 0.1035 ms at 989 TFLOP/s, against 0.060 ms to read bf16 X
 // once: the function is bound by operations. A one-pass design would keep
@@ -83,11 +87,8 @@
 // On every path the row splits depend on N, Dp and the SM count only (the
 // wrapper's launch_plan), never on C: a chain's ll and g are the same bits
 // whatever the number of chains in the call.
-//
-// Wide int8 X keeps the two mma.sync kernels of the first wide design
-// (glm_wide_value_kernel, glm_wide_grad_kernel): 64 chains per block, 32-deep
-// register-staged chunks; int8 tiles are widened to bf16 on their way to
-// shared memory.
+// int8 X takes the same two kernels with the widening stage (the value
+// kernel then keeps three ring stages instead of four, for shared memory).
 //
 // f32 X (any Dp): two simple kernels in exact f32 on the CUDA cores, no
 // tensor cores (TF32 is off on every value path, and a bf16 split would not
@@ -110,77 +111,7 @@
 
 namespace {
 
-constexpr int kRows = 64;     // rows of X per tile (narrow)
-constexpr int kChains = 64;   // chains per block (both paths)
-constexpr int kThreads = 128; // four warps (narrow; wide gradient)
-constexpr int kPad = 8;       // bf16 elements of padding per shared-memory row
-constexpr int kMaxDp = 128;   // narrow step 2 keeps at most 2 m-tiles per warp
-
-constexpr int kARows = 128;            // wide value kernel: rows per tile
-constexpr int kAThreads = 256;         // eight warps of 16 rows
-constexpr int kAK = 32;                // depth of one staged chunk
-constexpr int kALd = kAK + kPad;       // row stride of the staged chunks
-constexpr int kALdR = kARows + kPad;   // row stride of the residual tile
-
-constexpr int kGK = 32;                // wide gradient kernel: rows per chunk
-constexpr int kGD = 64;                // columns of g per block
-constexpr int kGLdR = kGK + kPad;      // row stride of the residual chunk
-constexpr int kGLdX = kGD + kPad;      // row stride of the X chunk
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D += A B for one m16n8k16 tile: A row-major bf16, B column-major bf16.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory, transposed: lane l gives the
-// address of row l % 8 of matrix l / 8 and receives, of each matrix, the
-// elements (2 (l % 4), l / 4) and (2 (l % 4) + 1, l / 4).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// Bytes k and k + 1 of w, sign-extended, as a bf16 pair (exact: |v| <= 128).
-__device__ __forceinline__ uint32_t widen_pair(uint32_t w, int k) {
-  const int lo = static_cast<int>(w << (24 - 8 * k)) >> 24;
-  const int hi = static_cast<int>(w << (16 - 8 * k)) >> 24;
-  __nv_bfloat162 p = __floats2bfloat162_rn(static_cast<float>(lo), static_cast<float>(hi));
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// Eight consecutive elements of int8 X in one 8-byte load, widened to eight
-// bf16 values (the int8 kernels; bf16 X goes through the TMA kernels).
-struct Int8Piece {
-  using Raw = uint2;
-  __device__ __forceinline__ static Raw load(const int8_t* p) {
-    return *reinterpret_cast<const uint2*>(p);
-  }
-  __device__ __forceinline__ static Raw zero() { return make_uint2(0u, 0u); }
-  __device__ __forceinline__ static uint4 widen(Raw v) {
-    return make_uint4(widen_pair(v.x, 0), widen_pair(v.x, 2), widen_pair(v.y, 0),
-                      widen_pair(v.y, 2));
-  }
-};
-
-size_t shared_bytes(int Dp) {
-  const size_t ldz = Dp + kPad, ldt = kRows + kPad;
-  return (kChains * ldz + kRows * ldz + Dp * ldt + kChains * ldt) * 2 +
-         (kRows + 4 * kChains) * 4;
-}
+constexpr int kMaxDp = 128;  // one-pass kernel: G^T (64 chains x Dp) stays in registers
 
 // The per-element epilogue: ll term and residual (d term / d s).
 struct Logistic {
@@ -267,164 +198,6 @@ struct Mufu<Hoisted> {
   }
 };
 
-template <class Epilogue>
-__global__ void __launch_bounds__(kThreads)
-glm_fused_kernel(const int8_t* __restrict__ X,
-                 const float* __restrict__ y, const float* __restrict__ Z,
-                 float* __restrict__ ll_part, float* __restrict__ g_part,
-                 int N, int Dp, int D, int C, int rows_per_split) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ldz = Dp + kPad;   // row stride of Zs and Xs
-  const int ldt = kRows + kPad;  // row stride of XsT and Rt
-  __nv_bfloat16* Zs = reinterpret_cast<__nv_bfloat16*>(smem);  // [chain][d]
-  __nv_bfloat16* Xs = Zs + kChains * ldz;                      // [row][d]
-  __nv_bfloat16* XsT = Xs + kRows * ldz;                       // [d][row]
-  __nv_bfloat16* Rt = XsT + Dp * ldt;                          // [chain][row]
-  float* ys = reinterpret_cast<float*>(Rt + kChains * ldt);    // [row]
-  float* red = ys + kRows;                                     // [warp][chain]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int grp = lane >> 2, t4 = lane & 3;
-  const int c0 = blockIdx.x * kChains;
-  const int split = blockIdx.y;
-  const int row_begin = split * rows_per_split;
-  const int row_end = min(N, row_begin + rows_per_split);
-  const int dsteps = Dp / 16;
-
-  for (int i = tid; i < kChains * Dp; i += kThreads) {
-    const int n = i / Dp, d = i - n * Dp, c = c0 + n;
-    const float v = (c < C && d < D) ? Z[(size_t)c * D + d] : 0.f;
-    Zs[n * ldz + d] = __float2bfloat16_rn(v);
-  }
-
-  float ll_acc[8][2];
-  float g_acc[2][8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    ll_acc[j][0] = ll_acc[j][1] = 0.f;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) g_acc[0][j][q] = g_acc[1][j][q] = 0.f;
-  }
-
-  for (int r0 = row_begin; r0 < row_end; r0 += kRows) {
-    // X tile: 8-byte int8 loads widened to bf16, stored row-major and
-    // transposed.
-    const int chunks = Dp / 8;
-    for (int i = tid; i < kRows * chunks; i += kThreads) {
-      const int r = i % kRows, q = i / kRows, row = r0 + r;
-      typename Int8Piece::Raw raw = Int8Piece::zero();
-      if (row < row_end) raw = Int8Piece::load(X + (size_t)row * Dp + q * 8);
-      const uint4 v = Int8Piece::widen(raw);
-      *reinterpret_cast<uint4*>(Xs + r * ldz + q * 8) = v;
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) XsT[(q * 8 + k) * ldt + r] = e[k];
-    }
-    if (tid < kRows) ys[tid] = (Epilogue::kUsesY && r0 + tid < row_end) ? y[r0 + tid] : 0.f;
-    __syncthreads();
-
-    // Step 1: s for rows [16 warp, 16 warp + 16) x all 64 chains.
-    float acc[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    const int ra = warp * 16 + grp;
-    for (int ks = 0; ks < dsteps; ++ks) {
-      const int k0 = ks * 16 + 2 * t4;
-      const uint32_t a0 = ld_pair(Xs + ra * ldz + k0);
-      const uint32_t a1 = ld_pair(Xs + (ra + 8) * ldz + k0);
-      const uint32_t a2 = ld_pair(Xs + ra * ldz + k0 + 8);
-      const uint32_t a3 = ld_pair(Xs + (ra + 8) * ldz + k0 + 8);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const __nv_bfloat16* zb = Zs + (j * 8 + grp) * ldz + k0;
-        mma_bf16(acc[j], a0, a1, a2, a3, ld_pair(zb), ld_pair(zb + 8));
-      }
-    }
-
-    // Epilogue: ll in registers, bf16 residual to shared memory.
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = ra + 8 * h;
-      const bool valid = r0 + r < row_end;
-      const float yv = ys[r];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float term, res;
-          Epilogue::apply(yv, acc[j][2 * h + e], term, res);
-          if (!valid) {
-            term = 0.f;
-            res = 0.f;
-          }
-          ll_acc[j][e] += term;
-          Rt[(j * 8 + 2 * t4 + e) * ldt + r] = __float2bfloat16_rn(res);
-        }
-      }
-    }
-    __syncthreads();
-
-    // Step 2: g (Dp x 64 chains) += X_tile^T r; warp w owns m-tiles w, w+4.
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int mt = warp + 4 * i;
-      if (mt < dsteps) {
-        const int da = mt * 16 + grp;
-#pragma unroll
-        for (int ks = 0; ks < kRows / 16; ++ks) {
-          const int k0 = ks * 16 + 2 * t4;
-          const uint32_t a0 = ld_pair(XsT + da * ldt + k0);
-          const uint32_t a1 = ld_pair(XsT + (da + 8) * ldt + k0);
-          const uint32_t a2 = ld_pair(XsT + da * ldt + k0 + 8);
-          const uint32_t a3 = ld_pair(XsT + (da + 8) * ldt + k0 + 8);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const __nv_bfloat16* rb = Rt + (j * 8 + grp) * ldt + k0;
-            mma_bf16(g_acc[i][j], a0, a1, a2, a3, ld_pair(rb), ld_pair(rb + 8));
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // ll: sum the eight row groups of a warp, then the four warps, in a fixed
-  // order.
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float v = ll_acc[j][e];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (grp == 0) red[warp * kChains + j * 8 + 2 * t4 + e] = v;
-    }
-  }
-  __syncthreads();
-  if (tid < kChains && c0 + tid < C) {
-    const float v = ((red[tid] + red[kChains + tid]) + red[2 * kChains + tid]) +
-                    red[3 * kChains + tid];
-    ll_part[(size_t)split * C + c0 + tid] = v;
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int mt = warp + 4 * i;
-    if (mt < dsteps) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int d = mt * 16 + grp + 8 * (q >> 1);
-          const int c = c0 + j * 8 + 2 * t4 + (q & 1);
-          if (c < C && d < D) g_part[((size_t)split * C + c) * D + d] = g_acc[i][j][q];
-        }
-      }
-    }
-  }
-}
-
 // Zb (Cp x Dp) = bf16(Z), zero past C and D: the wide path's Z operand,
 // rounded once per call instead of once per block.
 __global__ void round_z_kernel(const float* __restrict__ Z, __nv_bfloat16* __restrict__ Zb,
@@ -433,218 +206,6 @@ __global__ void round_z_kernel(const float* __restrict__ Z, __nv_bfloat16* __res
   if (i >= (size_t)Cp * Dp) return;
   const int c = static_cast<int>(i / Dp), d = static_cast<int>(i - (size_t)c * Dp);
   Zb[i] = __float2bfloat16_rn((c < C && d < D) ? Z[(size_t)c * D + d] : 0.f);
-}
-
-// Wide int8 path, kernel A: s = X Z^T over the full depth, the epilogue,
-// per-split ll partials and the bf16 residual Rt[chain][row] (row stride ldr).
-template <class Epilogue>
-__global__ void __launch_bounds__(kAThreads)
-glm_wide_value_kernel(const int8_t* __restrict__ X, const float* __restrict__ y,
-                      const __nv_bfloat16* __restrict__ Zb, float* __restrict__ ll_part,
-                      __nv_bfloat16* __restrict__ Rt, int N, int Dp, int C, int ldr,
-                      int rows_per_split) {
-  __shared__ __align__(16) __nv_bfloat16 Xs[kARows * kALd];    // [row][k]
-  __shared__ __align__(16) __nv_bfloat16 Zs[kChains * kALd];   // [chain][k]
-  __shared__ __align__(16) __nv_bfloat16 Rs[kChains * kALdR];  // [chain][row]
-  __shared__ float ys[kARows];
-  __shared__ float red[(kAThreads / 32) * kChains];
-  using L = Int8Piece;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int grp = lane >> 2, t4 = lane & 3;
-  const int c0 = blockIdx.x * kChains;
-  const int split = blockIdx.y;
-  const int row_begin = split * rows_per_split;
-  const int row_end = min(N, row_begin + rows_per_split);
-  const int nk = (Dp + kAK - 1) / kAK;
-  const int ra = warp * 16 + grp;
-
-  float ll_acc[8][2];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) ll_acc[j][0] = ll_acc[j][1] = 0.f;
-
-  for (int r0 = row_begin; r0 < row_end; r0 += kARows) {
-    if (tid < kARows) ys[tid] = (Epilogue::kUsesY && r0 + tid < row_end) ? y[r0 + tid] : 0.f;
-
-    // Chunk kc: X rows [r0, r0 + 128) x columns [32 kc, 32 kc + 32), two
-    // 8-column pieces per thread; Z chains [c0, c0 + 64), one piece.
-    typename L::Raw xr[2];
-    uint4 zr;
-    auto fetch = [&](int kc) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int p = tid + i * kAThreads, r = p >> 2, col = kc * kAK + (p & 3) * 8;
-        const int row = r0 + r;
-        xr[i] = (row < row_end && col < Dp) ? L::load(X + (size_t)row * Dp + col) : L::zero();
-      }
-      const int col = kc * kAK + (tid & 3) * 8;
-      zr = col < Dp ? *reinterpret_cast<const uint4*>(Zb + (size_t)(c0 + (tid >> 2)) * Dp + col)
-                    : make_uint4(0u, 0u, 0u, 0u);
-    };
-
-    float acc[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-    fetch(0);
-    for (int kc = 0; kc < nk; ++kc) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int p = tid + i * kAThreads;
-        *reinterpret_cast<uint4*>(Xs + (p >> 2) * kALd + (p & 3) * 8) = L::widen(xr[i]);
-      }
-      *reinterpret_cast<uint4*>(Zs + (tid >> 2) * kALd + (tid & 3) * 8) = zr;
-      __syncthreads();
-      if (kc + 1 < nk) fetch(kc + 1);  // in flight during the products
-#pragma unroll
-      for (int ks = 0; ks < kAK / 16; ++ks) {
-        const int k0 = ks * 16 + 2 * t4;
-        const uint32_t a0 = ld_pair(Xs + ra * kALd + k0);
-        const uint32_t a1 = ld_pair(Xs + (ra + 8) * kALd + k0);
-        const uint32_t a2 = ld_pair(Xs + ra * kALd + k0 + 8);
-        const uint32_t a3 = ld_pair(Xs + (ra + 8) * kALd + k0 + 8);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const __nv_bfloat16* zb = Zs + (j * 8 + grp) * kALd + k0;
-          mma_bf16(acc[j], a0, a1, a2, a3, ld_pair(zb), ld_pair(zb + 8));
-        }
-      }
-      __syncthreads();
-    }
-
-    // Epilogue: ll in registers, bf16 residual to the shared tile.
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = ra + 8 * h;
-      const bool valid = r0 + r < row_end;
-      const float yv = ys[r];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float term, res;
-          Epilogue::apply(yv, acc[j][2 * h + e], term, res);
-          if (!valid) {
-            term = 0.f;
-            res = 0.f;
-          }
-          ll_acc[j][e] += term;
-          Rs[(j * 8 + 2 * t4 + e) * kALdR + r] = __float2bfloat16_rn(res);
-        }
-      }
-    }
-    __syncthreads();
-
-    // Residual tile to Rt, 16 bytes a thread, rows contiguous per chain.
-#pragma unroll
-    for (int i = 0; i < (kChains * kARows / 8) / kAThreads; ++i) {
-      const int p = tid + i * kAThreads, cl = p >> 4, q = p & 15;
-      *reinterpret_cast<uint4*>(Rt + (size_t)(c0 + cl) * ldr + r0 + q * 8) =
-          *reinterpret_cast<const uint4*>(Rs + cl * kALdR + q * 8);
-    }
-    __syncthreads();
-  }
-
-  // ll: sum the eight row groups of a warp, then the eight warps, in a fixed
-  // order.
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float v = ll_acc[j][e];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (grp == 0) red[warp * kChains + j * 8 + 2 * t4 + e] = v;
-    }
-  }
-  __syncthreads();
-  if (tid < kChains && c0 + tid < C) {
-    float v = red[tid];
-#pragma unroll
-    for (int w = 1; w < kAThreads / 32; ++w) v += red[w * kChains + tid];
-    ll_part[(size_t)split * C + c0 + tid] = v;
-  }
-}
-
-// Wide int8 path, kernel B: g^T (chains x Dp) = R^T X over one row split, for 64
-// chains and 64 columns of g. Warp w owns chains [16 w, 16 w + 16) and all
-// 64 columns: A = Rt rows from shared memory, B = X chunk [row][d] through
-// ldmatrix.trans.
-__global__ void __launch_bounds__(kThreads)
-glm_wide_grad_kernel(const int8_t* __restrict__ X, const __nv_bfloat16* __restrict__ Rt,
-                     float* __restrict__ g_part, int N, int Dp, int D, int C, int ldr,
-                     int rows_per_split) {
-  __shared__ __align__(16) __nv_bfloat16 Rs[kChains * kGLdR];  // [chain][row]
-  __shared__ __align__(16) __nv_bfloat16 Xs[kGK * kGLdX];      // [row][d]
-  using L = Int8Piece;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int grp = lane >> 2, t4 = lane & 3;
-  const int c0 = blockIdx.x * kChains, d0 = blockIdx.y * kGD, split = blockIdx.z;
-  const int row_begin = split * rows_per_split;
-  const int row_end = min(N, row_begin + rows_per_split);
-  const int ma = warp * 16 + grp;
-
-  // Chunk at row r0: X rows [r0, r0 + 32) x columns [d0, d0 + 64) and Rt
-  // chains [c0, c0 + 64) x rows [r0, r0 + 32), two pieces of each per
-  // thread. Rt holds zeros past N up to ldr, so its loads need no mask.
-  typename L::Raw xr[2];
-  uint4 rr[2];
-  auto fetch = [&](int r0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int p = tid + i * kThreads;
-      const int row = r0 + (p >> 3), col = d0 + (p & 7) * 8;
-      xr[i] = (row < row_end && col < Dp) ? L::load(X + (size_t)row * Dp + col) : L::zero();
-      rr[i] = *reinterpret_cast<const uint4*>(Rt + (size_t)(c0 + (p >> 2)) * ldr + r0 +
-                                              (p & 3) * 8);
-    }
-  };
-
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  if (row_begin < row_end) fetch(row_begin);
-  for (int r0 = row_begin; r0 < row_end; r0 += kGK) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int p = tid + i * kThreads;
-      *reinterpret_cast<uint4*>(Xs + (p >> 3) * kGLdX + (p & 7) * 8) = L::widen(xr[i]);
-      *reinterpret_cast<uint4*>(Rs + (p >> 2) * kGLdR + (p & 3) * 8) = rr[i];
-    }
-    __syncthreads();
-    if (r0 + kGK < row_end) fetch(r0 + kGK);  // in flight during the products
-#pragma unroll
-    for (int ks = 0; ks < kGK / 16; ++ks) {
-      const int k0 = ks * 16 + 2 * t4;
-      const uint32_t a0 = ld_pair(Rs + ma * kGLdR + k0);
-      const uint32_t a1 = ld_pair(Rs + (ma + 8) * kGLdR + k0);
-      const uint32_t a2 = ld_pair(Rs + ma * kGLdR + k0 + 8);
-      const uint32_t a3 = ld_pair(Rs + (ma + 8) * kGLdR + k0 + 8);
-      const int mi = lane >> 3;  // this lane's row address: matrix mi, row lane % 8
-      const __nv_bfloat16* xb = Xs + (ks * 16 + (mi & 1) * 8 + (lane & 7)) * kGLdX + (mi >> 1) * 8;
-#pragma unroll
-      for (int jj = 0; jj < kGD / 16; ++jj) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, xb + jj * 16);
-        mma_bf16(acc[2 * jj], a0, a1, a2, a3, b[0], b[1]);
-        mma_bf16(acc[2 * jj + 1], a0, a1, a2, a3, b[2], b[3]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = c0 + ma + 8 * (q >> 1);
-      const int d = d0 + j * 8 + 2 * t4 + (q & 1);
-      if (c < C && d < D) g_part[((size_t)split * C + c) * D + d] = acc[j][q];
-    }
-  }
 }
 
 // ---- f32 X: exact f32 on the CUDA cores ------------------------------------
@@ -786,7 +347,7 @@ glm_f32_grad_kernel(const float* __restrict__ X, const float* __restrict__ Rt,
   }
 }
 
-// ---- Hopper wide path for bf16 X: TMA rings and wgmma ----------------------
+// ---- Hopper wide path for bf16 and int8 X: TMA rings and wgmma -------------
 
 constexpr int kHRows = 128;     // value kernel: rows per tile, the wgmma N
 constexpr int kHChains = 256;   // chains per block: the wgmma M of both kernels, two m64
@@ -799,18 +360,45 @@ constexpr int kHThreads = 384;  // consumer warpgroups 0 and 1, producer warpgro
 // a gradient stage, a warpgroup's residual staging tile): 16 KB.
 constexpr uint32_t kHalfBoxBytes = (kHChains / 2) * kHK * 2;
 
-constexpr int kVStages = 4;
+// int8 X: TMA cannot convert types, so each X box arrives as bytes (no
+// swizzle, one line of 64 or 128 bytes a row) in a raw ring with one slot a
+// stage, and warps 1-3 of the producer warpgroup widen it into the stage's
+// bf16 boxes (widen_box). A raw slot is refilled only once its stage has
+// been consumed, and so widened.
+constexpr uint32_t kRawBytes = 8192;  // one raw X box: 128 rows x 64 or 64 rows x 128 bytes
+constexpr int kWidenWarps = 3;
+constexpr uint32_t kMaxSmem = 232448;  // a block's shared memory on the H100
+
 constexpr uint32_t kVXBytes = kHRows * kHK * 2;                  // X stage, 16 KB
-constexpr uint32_t kVStageBytes = kVXBytes + 2 * kHalfBoxBytes;  // + Zb stage, 32 KB
-constexpr uint32_t kVBarOff = kVStages * kVStageBytes + 2 * kHalfBoxBytes;
-constexpr uint32_t kVSmem = kVBarOff + 2 * kVStages * 8 + 1024;  // + 1024-byte alignment slack
+constexpr uint32_t kVStageBytes = kVXBytes + 2 * kHalfBoxBytes;  // + Zb stage, 48 KB in all
+
+// The value kernel's ring: four stages for bf16 X, three for int8 X (its
+// raw ring does not fit beside four); then the residual staging tiles, the
+// raw ring, and the full, empty and raw barriers.
+__host__ __device__ constexpr int v_stages(bool int8) { return int8 ? 3 : 4; }
+__host__ __device__ constexpr uint32_t v_raw_off(bool int8) {
+  return v_stages(int8) * kVStageBytes + 2 * kHalfBoxBytes;
+}
+__host__ __device__ constexpr uint32_t v_bar_off(bool int8) {
+  return v_raw_off(int8) + (int8 ? v_stages(int8) * kRawBytes : 0);
+}
+__host__ __device__ constexpr uint32_t v_smem(bool int8) {  // + 1024-byte alignment slack
+  return v_bar_off(int8) + 3 * v_stages(int8) * 8 + 1024;
+}
+static_assert(v_smem(false) <= kMaxSmem && v_smem(true) <= kMaxSmem, "value kernel smem");
 
 constexpr int kGStages = 4;
 constexpr uint32_t kGRBytes = kHChains * kHK * 2;  // R^T stage: 256 chains x 64 rows, 32 KB
 constexpr uint32_t kGXBytes = kHK * kHCols * 2;    // X stage: 64 rows x two 64-column boxes
 constexpr uint32_t kGStageBytes = kGRBytes + kGXBytes;
-constexpr uint32_t kGBarOff = kGStages * kGStageBytes;
-constexpr uint32_t kGSmem = kGBarOff + 2 * kGStages * 8 + 1024;
+constexpr uint32_t kGRawOff = kGStages * kGStageBytes;
+__host__ __device__ constexpr uint32_t g_bar_off(bool int8) {
+  return kGRawOff + (int8 ? kGStages * kRawBytes : 0);
+}
+__host__ __device__ constexpr uint32_t g_smem(bool int8) {
+  return g_bar_off(int8) + 3 * kGStages * 8 + 1024;
+}
+static_assert(g_smem(false) <= kMaxSmem && g_smem(true) <= kMaxSmem, "gradient kernel smem");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -935,6 +523,49 @@ __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
   return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
 
+// Bytes k and k + 1 of the int8 word w as a bf16 pair, exact for -128..127
+// (``sel`` is 0x4140 for bytes 0-1, 0x4342 for bytes 2-3). A byte permute
+// puts each byte b under the bf16 exponent of 128 (0x43): masking b's sign
+// bit out leaves 128 + (b & 127), and the sign bit alone selects -128 or
+// -256; one bf16x2 fused multiply-add adds the two, which is b exactly.
+__device__ __forceinline__ uint32_t s8_pair_to_bf16(uint32_t w, uint32_t sel) {
+  const uint32_t p = __byte_perm(w, 0x43u, sel);
+  const uint32_t x = p & 0x437F437Fu;                    // 128 + (b & 127)
+  const uint32_t neg = (p & 0x00800080u) | 0xC300C300u;  // -128 or -256
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(0x3F803F80u), "r"(neg));
+  return r;
+}
+
+// Widens one raw int8 box (kLines lines of kLineBytes bytes) into bf16 boxes
+// of 64 columns in the layout that TMA's 128-byte swizzle writes and the
+// wgmma descriptors read: line r at 128 r, its 16-byte chunk c at
+// 16 (c ^ r % 8); the second box (columns 64-127) starts box_stride bytes
+// after the first. Each step takes 16 values (one 16-byte load) to two
+// chunks. ``wt`` is the thread's index among the 32 x kWidenWarps widening
+// threads. Then fences its stores for the async proxy (wgmma reads them
+// there) and, lane 0 of each warp, arrives on ``full``.
+template <int kLines, int kLineBytes>
+__device__ __forceinline__ void widen_box(const unsigned char* raw, unsigned char* dst,
+                                          uint32_t box_stride, int wt, uint64_t* full) {
+  constexpr int kSteps = kLineBytes / 16;
+#pragma unroll 2
+  for (int p = wt; p < kLines * kSteps; p += 32 * kWidenWarps) {
+    const int r = p / kSteps, cc = 2 * (p % kSteps);  // chunks cc and cc + 1 of line r
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + r * kLineBytes + 8 * cc);
+    unsigned char* line = dst + (cc >> 3) * box_stride + r * 128;
+    *reinterpret_cast<uint4*>(line + (((cc & 7) ^ (r & 7)) << 4)) =
+        make_uint4(s8_pair_to_bf16(v.x, 0x4140), s8_pair_to_bf16(v.x, 0x4342),
+                   s8_pair_to_bf16(v.y, 0x4140), s8_pair_to_bf16(v.y, 0x4342));
+    *reinterpret_cast<uint4*>(line + ((((cc + 1) & 7) ^ (r & 7)) << 4)) =
+        make_uint4(s8_pair_to_bf16(v.z, 0x4140), s8_pair_to_bf16(v.z, 0x4342),
+                   s8_pair_to_bf16(v.w, 0x4140), s8_pair_to_bf16(v.w, 0x4342));
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(full);
+}
+
 // Value kernel of the wide bf16 path: S^T = Zb X^T with M = chains and N =
 // rows, so that each thread's accumulators hold a few chains over many rows
 // (ll sums stay in registers, residual row pairs pack into 32-bit stores).
@@ -943,17 +574,21 @@ __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
 // stage. Maps: X (N x Dp, box 64 x 128 rows), Zb (Cp x Dp, box 64 x 128
 // chains), Rt (Cp x ldr, box 64 rows x 128 chains; stored to). Writes
 // ll_part[split][c] and, through TMA stores, Rt[chain][row] = bf16(res),
-// zero past N.
-template <class Epilogue>
+// zero past N. int8 X (kInt8): the X map is of bytes (box 64 x 128 rows, no
+// swizzle), its boxes land in the raw ring and are widened into the stages.
+template <class Epilogue, bool kInt8>
 __global__ void __launch_bounds__(kHThreads, 1)
 glm_hopper_value_kernel(const __grid_constant__ CUtensorMap x_map,
                         const __grid_constant__ CUtensorMap z_map,
                         const __grid_constant__ CUtensorMap rs_map, const float* __restrict__ y,
                         float* __restrict__ ll_part, int N, int Dp, int C, int tiles_per_split) {
+  constexpr int kVStages = v_stages(kInt8);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kVBarOff);
+  unsigned char* raw = smem + v_raw_off(kInt8);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + v_bar_off(kInt8));
   uint64_t* empty = full + kVStages;
+  uint64_t* rawf = empty + kVStages;
   const int split = blockIdx.x, ct = blockIdx.y;
   const int tile_begin = split * tiles_per_split;
   const int tile_end = min(tile_begin + tiles_per_split, (N + kHRows - 1) / kHRows);
@@ -962,8 +597,9 @@ glm_hopper_value_kernel(const __grid_constant__ CUtensorMap x_map,
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kVStages; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], kInt8 ? 1 + kWidenWarps : 1);
       mbar_init(&empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&rawf[s], 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -972,7 +608,8 @@ glm_hopper_value_kernel(const __grid_constant__ CUtensorMap x_map,
   if (wg == 2) {
     // Producer: one thread streams the X and Zb stages of every tile, across
     // tile boundaries, so the next tile's first stages load during an
-    // epilogue.
+    // epilogue. int8 X: the X box goes to the stage's raw slot, and warps 1-3
+    // widen it and arrive on the stage's full barrier beside Zb's bytes.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 2 * 128) {
       int stage = 0;
@@ -981,11 +618,29 @@ glm_hopper_value_kernel(const __grid_constant__ CUtensorMap x_map,
         for (int kc = 0; kc < nk; ++kc) {
           mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* st = smem + stage * kVStageBytes;
-          mbar_expect_tx(&full[stage], kVStageBytes);
-          tma_load_2d(st, &x_map, &full[stage], kc * kHK, t * kHRows);
+          if constexpr (kInt8) {
+            mbar_expect_tx(&rawf[stage], kRawBytes);
+            tma_load_2d(raw + stage * kRawBytes, &x_map, &rawf[stage], kc * kHK, t * kHRows);
+          }
+          mbar_expect_tx(&full[stage], kInt8 ? 2 * kHalfBoxBytes : kVStageBytes);
+          if constexpr (!kInt8) tma_load_2d(st, &x_map, &full[stage], kc * kHK, t * kHRows);
           tma_load_2d(st + kVXBytes, &z_map, &full[stage], kc * kHK, ct * kHChains);
           tma_load_2d(st + kVXBytes + kHalfBoxBytes, &z_map, &full[stage], kc * kHK,
                       ct * kHChains + 128);
+          if (++stage == kVStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    } else if (kInt8 && threadIdx.x >= 2 * 128 + 32) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = tile_begin; t < tile_end; ++t) {
+        for (int kc = 0; kc < nk; ++kc) {
+          mbar_wait(&rawf[stage], phase);
+          widen_box<kHRows, kHK>(raw + stage * kRawBytes, smem + stage * kVStageBytes, 0,
+                                 threadIdx.x - (2 * 128 + 32), &full[stage]);
           if (++stage == kVStages) {
             stage = 0;
             phase ^= 1;
@@ -1091,16 +746,20 @@ glm_hopper_value_kernel(const __grid_constant__ CUtensorMap x_map,
 
 // Gradient kernel of the wide bf16 path: g^T = R^T X over one split of
 // 64-row chunks. Grid (column tiles of 128, row splits, chain tiles of 256);
-// maps: Rt (box 64 rows x 128 chains), X (box 64 columns x 64 rows). Warpgroup
-// w owns chains [128 w, 128 w + 128) of the tile as two m64 slices.
+// maps: Rt (box 64 rows x 128 chains), X (box 64 columns x 64 rows; int8
+// X: bytes, box 128 columns x 64 rows, widened as in the value kernel).
+// Warpgroup w owns chains [128 w, 128 w + 128) of the tile as two m64 slices.
+template <bool kInt8>
 __global__ void __launch_bounds__(kHThreads, 1)
 glm_hopper_grad_kernel(const __grid_constant__ CUtensorMap r_map,
                        const __grid_constant__ CUtensorMap xg_map, float* __restrict__ g_part,
                        int N, int D, int C, int chunks_per_split) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kGBarOff);
+  unsigned char* raw = smem + kGRawOff;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + g_bar_off(kInt8));
   uint64_t* empty = full + kGStages;
+  uint64_t* rawf = empty + kGStages;
   const int dt = blockIdx.x, split = blockIdx.y, ct = blockIdx.z;
   const int chunk_begin = split * chunks_per_split;
   const int chunk_end = min(chunk_begin + chunks_per_split, (N + kHK - 1) / kHK);
@@ -1108,8 +767,9 @@ glm_hopper_grad_kernel(const __grid_constant__ CUtensorMap r_map,
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kGStages; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], kInt8 ? 1 + kWidenWarps : 1);
       mbar_init(&empty[s], 8);
+      mbar_init(&rawf[s], 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -1123,12 +783,30 @@ glm_hopper_grad_kernel(const __grid_constant__ CUtensorMap r_map,
       for (int ch = chunk_begin; ch < chunk_end; ++ch) {
         mbar_wait(&empty[stage], phase ^ 1);
         unsigned char* st = smem + stage * kGStageBytes;
-        mbar_expect_tx(&full[stage], kGStageBytes);
+        if constexpr (kInt8) {
+          mbar_expect_tx(&rawf[stage], kRawBytes);
+          tma_load_2d(raw + stage * kRawBytes, &xg_map, &rawf[stage], dt * kHCols, ch * kHK);
+        }
+        mbar_expect_tx(&full[stage], kInt8 ? kGRBytes : kGStageBytes);
         tma_load_2d(st, &r_map, &full[stage], ch * kHK, ct * kHChains);
         tma_load_2d(st + kHalfBoxBytes, &r_map, &full[stage], ch * kHK, ct * kHChains + 128);
-        tma_load_2d(st + kGRBytes, &xg_map, &full[stage], dt * kHCols, ch * kHK);
-        tma_load_2d(st + kGRBytes + kGXBytes / 2, &xg_map, &full[stage], dt * kHCols + 64,
-                    ch * kHK);
+        if constexpr (!kInt8) {
+          tma_load_2d(st + kGRBytes, &xg_map, &full[stage], dt * kHCols, ch * kHK);
+          tma_load_2d(st + kGRBytes + kGXBytes / 2, &xg_map, &full[stage], dt * kHCols + 64,
+                      ch * kHK);
+        }
+        if (++stage == kGStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    } else if (kInt8 && threadIdx.x >= 2 * 128 + 32) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int ch = chunk_begin; ch < chunk_end; ++ch) {
+        mbar_wait(&rawf[stage], phase);
+        widen_box<kHK, kHCols>(raw + stage * kRawBytes, smem + stage * kGStageBytes + kGRBytes,
+                               kGXBytes / 2, threadIdx.x - (2 * 128 + 32), &full[stage]);
         if (++stage == kGStages) {
           stage = 0;
           phase ^= 1;
@@ -1193,8 +871,14 @@ constexpr uint32_t kOXBox = kORows * kHK * 2;           // one 64-column box of 
 constexpr uint32_t kOStageBytes = 2 * kOXBox;           // columns 0-63 and 64-127
 constexpr uint32_t kOZBox = kOChains * kHK * 2;         // Zb box: 128 chains x 64 columns, 16 KB
 constexpr uint32_t kOZOff = kOStages * kOStageBytes;
-constexpr uint32_t kOBarOff = kOZOff + 2 * kOZBox;
-constexpr uint32_t kOSmem = kOBarOff + (2 * kOStages + 1) * 8 + 1024;
+constexpr uint32_t kORawOff = kOZOff + 2 * kOZBox;  // int8 X: the raw ring, one slot a stage
+__host__ __device__ constexpr uint32_t o_bar_off(bool int8) {
+  return kORawOff + (int8 ? kOStages * kRawBytes : 0);
+}
+__host__ __device__ constexpr uint32_t o_smem(bool int8) {  // full, empty, raw, Zb barriers
+  return o_bar_off(int8) + (3 * kOStages + 1) * 8 + 1024;
+}
+static_assert(o_smem(true) <= kMaxSmem, "one-pass kernel smem");
 
 // D (64 x 64, f32) += A (64 x 16) B, A and B K-major bf16 in shared memory;
 // the accumulator layout of wgmma_m64n128k16 with j < 8.
@@ -1241,8 +925,11 @@ __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
 // rows) with B the same X stage read MN-major. G^T stays in 64 registers a
 // thread across all the block's stages. The two warpgroups work on
 // different chains, so one's epilogue overlaps the other's products. Writes
-// ll_part[split][c] and g_part[split][c][d].
-template <class Epilogue>
+// ll_part[split][c] and g_part[split][c][d]. int8 X (kInt8): the X map is
+// of bytes (box 64 or 128 columns x 64 rows, no swizzle); each box lands in
+// the stage's raw slot and warps 1-3 of the producer warpgroup widen it into
+// the stage's two bf16 boxes, which the consumers read as for bf16 X.
+template <class Epilogue, bool kInt8>
 __global__ void __launch_bounds__(kHThreads, 1)
 glm_onepass_kernel(const __grid_constant__ CUtensorMap x_map,
                    const __grid_constant__ CUtensorMap z_map, const float* __restrict__ y,
@@ -1250,9 +937,11 @@ glm_onepass_kernel(const __grid_constant__ CUtensorMap x_map,
                    int C, int tiles_per_split) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kOBarOff);
+  unsigned char* raw = smem + kORawOff;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + o_bar_off(kInt8));
   uint64_t* empty = full + kOStages;
-  uint64_t* zfull = empty + kOStages;
+  uint64_t* rawf = empty + kOStages;
+  uint64_t* zfull = rawf + kOStages;
   const int split = blockIdx.x, ct = blockIdx.y;
   const int tile_begin = split * tiles_per_split;
   const int tile_end = min(tile_begin + tiles_per_split, (N + kORows - 1) / kORows);
@@ -1261,8 +950,9 @@ glm_onepass_kernel(const __grid_constant__ CUtensorMap x_map,
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kOStages; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], kInt8 ? kWidenWarps : 1);
       mbar_init(&empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&rawf[s], 1);
     }
     mbar_init(zfull, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -1280,9 +970,31 @@ glm_onepass_kernel(const __grid_constant__ CUtensorMap x_map,
       for (int t = tile_begin; t < tile_end; ++t) {
         mbar_wait(&empty[stage], phase ^ 1);
         unsigned char* st = smem + stage * kOStageBytes;
-        mbar_expect_tx(&full[stage], nbox * kOXBox);
-        for (int b = 0; b < nbox; ++b)
-          tma_load_2d(st + b * kOXBox, &x_map, &full[stage], b * kHK, t * kORows);
+        if constexpr (kInt8) {
+          mbar_expect_tx(&rawf[stage], nbox * kORows * kHK);
+          tma_load_2d(raw + stage * kRawBytes, &x_map, &rawf[stage], 0, t * kORows);
+        } else {
+          mbar_expect_tx(&full[stage], nbox * kOXBox);
+          for (int b = 0; b < nbox; ++b)
+            tma_load_2d(st + b * kOXBox, &x_map, &full[stage], b * kHK, t * kORows);
+        }
+        if (++stage == kOStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    } else if (kInt8 && threadIdx.x >= 2 * 128 + 32) {
+      const int wt = threadIdx.x - (2 * 128 + 32);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = tile_begin; t < tile_end; ++t) {
+        mbar_wait(&rawf[stage], phase);
+        const unsigned char* r = raw + stage * kRawBytes;
+        unsigned char* st = smem + stage * kOStageBytes;
+        if (nbox == 2)
+          widen_box<kORows, 2 * kHK>(r, st, kOXBox, wt, &full[stage]);
+        else
+          widen_box<kORows, kHK>(r, st, kOXBox, wt, &full[stage]);
         if (++stage == kOStages) {
           stage = 0;
           phase ^= 1;
@@ -1418,29 +1130,13 @@ struct Args {
   cudaStream_t st;
 };
 
-// Dp <= 128, int8 X: one pass over X in the first design's mma.sync kernel.
-template <class Epilogue>
-int launch_narrow(const Args& a) {
-  if (!covers(a.N, a.splits, a.rows_per_split, kRows) || a.g_splits != a.splits)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = shared_bytes(a.Dp);
-  cudaError_t err = cudaFuncSetAttribute(glm_fused_kernel<Epilogue>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.C + kChains - 1) / kChains, a.splits);
-  glm_fused_kernel<Epilogue><<<grid, kThreads, smem, a.st>>>(
-      static_cast<const int8_t*>(a.X), a.y, a.Z, a.ll_part, a.g_part, a.N, a.Dp, a.D, a.C,
-      a.rows_per_split);
-  return (int)cudaGetLastError();
-}
-
-// Dp <= 128, bf16 X: the TMA + wgmma one-pass kernel. Scratch: zb
+// Dp <= 128, bf16 or int8 X: the TMA + wgmma one-pass kernel. Scratch: zb
 // (round_up(C, 128), Dp) bf16, reached with X through the tensor maps of
-// glm_onepass_tensor_maps. The MUFU form of the epilogue unless
-// kOnePassAccurate.
+// glm_onepass_tensor_maps (made for X's type). The MUFU form of the
+// epilogue unless kOnePassAccurate.
 constexpr bool kOnePassAccurate = false;
 
-template <class Epilogue>
+template <class Epilogue, bool kInt8>
 int launch_onepass(const Args& a) {
   if (!covers(a.N, a.splits, a.rows_per_split, kORows) || a.g_splits != a.splits ||
       a.zb == nullptr || a.maps == nullptr || a.Dp > kMaxDp)
@@ -1454,42 +1150,20 @@ int launch_onepass(const Args& a) {
       a.Z, static_cast<__nv_bfloat16*>(a.zb), a.C, a.D, Cp, a.Dp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(glm_onepass_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kOSmem);
+  constexpr uint32_t smem = o_smem(kInt8);
+  err = cudaFuncSetAttribute(glm_onepass_kernel<E, kInt8>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  glm_onepass_kernel<E><<<dim3(a.splits, Cp / kOChains), kHThreads, kOSmem, a.st>>>(
+  glm_onepass_kernel<E, kInt8><<<dim3(a.splits, Cp / kOChains), kHThreads, smem, a.st>>>(
       m[0], m[1], a.y, a.ll_part, a.g_part, a.N, a.Dp, a.D, a.C, a.rows_per_split / kORows);
   return (int)cudaGetLastError();
 }
 
-// Dp > 128, int8 X: the two mma.sync kernels. Scratch: zb (round_up(C, 64),
-// Dp) bf16 and rt (round_up(C, 64), round_up(N, 128)) bf16.
-template <class Epilogue>
-int launch_wide_int8(const Args& a) {
-  if (!covers(a.N, a.splits, a.rows_per_split, kARows) ||
-      !covers(a.N, a.g_splits, a.g_rows_per_split, kGK) || a.zb == nullptr || a.rt == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const int Cp = round_up(a.C, kChains), ldr = round_up(a.N, kARows);
-  __nv_bfloat16* Zb = static_cast<__nv_bfloat16*>(a.zb);
-  __nv_bfloat16* R = static_cast<__nv_bfloat16*>(a.rt);
-  const int8_t* X = static_cast<const int8_t*>(a.X);
-  const size_t nz = (size_t)Cp * a.Dp;
-  round_z_kernel<<<(unsigned)((nz + 255) / 256), 256, 0, a.st>>>(a.Z, Zb, a.C, a.D, Cp, a.Dp);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  glm_wide_value_kernel<Epilogue><<<dim3(Cp / kChains, a.splits), kAThreads, 0, a.st>>>(
-      X, a.y, Zb, a.ll_part, R, a.N, a.Dp, a.C, ldr, a.rows_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  glm_wide_grad_kernel<<<dim3(Cp / kChains, (a.Dp + kGD - 1) / kGD, a.g_splits), kThreads, 0, a.st>>>(
-          X, R, a.g_part, a.N, a.Dp, a.D, a.C, ldr, a.g_rows_per_split);
-  return (int)cudaGetLastError();
-}
-
-// Dp > 128, bf16 X: the two Hopper kernels. Scratch: zb (round_up(C, 256),
-// Dp) bf16 and rt (round_up(C, 256), round_up(N, 128)) bf16, both reached
-// through the tensor maps (glm_hopper_tensor_maps).
-template <class Epilogue>
+// Dp > 128, bf16 or int8 X: the two Hopper kernels. Scratch: zb
+// (round_up(C, 256), Dp) bf16 and rt (round_up(C, 256), round_up(N, 128))
+// bf16, both reached through the tensor maps (glm_hopper_tensor_maps, made
+// for X's type).
+template <class Epilogue, bool kInt8>
 int launch_hopper(const Args& a) {
   if (!covers(a.N, a.splits, a.rows_per_split, kHRows) ||
       !covers(a.N, a.g_splits, a.g_rows_per_split, kHK) || a.zb == nullptr ||
@@ -1503,19 +1177,21 @@ int launch_hopper(const Args& a) {
       a.Z, static_cast<__nv_bfloat16*>(a.zb), a.C, a.D, Cp, a.Dp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(glm_hopper_value_kernel<Epilogue>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kVSmem);
+  constexpr uint32_t vsmem = v_smem(kInt8), gsmem = g_smem(kInt8);
+  err = cudaFuncSetAttribute(glm_hopper_value_kernel<Epilogue, kInt8>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)vsmem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(glm_hopper_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kGSmem);
+  err = cudaFuncSetAttribute(glm_hopper_grad_kernel<kInt8>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gsmem);
   if (err != cudaSuccess) return (int)err;
-  glm_hopper_value_kernel<Epilogue><<<dim3(a.splits, Cp / kHChains), kHThreads, kVSmem, a.st>>>(
-      m[0], m[1], m[3], a.y, a.ll_part, a.N, a.Dp, a.C, a.rows_per_split / kHRows);
+  glm_hopper_value_kernel<Epilogue, kInt8>
+      <<<dim3(a.splits, Cp / kHChains), kHThreads, vsmem, a.st>>>(
+          m[0], m[1], m[3], a.y, a.ll_part, a.N, a.Dp, a.C, a.rows_per_split / kHRows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  glm_hopper_grad_kernel<<<dim3((a.Dp + kHCols - 1) / kHCols, a.g_splits, Cp / kHChains),
-                           kHThreads, kGSmem, a.st>>>(m[3], m[2], a.g_part, a.N, a.D, a.C,
-                                                      a.g_rows_per_split / kHK);
+  glm_hopper_grad_kernel<kInt8><<<dim3((a.Dp + kHCols - 1) / kHCols, a.g_splits, Cp / kHChains),
+                                  kHThreads, gsmem, a.st>>>(m[3], m[2], a.g_part, a.N, a.D, a.C,
+                                                            a.g_rows_per_split / kHK);
   return (int)cudaGetLastError();
 }
 
@@ -1544,14 +1220,13 @@ int launch(int x_dtype, const Args& a, void* ll, void* g) {
       (Epilogue::kUsesY && a.y == nullptr) || x_dtype < kXBf16 || x_dtype > kXF32)
     return (int)cudaErrorInvalidValue;
   int err;
+  const bool int8 = x_dtype == kXInt8;
   if (x_dtype == kXF32)
     err = launch_f32<Epilogue>(a);
   else if (a.Dp <= kMaxDp)
-    err = x_dtype == kXInt8 ? launch_narrow<Epilogue>(a) : launch_onepass<Epilogue>(a);
-  else if (x_dtype == kXInt8)
-    err = launch_wide_int8<Epilogue>(a);
+    err = int8 ? launch_onepass<Epilogue, true>(a) : launch_onepass<Epilogue, false>(a);
   else
-    err = launch_hopper<Epilogue>(a);
+    err = int8 ? launch_hopper<Epilogue, true>(a) : launch_hopper<Epilogue, false>(a);
   if (err != 0) return err;
   sum_splits_kernel<<<(a.C + 255) / 256, 256, 0, a.st>>>(a.ll_part, static_cast<float*>(ll), a.C,
                                                           a.splits);
@@ -1586,53 +1261,77 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A row-major bf16 matrix (outer x inner, row stride ld elements) read or
-// written in boxes of box_inner x box_outer with the 128-byte swizzle; out
-// of bounds reads give zeros.
-bool encode_bf16_2d(CUtensorMap* map, const void* base, int inner, int outer, int ld,
-                    int box_inner, int box_outer) {
+// A row-major matrix (outer x inner, row stride ``ld`` elements of
+// ``elem`` bytes) read or written in boxes of box_inner x box_outer; out of
+// bounds reads give zeros.
+bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base, int inner,
+               int outer, int ld, int box_inner, int box_outer, CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * elem};
   const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
   const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16 with the 128-byte swizzle: the layout the wgmma descriptors read.
+bool encode_bf16_2d(CUtensorMap* map, const void* base, int inner, int outer, int ld,
+                    int box_inner, int box_outer) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, inner, outer, ld, box_inner,
+                   box_outer, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// int8 X as bytes, no swizzle: the raw boxes the producer widens.
+bool encode_bytes_2d(CUtensorMap* map, const void* base, int inner, int outer, int box_inner,
+                     int box_outer) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, inner, outer, inner, box_inner,
+                   box_outer, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace
 
-// The four tensor maps of the wide bf16 path, written to ``out`` (4 x 128
-// bytes): X (N x Dp) in 64 x 128-row boxes (value kernel B), Zb (Cp x Dp) in
-// 64 x 128-chain boxes (value kernel A, two per stage), X in 64 x 64-row
-// boxes (gradient kernel B) and Rt (Cp x ldr) in 64-row x 128-chain boxes
-// (value kernel store; gradient kernel A, two per stage). The caller keeps them with its scratch, so they are
-// encoded once per (X, scratch) and not on every call. Returns a CUDA error
-// code, 0 on success.
-extern "C" int glm_hopper_tensor_maps(const void* X, const void* zb, const void* rt, int N, int Dp,
-                                      int Cp, int ldr, void* out) {
+// The four tensor maps of the wide path, written to ``out`` (4 x 128
+// bytes): X (N x Dp) for the value kernel's B (bf16: 64 x 128-row boxes;
+// int8: bytes in 64 x 128-row boxes), Zb (Cp x Dp) in 64 x 128-chain boxes
+// (value kernel A, two per stage), X for the gradient kernel's B (bf16:
+// 64 x 64-row boxes; int8: bytes in 128 x 64-row boxes) and Rt (Cp x ldr)
+// in 64-row x 128-chain boxes (value kernel store; gradient kernel A, two
+// per stage). x_dtype: 0 bf16, 1 int8. The caller keeps them with its
+// scratch, so they are encoded once per (X, scratch) and not on every call.
+// Returns a CUDA error code, 0 on success.
+extern "C" int glm_hopper_tensor_maps(const void* X, int x_dtype, const void* zb, const void* rt,
+                                      int N, int Dp, int Cp, int ldr, void* out) {
   CUtensorMap m[4];
-  const bool ok = Dp % 16 == 0 && Cp % kHChains == 0 && ldr % kHRows == 0 && ldr >= N &&
-                  encode_bf16_2d(&m[0], X, Dp, N, Dp, kHK, kHRows) &&
+  const bool int8 = x_dtype == kXInt8;
+  const bool ok = (int8 || x_dtype == kXBf16) && Dp % 16 == 0 && Cp % kHChains == 0 &&
+                  ldr % kHRows == 0 && ldr >= N &&
+                  (int8 ? encode_bytes_2d(&m[0], X, Dp, N, kHK, kHRows)
+                        : encode_bf16_2d(&m[0], X, Dp, N, Dp, kHK, kHRows)) &&
                   encode_bf16_2d(&m[1], zb, Dp, Cp, Dp, kHK, kHChains / 2) &&
-                  encode_bf16_2d(&m[2], X, Dp, N, Dp, kHK, kHK) &&
+                  (int8 ? encode_bytes_2d(&m[2], X, Dp, N, kHCols, kHK)
+                        : encode_bf16_2d(&m[2], X, Dp, N, Dp, kHK, kHK)) &&
                   encode_bf16_2d(&m[3], rt, ldr, Cp, ldr, kHK, kHChains / 2);
   if (!ok) return (int)cudaErrorInvalidValue;
   memcpy(out, m, sizeof m);
   return 0;
 }
 
-// The two tensor maps of the one-pass bf16 kernel, written to ``out`` (2 x
-// 128 bytes): X (N x Dp) in 64-column x 64-row boxes and Zb (Cp x Dp) in
-// 64-column x 128-chain boxes. Returns a CUDA error code, 0 on success.
-extern "C" int glm_onepass_tensor_maps(const void* X, const void* zb, int N, int Dp, int Cp,
-                                       void* out) {
+// The two tensor maps of the one-pass kernel, written to ``out`` (2 x 128
+// bytes): X (N x Dp; bf16: 64-column x 64-row boxes; int8: bytes in 64- or
+// 128-column x 64-row boxes, as Dp <= 64 or not) and Zb (Cp x Dp) in
+// 64-column x 128-chain boxes. x_dtype: 0 bf16, 1 int8. Returns a CUDA
+// error code, 0 on success.
+extern "C" int glm_onepass_tensor_maps(const void* X, int x_dtype, const void* zb, int N, int Dp,
+                                       int Cp, void* out) {
   CUtensorMap m[2];
-  const bool ok = Dp % 16 == 0 && Dp <= kMaxDp && Cp % kOChains == 0 &&
-                  encode_bf16_2d(&m[0], X, Dp, N, Dp, kHK, kORows) &&
+  const bool int8 = x_dtype == kXInt8;
+  const bool ok = (int8 || x_dtype == kXBf16) && Dp % 16 == 0 && Dp <= kMaxDp &&
+                  Cp % kOChains == 0 &&
+                  (int8 ? encode_bytes_2d(&m[0], X, Dp, N, Dp > kHK ? 2 * kHK : kHK, kORows)
+                        : encode_bf16_2d(&m[0], X, Dp, N, Dp, kHK, kORows)) &&
                   encode_bf16_2d(&m[1], zb, Dp, Cp, Dp, kHK, kOChains);
   if (!ok) return (int)cudaErrorInvalidValue;
   memcpy(out, m, sizeof m);
@@ -1641,11 +1340,11 @@ extern "C" int glm_onepass_tensor_maps(const void* X, const void* zb, int N, int
 
 // One signature for the three entries. x_dtype: 0 bf16, 1 int8, 2 f32.
 // ll_part is (splits, C) and g_part (g_splits, C, D); the narrow path
-// (Dp <= 128) takes g_splits == splits, and for bf16 X zb and the tensor
-// maps of glm_onepass_tensor_maps (int8 X: no scratch). The
-// wide bf16 path takes zb and the tensor maps of glm_hopper_tensor_maps
-// (which name zb and rt), the wide int8 path zb and rt, the f32 path rt
-// (shapes at each launch function). Returns a CUDA error code, 0 on success.
+// (Dp <= 128) takes g_splits == splits, zb and the tensor maps of
+// glm_onepass_tensor_maps, the wide path zb and the tensor maps of
+// glm_hopper_tensor_maps (which name zb and rt), both made for X's type;
+// the f32 path takes rt (shapes at each launch function). Returns a CUDA
+// error code, 0 on success.
 #define GLM_ENTRY(name, Epilogue, refuse_int8)                                                  \
   extern "C" int name(const void* X, int x_dtype, const void* y, const void* Z, void* ll_part,  \
                       void* g_part, void* ll, void* g, void* zb, void* rt, const void* maps,    \

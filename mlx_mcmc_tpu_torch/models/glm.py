@@ -1,10 +1,14 @@
 """Logistic and Gaussian linear regression.
 
 Counterparts of ``make_logistic_regression`` and ``make_linear_regression``
-in ``mlx_mcmc_tpu/models/glm.py`` with the same recipes (X ~ N(0, 1)/sqrt(D),
-beta ~ N(0, 1), then y ~ Bernoulli(sigmoid(X beta)) or
-y = X beta + noise_scale N(0, 1)), drawn from numpy's generator because the
-port cannot use ``jax.random``: the data are not the reference's datasets.
+in ``mlx_mcmc_tpu/models/glm.py``, on the reference's own datasets: the same
+recipe (X ~ N(0, 1)/sqrt(D), beta ~ N(0, 1), then y ~ Bernoulli(sigmoid(X
+beta)) or y = X beta + noise_scale N(0, 1)) drawn from the same threefry
+streams (``jax_random``, numpy only), key for key. X and beta came out
+equal to the reference's in every check made (``jax_random`` forms XLA's
+fused multiply-adds in float64, so a last-bit difference stays possible);
+y can differ only in rows whose uniform lies within float32 rounding of
+its probability (the logits are summed in another order).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch
 
 from mlx_mcmc_tpu_torch._device import resolve_device
 from mlx_mcmc_tpu_torch.distributions import Normal
+from mlx_mcmc_tpu_torch.models import jax_random
 
 
 class GLMSpec(NamedTuple):
@@ -28,14 +33,15 @@ class GLMSpec(NamedTuple):
     true_beta: torch.Tensor
 
 
-def _design(rng, num_obs: int, num_features: int, data_dtype):
-    """X ~ N(0, 1) / sqrt(D) in ``data_dtype`` and beta ~ N(0, 1)."""
-    X = torch.from_numpy(
-        rng.standard_normal((num_obs, num_features), dtype=np.float32)
-        / np.float32(np.sqrt(num_features))
-    ).to(data_dtype)
-    true_beta = torch.from_numpy(rng.standard_normal(num_features, dtype=np.float32))
-    return X, true_beta
+def _design(seed: int, num_obs: int, num_features: int, data_dtype):
+    """The reference's keys, X ~ N(0, 1) / sqrt(D) in ``data_dtype`` and
+    beta ~ N(0, 1); returns ``(X, true_beta, key_y)``."""
+    key_x, key_beta, key_y = jax_random.split(jax_random.prng_key(seed), 3)
+    x = jax_random.normal(key_x, (num_obs, num_features))
+    x /= np.sqrt(np.float32(num_features))
+    X = torch.from_numpy(x).to(data_dtype)
+    true_beta = torch.from_numpy(jax_random.normal(key_beta, (num_features,)))
+    return X, true_beta, key_y
 
 
 def make_logistic_regression(
@@ -50,10 +56,9 @@ def make_logistic_regression(
     y ~ Bernoulli(sigmoid(X beta)). ``X`` is stored in ``data_dtype``; the
     outcomes are drawn from the stored (rounded) X."""
     dev = resolve_device(device)
-    rng = np.random.default_rng(seed)
-    X, true_beta = _design(rng, num_obs, num_features, data_dtype)
+    X, true_beta, key_y = _design(seed, num_obs, num_features, data_dtype)
     p = torch.sigmoid(X.float() @ true_beta).numpy()
-    y = torch.from_numpy((rng.random(num_obs) < p).astype(np.float32))
+    y = torch.from_numpy(jax_random.bernoulli(key_y, p).astype(np.float32))
     X, y, true_beta = X.to(dev), y.to(dev), true_beta.to(dev)
 
     def log_prob(params):
@@ -87,9 +92,8 @@ def make_linear_regression(
     are drawn from the stored (rounded) X; ``log_prob`` omits the
     normalizers, as the reference's does."""
     dev = resolve_device(device)
-    rng = np.random.default_rng(seed)
-    X, true_beta = _design(rng, num_obs, num_features, data_dtype)
-    noise = torch.from_numpy(rng.standard_normal(num_obs, dtype=np.float32))
+    X, true_beta, key_y = _design(seed, num_obs, num_features, data_dtype)
+    noise = torch.from_numpy(jax_random.normal(key_y, (num_obs,)))
     y = X.float() @ true_beta + noise_scale * noise
     X, y, true_beta = X.to(dev), y.to(dev), true_beta.to(dev)
 

@@ -17,9 +17,9 @@ round where the kernels round (Z and the residual to bf16 when X is bf16 or
 int8, nowhere when X is f32). ``fused_*_value_and_grad`` take the plain
 version only for CPU tensors; for CUDA tensors they launch the kernels or
 raise. The kernels take any padded width ``Dp`` that is a multiple of 16;
-:func:`launch_plan` says which path a shape takes: one pass over X up to
-``Dp = 128`` (bf16, int8), two TMA + wgmma kernels above it (bf16), two
-mma.sync kernels above it (int8), two FFMA kernels at any ``Dp`` (f32).
+:func:`launch_plan` says which path a shape takes: one TMA + wgmma pass over
+X up to ``Dp = 128`` and two TMA + wgmma kernels above it (bf16, and int8
+widened to bf16 in shared memory), two FFMA kernels at any ``Dp`` (f32).
 
 int8 data (``quantize="int8"``) stores X ~ Xq diag(col_scale) with
 symmetric per-column scales, as the reference does; at the kernel level Z
@@ -44,16 +44,13 @@ from mlx_mcmc_tpu_torch import _build
 from mlx_mcmc_tpu_torch._device import resolve_device, sm_count
 from mlx_mcmc_tpu_torch.ops.math import row_sum
 
-_CHAIN_TILE = 64  # chains per block (kChains; also the f32 kernels' kFT)
-_MAX_D_PAD = 128  # widest Dp of the one-pass kernels (kMaxDp)
-_ROW_TILE = 64  # rows per tile of the one-pass kernels (kRows, kORows) and f32 value kernel
+_CHAIN_TILE = 64  # chains per block of the f32 kernels (kFT)
+_MAX_D_PAD = 128  # widest Dp of the one-pass kernel (kMaxDp)
+_ROW_TILE = 64  # rows per tile of the one-pass kernel (kORows) and f32 value kernel
 _NARROW_SPLITS = 4  # one-pass row splits: bounds the g partials (splits x C x Dp x 4 B)
-_ONEPASS_CHAIN_TILE = 128  # bf16 one-pass kernel: chains per block (kOChains)
-_WIDE_ROW_TILE = 128  # rows per tile, wide value kernels (kARows, kHRows)
-_WIDE_INT8_SPLITS_PER_SM = 0.5  # int8 wide value kernel's row splits per SM
-_GRAD_ROW_CHUNK = 32  # rows per chunk, int8 wide gradient kernel (kGK)
-_GRAD_D_TILE = 64  # columns of g per block (kGD)
-_HOPPER_CHAIN_TILE = 256  # bf16 wide kernels: chains per block (kHChains)
+_ONEPASS_CHAIN_TILE = 128  # one-pass kernel: chains per block (kOChains)
+_WIDE_ROW_TILE = 128  # rows per tile, wide value kernel (kHRows)
+_HOPPER_CHAIN_TILE = 256  # wide kernels: chains per block (kHChains)
 _HOPPER_ROW_CHUNK = 64  # gradient kernel: rows per ring stage (kHK)
 _HOPPER_D_TILE = 128  # gradient kernel: columns of g per block (kHCols)
 _F32_ROW_CHUNK = 16  # f32 gradient kernel: rows per chunk (kFK)
@@ -192,9 +189,10 @@ def launch_plan(n: int, d_pad: int, c: int, sms: int, x_dtype=torch.bfloat16) ->
     """The kernels' grid for X (n, d_pad) of ``x_dtype`` and c chains on
     ``sms`` SMs, with the scratch shapes (``zb_shape`` bf16 Z, ``rt_shape``
     the residual R^T of type ``rt_dtype``). ``path`` is ``"narrow"`` (one
-    pass, Dp <= 128: the TMA + wgmma kernel for bf16, the mma.sync kernel
-    for int8), ``"wide"`` (bf16, Dp > 128: the TMA + wgmma pair),
-    ``"wide_int8"`` (int8, Dp > 128) or ``"f32"`` (any Dp). On every path
+    pass, Dp <= 128: the TMA + wgmma kernel), ``"wide"`` (bf16, Dp > 128:
+    the TMA + wgmma pair), ``"wide_int8"`` (int8, Dp > 128: the same pair
+    and schedule with tensor maps of bytes) or ``"f32"`` (any Dp). int8 X
+    is widened to bf16 in shared memory on both TMA paths. On every path
     the row splits depend on n, Dp and ``sms`` only, never on c: a chain's
     ll and g are summed in the same order, to the same bits, whatever the
     number of chains in the call; chain tiles only add blocks."""
@@ -208,23 +206,17 @@ def launch_plan(n: int, d_pad: int, c: int, sms: int, x_dtype=torch.bfloat16) ->
                 "rt_dtype": torch.float32}
     if d_pad <= _MAX_D_PAD:
         splits, rows = _fixed_splits(n, _ROW_TILE, _NARROW_SPLITS)
-        zb = (_round_up(c, _ONEPASS_CHAIN_TILE), d_pad) if x_dtype == torch.bfloat16 else None
         return {"path": "narrow", "splits": splits, "rows_per_split": rows,
-                "g_splits": splits, "g_rows_per_split": rows, "zb_shape": zb, "rt_shape": None}
-    if x_dtype == torch.int8:
-        splits, rows = _fixed_splits(n, _WIDE_ROW_TILE, max(1, round(sms * _WIDE_INT8_SPLITS_PER_SM)))
-        g_splits, g_rows = _fixed_splits(n, _GRAD_ROW_CHUNK, max(1, sms // -(-d_pad // _GRAD_D_TILE)))
-        c_pad = _round_up(c, _CHAIN_TILE)
-        return {"path": "wide_int8", "splits": splits, "rows_per_split": rows,
-                "g_splits": g_splits, "g_rows_per_split": g_rows, "zb_shape": (c_pad, d_pad),
-                "rt_shape": (c_pad, _round_up(n, _WIDE_ROW_TILE)), "rt_dtype": torch.bfloat16}
+                "g_splits": splits, "g_rows_per_split": rows,
+                "zb_shape": (_round_up(c, _ONEPASS_CHAIN_TILE), d_pad), "rt_shape": None}
     # One block per SM: the value kernel's row tiles spread over the SMs, the
     # gradient kernel's row chunks over the SMs left to each column tile.
     splits, rows = _fixed_splits(n, _WIDE_ROW_TILE, sms)
     g_splits, g_rows = _fixed_splits(n, _HOPPER_ROW_CHUNK, sms // -(-d_pad // _HOPPER_D_TILE))
     c_pad = _round_up(c, _HOPPER_CHAIN_TILE)
-    return {"path": "wide", "splits": splits, "rows_per_split": rows,
-            "g_splits": g_splits, "g_rows_per_split": g_rows, "zb_shape": (c_pad, d_pad),
+    path = "wide_int8" if x_dtype == torch.int8 else "wide"
+    return {"path": path, "splits": splits, "rows_per_split": rows, "g_splits": g_splits,
+            "g_rows_per_split": g_rows, "zb_shape": (c_pad, d_pad),
             "rt_shape": (c_pad, _round_up(n, _WIDE_ROW_TILE)), "rt_dtype": torch.bfloat16}
 
 
@@ -262,9 +254,9 @@ def _kernel_entry(name: str):
     fn = getattr(_build.load("glm_fused"), name)
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "glm_hopper_tensor_maps":
-        fn.argtypes = [p] * 3 + [i] * 4 + [p]
+        fn.argtypes = [p, i, p, p] + [i] * 4 + [p]
     elif name == "glm_onepass_tensor_maps":
-        fn.argtypes = [p] * 2 + [i] * 3 + [p]
+        fn.argtypes = [p, i, p] + [i] * 3 + [p]
     else:
         fn.argtypes = [p, i] + [p] * 9 + [i] * 8 + [p]
     fn.restype = ctypes.c_int
@@ -276,11 +268,11 @@ _MAX_WORKSPACES = 4
 
 
 def _workspace(Xp: torch.Tensor, c: int, d: int) -> dict:
-    """The launch plan, split partials, scratch and (wide bf16 path) tensor
-    maps for X at ``Xp``'s address and shape with c chains of D columns,
-    made once and kept for the next calls (the last few shapes), so the
-    eager loop neither re-allocates nor re-encodes them and their pointers
-    stay stable. Reusing them is safe on one stream, as the NUTS loop runs."""
+    """The launch plan, split partials, scratch and (TMA paths) tensor maps
+    of X's type for X at ``Xp``'s address and shape with c chains of D
+    columns, made once and kept for the next calls (the last few shapes),
+    so the eager loop neither re-allocates nor re-encodes them and their
+    pointers stay stable. Reusing them is safe on one stream, as the NUTS loop runs."""
     key = (Xp.device, Xp.data_ptr(), tuple(Xp.shape), Xp.dtype, c, d)
     ws = _WORKSPACES.get(key)
     if ws is not None:
@@ -297,18 +289,20 @@ def _workspace(Xp: torch.Tensor, c: int, d: int) -> dict:
         ws["zb"] = torch.empty(plan["zb_shape"], dtype=torch.bfloat16, device=dev)
     if plan["rt_shape"] is not None:
         ws["rt"] = torch.empty(plan["rt_shape"], dtype=plan["rt_dtype"], device=dev)
-    if plan["path"] == "wide":
+    x_code = _X_DTYPE_CODE[Xp.dtype]
+    if plan["path"] in ("wide", "wide_int8"):
         ws["maps"] = ctypes.create_string_buffer(4 * 128)
         c_pad, ldr = plan["rt_shape"]
         err = _kernel_entry("glm_hopper_tensor_maps")(
-            Xp.data_ptr(), ws["zb"].data_ptr(), ws["rt"].data_ptr(), n, d_pad, c_pad, ldr,
-            ws["maps"])
+            Xp.data_ptr(), x_code, ws["zb"].data_ptr(), ws["rt"].data_ptr(), n, d_pad, c_pad,
+            ldr, ws["maps"])
         if err != 0:
             raise RuntimeError(f"glm_hopper_tensor_maps failed with CUDA error {err}")
-    elif plan["path"] == "narrow" and ws["zb"] is not None:
+    elif plan["path"] == "narrow":
         ws["maps"] = ctypes.create_string_buffer(2 * 128)
         err = _kernel_entry("glm_onepass_tensor_maps")(
-            Xp.data_ptr(), ws["zb"].data_ptr(), n, d_pad, plan["zb_shape"][0], ws["maps"])
+            Xp.data_ptr(), x_code, ws["zb"].data_ptr(), n, d_pad, plan["zb_shape"][0],
+            ws["maps"])
         if err != 0:
             raise RuntimeError(f"glm_onepass_tensor_maps failed with CUDA error {err}")
     _WORKSPACES[key] = ws

@@ -7,11 +7,12 @@ package, so it also runs where JAX is not installed:
 
 Tolerances as in ``chip_smoke.py``:
 - GLM kernels (K1 logistic, K2 linear, K4 hoisted; bf16 or int8 X, one-pass
-  and wide paths): ll within 0.05 nats (f32 sums over N rows in another
+  and wide paths; int8 X is widened to bf16 in shared memory, exactly):
+  ll within 0.05 nats (f32 sums over N rows in another
   order; sums that grow with N, K2's squares, K4's softplus and every ll at
   N = 100K, add 1e-6 relative: one f32 ulp of |ll| ~ 7e4 is 0.0078 nats),
   g within 1e-2 of max|g| + 1e-3 (a last-bit change of s can flip the bf16
-  rounding of single residuals). The wide bf16 kernels at N = 100K hold g
+  rounding of single residuals). The wide kernels at N = 100K hold g
   to 1e-4 of max|g| + 1e-3: max|g| grows with N there while a flip does not,
   and 1e-2 would let a 64-row chunk of the gradient kernel's split schedule
   be dropped or taken twice (measured error ~1e-5 of max|g| at glm1000).
@@ -201,6 +202,42 @@ def test_onepass_bf16_kernel_matches_plain_version(n, d, c, family):
     ll_rel = 0.0 if family == "logistic" else 1e-6
     assert float((ll_k - ll_p).abs().max()) <= 0.05 + ll_rel * float(ll_p.abs().max())
     assert float((g_k - g_p).abs().max()) <= 1e-2 * float(g_p.abs().max()) + 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["logistic", "hoisted"])
+@pytest.mark.parametrize("n,d,c", [(10_000, 100, 4096), (100_000, 1000, 256), (777, 300, 70),
+                                   (4097, 112, 300), (1000, 48, 129), (1000, 300, 33)])
+def test_int8_kernels_match_plain_version_and_keep_their_bits(n, d, c, family):
+    # int8 X through the TMA + wgmma kernels with the widening stage: glm100
+    # (one pass), glm1000 (the wide pair) and ragged shapes whose N is no
+    # multiple of a stage's rows (one pass: 64; wide: 128 and 64), so the
+    # widened tail rows must be masked; Dp = 48 widens one 64-column box.
+    # Then two calls give the same bits, and chains 0-3 the same bits at C = 4.
+    _need_gpu()
+    if n == 100_000:
+        log_data, _ = _wide_data(n, d)
+        data = glm.prepare_fused_logistic_data(log_data["Xp"][:, :d], log_data["yp"], quantize="int8")
+        Z = torch.randn(c, d, generator=torch.Generator(device="cuda").manual_seed(c),
+                        device="cuda") * data["col_scale"]
+    else:
+        data, Z = _glm_case(n, d, c, "logistic", quantize="int8")
+    assert data["Xp"].dtype == torch.int8
+    path = glm.launch_plan(n, data["Xp"].shape[1], c, 132, torch.int8)["path"]
+    assert path == ("narrow" if d <= 128 else "wide_int8")
+    kernel, plain = _vag(family)
+    ll_k, g_k = kernel(data["Xp"], data["yp"], Z)
+    ll_p, g_p = plain(data["Xp"], data["yp"], Z)
+    torch.cuda.synchronize()
+    ll_rel = 0.0 if family == "logistic" and n < 100_000 else 1e-6
+    g_rel = 1e-4 if n == 100_000 else 1e-2  # as the wide bf16 kernels at N = 100K
+    assert float((ll_k - ll_p).abs().max()) <= 0.05 + ll_rel * float(ll_p.abs().max())
+    assert float((g_k - g_p).abs().max()) <= g_rel * float(g_p.abs().max()) + 1e-3
+    b = kernel(data["Xp"], data["yp"], Z)
+    four = kernel(data["Xp"], data["yp"], Z[:4].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(ll_k, b[0]) and torch.equal(g_k, b[1])
+    assert torch.equal(ll_k[:4], four[0]) and torch.equal(g_k[:4], four[1])
 
 
 @pytest.mark.cuda

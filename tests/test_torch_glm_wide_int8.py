@@ -153,25 +153,23 @@ def test_launch_plan_covers_every_row(n, d_pad, c, x_dtype):
     else:
         path = "wide_int8" if x_dtype == torch.int8 else "wide"
     assert plan["path"] == path
-    tiles = {"narrow": (64, 64), "wide": (128, 64), "wide_int8": (128, 32), "f32": (64, 16)}[path]
+    tiles = {"narrow": (64, 64), "wide": (128, 64), "wide_int8": (128, 64), "f32": (64, 16)}[path]
     for (s, r), tile in zip([("splits", "rows_per_split"), ("g_splits", "g_rows_per_split")], tiles):
         splits, rows = plan[s], plan[r]
         assert rows % tile == 0 and splits * rows >= n > (splits - 1) * rows
     c64, c256 = -(-c // 64) * 64, -(-c // 256) * 256
-    if path == "wide":
+    if path in ("wide", "wide_int8"):
+        # int8 X runs the bf16 TMA + wgmma pair, widened in shared memory.
         assert plan["zb_shape"] == (c256, d_pad)
         assert plan["rt_shape"] == (c256, -(-n // 128) * 128) and plan["rt_dtype"] == torch.bfloat16
-    elif path == "wide_int8":
-        assert plan["zb_shape"] == (c64, d_pad)
-        assert plan["rt_shape"] == (c64, -(-n // 128) * 128) and plan["rt_dtype"] == torch.bfloat16
     elif path == "f32":
         assert plan["zb_shape"] is None
         assert plan["rt_shape"] == (c64, -(-n // 64) * 64) and plan["rt_dtype"] == torch.float32
     else:
-        # bf16: the TMA + wgmma kernel reads Z as bf16 (chains padded to 128)
+        # bf16 and int8: the TMA + wgmma kernel reads Z as bf16 (chains padded to 128)
         assert plan["g_splits"] == plan["splits"] and plan["rt_shape"] is None
         c128 = -(-c // 128) * 128
-        assert plan["zb_shape"] == ((c128, d_pad) if x_dtype == torch.bfloat16 else None)
+        assert plan["zb_shape"] == (c128, d_pad)
 
 
 @pytest.mark.parametrize("x_dtype,n,d_pad,path", [
@@ -191,12 +189,14 @@ def test_wide_plan_splits_do_not_depend_on_the_chain_count(x_dtype, n, d_pad, pa
     assert {p["path"] for p in plans} == {path}
     assert len({tuple(p[k] for k in keys) for p in plans}) == 1
     plan = plans[0]
-    if path == "wide":
+    if path in ("wide", "wide_int8"):
         # One block per SM for one chain tile: row tiles over the SMs, and
         # the gradient's row splits times its column tiles of 128 within the
-        # SMs.
+        # SMs; int8 X takes the bf16 pair's schedule.
         assert plan["splits"] <= 132
         assert plan["g_splits"] * -(-d_pad // 128) <= 132
+        bf16 = glm.launch_plan(n, d_pad, 4096, 132, torch.bfloat16)
+        assert tuple(plan[k] for k in keys) == tuple(bf16[k] for k in keys)
     if path == "narrow":
         # At most four splits: the g partials stay 4 x C x Dp x 4 bytes.
         assert plan["splits"] == min(4, -(-n // 64))

@@ -43,3 +43,24 @@ def test_sample_defaults_to_cuda_and_raises_without_it():
         sample(lambda p: -(p["x"] ** 2).sum(), {"x": [0.0]}, num_samples=2, num_warmup=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prepare_fused_logistic_data([[1.0]], [1.0])
+
+
+_JAX_RANDOM_PROBE = """
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("jax_random", "mlx_mcmc_tpu_torch/models/jax_random.py")
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+key = mod.split(mod.prng_key(0), 3)[0]
+assert mod.normal(key, (3, 4)).shape == (3, 4)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "mlx_mcmc_tpu", "torch"))
+assert not bad, bad
+"""
+
+
+def test_reference_streams_need_numpy_only():
+    # models/jax_random.py reproduces jax.random's streams with numpy alone.
+    out = subprocess.run(
+        [sys.executable, "-c", _JAX_RANDOM_PROBE], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr

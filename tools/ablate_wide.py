@@ -1,6 +1,6 @@
 """Where the time of the GLM kernels goes, by ablation, on the card.
 
-    PYTHONPATH=. python3 tools/ablate_wide.py [wide] [onepass] [k3]   # from the repository's root
+    PYTHONPATH=. python3 tools/ablate_wide.py [wide] [onepass] [k3] [int8]   # from the repository's root
 
 Builds variants of ``mlx_mcmc_tpu_torch/csrc/glm_fused.cu`` that each change
 one part of a kernel's work, and times K1 with each, in turns, by CUDA
@@ -36,6 +36,16 @@ N = 10K, D = 100), K1 and K2 (no transcendentals):
 - ``no_s_product``, ``no_g_product``: the wgmma of S^T = Zb X^T, or of
   G^T += R^T X, left out (the loads, barriers and the rest stay).
 
+``int8``: K1 on int8 X (the reference's quantized storage, the scales
+folded into Z) through the widening stage, in the one-pass kernel at
+glm100_fused's shape and in the wide pair at glm1000_fused's:
+
+- ``full``: the source as it is;
+- ``no_convert``: the widening loads and stores each stage but replaces the
+  int8-to-bf16 conversion by one XOR per pair;
+- ``no_widen``: the widening warps only fence and arrive, so the stage's
+  bf16 boxes are never written (the MMAs read stale tiles).
+
 The variants that change the math compute wrong values by construction;
 only their times mean anything. The variants are cut from the source's
 text, so an edit to the lines named below makes this script stop with an
@@ -65,10 +75,11 @@ _EPILOGUE_OFF = ("              ta = ra = sa + ya;\n"
 def _reloads_off(src: str) -> str:
     """Each producer issues the loads of its first ring's worth of stages
     only; later stages are signalled without loading."""
-    for producer, first in (("          mbar_expect_tx(&full[stage], kVStageBytes);\n",
-                             "(t - tile_begin) * nk + kc < kVStages"),
-                            ("        mbar_expect_tx(&full[stage], kGStageBytes);\n",
-                             "ch - chunk_begin < kGStages")):
+    for producer, first in (
+        ("          mbar_expect_tx(&full[stage], kInt8 ? 2 * kHalfBoxBytes : kVStageBytes);\n",
+         "(t - tile_begin) * nk + kc < kVStages"),
+        ("        mbar_expect_tx(&full[stage], kInt8 ? kGRBytes : kGStageBytes);\n",
+         "ch - chunk_begin < kGStages")):
         head, sep, tail = src.partition(producer)
         if not sep:
             raise ValueError("the producer's loads were not found in the source")
@@ -99,6 +110,11 @@ _K3_FAST_EXP = ("    float lam;\n"
 _K3_NO_EXP = "    const float lam = s + 1.f;\n"
 
 
+_WIDEN_CONVERT = ('  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(r) : "r"(x), '
+                  '"r"(0x3F803F80u), "r"(neg));\n')
+_WIDEN_LOOP = "  for (int p = wt; p < kLines * kSteps; p += 32 * kWidenWarps) {\n"
+
+
 _ONEPASS_S = ("        wgmma_m64n64k16(s, sw128_desc(zs + b * kOZBox, 16) + 2 * kk,\n"
               "                        sw128_desc(st + b * kOXBox, 16) + 2 * kk);\n")
 _ONEPASS_G = "        wgmma_m64n128k16_rs(g, a[kk], sw128_desc(st, kOXBox) + 128 * kk);\n"
@@ -110,6 +126,11 @@ def variants(target: str) -> dict:
         return {"full": src, "fast_exp": _cut(src, _K3_EXP, _K3_FAST_EXP, "K3's exp"),
                 "no_exp": _cut(src, _K3_EXP, _K3_NO_EXP, "K3's exp")}
     src = (_build.CSRC_DIR / "glm_fused.cu").read_text()
+    if target == "int8":
+        return {"full": src,
+                "no_convert": _cut(src, _WIDEN_CONVERT, "  r = x ^ neg;\n", "the int8 conversion"),
+                "no_widen": _cut(src, _WIDEN_LOOP, _WIDEN_LOOP.replace("kLines * kSteps", "0"),
+                                 "the widening loop")}
     if target == "onepass":
         return {"full": src,
                 "accurate": _cut(src, _ONEPASS_MUFU, _ONEPASS_MUFU.replace("false", "true"),
@@ -161,20 +182,34 @@ def ablate_k3() -> dict:
     return rows
 
 
+def _int8_call(d: int, n: int, c: int, scale: float):
+    """K1 on the GLM dataset of width d and n rows stored as int8, at c
+    chain positions of the given scale (the column scales folded in)."""
+    spec = make_logistic_regression(num_features=d, num_obs=n, seed=0, data_dtype=torch.bfloat16)
+    data = glm.prepare_fused_logistic_data(spec.X, spec.y, quantize="int8")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    Z = scale * torch.randn(c, d, generator=gen, device="cuda") * data["col_scale"]
+    return lambda: glm.fused_logistic_vag_cuda(data["Xp"], data["yp"], Z)
+
+
 def ablate(target: str) -> dict:
     if target == "k3":
         return ablate_k3()
     libs = build_all(variants(target), target)
-    wide = target == "wide"
-    d, n, c = (1000, 100_000, 256) if wide else (100, 10_000, 4096)
-    spec = make_logistic_regression(num_features=d, num_obs=n, seed=0, data_dtype=torch.bfloat16)
-    data = glm.prepare_fused_logistic_data(spec.X, spec.y)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    Z = (0.05 if wide else 1.0) * torch.randn(c, d, generator=gen, device="cuda")
-    calls = {"K1": lambda: glm.fused_logistic_vag_cuda(data["Xp"], data["yp"], Z)}
-    if not wide:
-        y_lin = data["Xp"][:, :d].float() @ torch.randn(d, generator=gen, device="cuda")
-        calls["K2"] = lambda: glm.fused_linear_vag_cuda(data["Xp"], y_lin, Z)
+    if target == "int8":
+        calls = {"K1_int8": _int8_call(100, 10_000, 4096, 1.0),
+                 "K1_int8_wide": _int8_call(1000, 100_000, 256, 0.05)}
+    else:
+        wide = target == "wide"
+        d, n, c = (1000, 100_000, 256) if wide else (100, 10_000, 4096)
+        spec = make_logistic_regression(num_features=d, num_obs=n, seed=0, data_dtype=torch.bfloat16)
+        data = glm.prepare_fused_logistic_data(spec.X, spec.y)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        Z = (0.05 if wide else 1.0) * torch.randn(c, d, generator=gen, device="cuda")
+        calls = {"K1": lambda: glm.fused_logistic_vag_cuda(data["Xp"], data["yp"], Z)}
+        if not wide:
+            y_lin = data["Xp"][:, :d].float() @ torch.randn(d, generator=gen, device="cuda")
+            calls["K2"] = lambda: glm.fused_linear_vag_cuda(data["Xp"], y_lin, Z)
     rows = {name: {key: {"ms": [], "kernels_ms": None} for key in calls} for name in libs}
     for _ in range(2):
         for name, lib in libs.items():
@@ -186,7 +221,7 @@ def ablate(target: str) -> dict:
 
 
 def main() -> None:
-    targets = [a for a in sys.argv[1:] if a in ("wide", "onepass", "k3")] or ["wide"]
+    targets = [a for a in sys.argv[1:] if a in ("wide", "onepass", "k3", "int8")] or ["wide"]
     out = {target: ablate(target) for target in targets}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
