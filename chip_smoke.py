@@ -7,9 +7,10 @@ Phases, each fatal on failure (exit code 1, no result line):
 1. Device: requires ``torch.cuda.is_available()``; prints the card's name
    and power limit as nvidia-smi gives them.
 2. Build: compiles every CUDA source (``glm_fused`` with its one-pass and
-   wide paths, ``poisson_fused``, ``philox``; one ``nvcc`` each, started
-   together, sm_90a) into ``build/mlx_mcmc_tpu_torch/`` and prints the
-   build time and ptxas's register report.
+   wide paths, ``poisson_fused``, ``philox``, ``glm_variants``; one
+   ``nvcc`` each, started together, sm_90a) into
+   ``build/mlx_mcmc_tpu_torch/`` and prints the build time and ptxas's
+   register report and performance remarks.
 3. Kernels against their plain versions on the card, at each path's shape
    and at a ragged one, with CUDA-event timings and the bound (the largest
    of bytes, tensor-core, float32, transcendental and integer work at the
@@ -34,6 +35,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    wide at glm1000 (C=256) and K3 (C=512). The int8 kernels are held to
    the bf16 tolerances (int8 values widen to bf16 exactly), int8 wide at
    glm1000 to the wide g tolerance below.
+3b. The microbenchmark variants of K1's body (``ops/glm_variants.py``,
+   ``csrc/glm_variants.cu``; no sampling path): the two benchmark entry
+   points (``mlx_mcmc_tpu_torch.benchmarks.glm_kernel_variants`` and
+   ``.flagship_decomposition``'s ablation and grid sweep, then its depth
+   sweep) are the path, with the launch counts set to 0 before and read
+   after each; then each variant at the reference's shape (the flagship
+   operands, 10,240 x 128 bf16, C = 4096; mm1_pair with 1,024-row tiles)
+   and floor at Dp = 256 and 1024 (the wide pair) against its plain
+   version, two calls to the same bits, timed.
 4. ``glm100_fused`` at full width through ``sample()`` and K1 (100 params,
    10K obs, bf16 X, 4096 chains, 300 warmup + 2000 draws, depth 6, target
    0.8, bf16 store) on the reference's dataset (its threefry streams):
@@ -69,7 +79,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    must be bit-identical.
 9. The kernels JSON line (K1 one-pass, K1 wide, K1 int8 one-pass and wide,
    K2, K3, K4, Philox, and K1, K2 and K4 on f32 X; K4, int8 wide and the
-   f32 rows, on no sampling path, with their phase-3 launches), then the
+   f32 rows, on no sampling path, with their phase-3 launches; the
+   variants with their launches from phase 3b's entry points), then the
    contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -131,6 +142,22 @@ K3_G_TOL_REL = 1e-4
 # Philox: words and uniforms bit for bit; normals to the last ulp of
 # logf/sincosf against torch's log/cos/sin (|z| < 5.8).
 NORMAL_TOL = 2e-6
+# The variants of K1's body (accurate epilogues, no MUFU form): ll per chain
+# within 1e-3 + 1e-5 of |ll| (f32 sums of 10K rows in another order), g
+# within 1e-4 of max|g| + 1e-5 and two residual flips (a last-bit change of
+# s flips the bf16 rounding of a residual now and then, moving g by up to
+# max|x| times a bf16 ulp of the residual: glm_variants.residual_flip).
+# mm1_pair's ll within 1e-4 relative, except chains where one bf16(ll)
+# rounds the other way (the plain version with that one rounding flipped
+# matches them within 1e-4): where the running ll passes near a bf16
+# rounding boundary, or is small beside the terms it sums, another
+# summation order or accumulation of s may round it the other way (on the
+# H100, chains 2, 9 and 2304 f32 ulps from a boundary did). The chains
+# within one ulp of a boundary may be at most 0.1% of them, the flipped
+# ones 0.5% (0.1% measured).
+VAR_LL_TOL_ABS, VAR_LL_TOL_REL = 1e-3, 1e-5
+VAR_G_TOL_REL, VAR_G_TOL_ABS = 1e-4, 1e-5
+PAIR_LL_TOL_REL, PAIR_BOUNDARY_SHARE, PAIR_FLIP_SHARE = 1e-4, 1e-3, 5e-3
 
 
 def fail(msg: str) -> None:
@@ -202,6 +229,19 @@ def philox_bound_ms(c: int, dim: int, n_slots: int) -> tuple:
     pairs = 2 * c * blocks
     return roofline_ms(nbytes, f32_ops=40 * pairs, transcendentals=4 * pairs,
                        int32_ops=100 * calls)
+
+
+def variant_bound_ms(name: str, n: int, d_pad: int, c: int) -> tuple:
+    """Least time of one variant call on the padded operands: X, y (where
+    read), Z in, ll and g out; the products on the bf16 tensor cores (4 N
+    Dp C, half that for mm1_sum); per (row, chain) ~12 float32 operations
+    and 2 transcendentals for the tanh and exp epilogues (tanh and log, exp
+    and log1p), ~2 operations for the sums and casts of the others."""
+    nbytes = n * d_pad * 2 + (n * 4 if name in ("tanh_y", "split2") else 0) + 2 * c * d_pad * 4 + c * 4
+    products = (2.0 if name == "mm1_sum" else 4.0) * n * d_pad * c
+    epilogue = name in ("tanh_y", "tanh_hoist", "exp_hoist", "split2")
+    return roofline_ms(nbytes, tensor_flops=products, f32_ops=(12 if epilogue else 2) * n * c,
+                       transcendentals=(2 if epilogue else 0) * n * c)
 
 
 def timed_row(row, kernel_call, plain_call, bound) -> dict:
@@ -418,6 +458,135 @@ def check_philox(name: str, chains, dim: int, n_slots: int, timed: bool) -> dict
     return row
 
 
+VARIANT_SOURCE = "mlx_mcmc_tpu_torch/csrc/glm_variants.cu"
+# The reference's kernels each variant replaces (floor: two, one body).
+VARIANT_REPLACES = {
+    "floor": ["benchmarks/glm_kernel_variants.py:53", "benchmarks/flagship_decomposition.py:68"],
+    "mm1_sum": ["benchmarks/flagship_decomposition.py:60"],
+    "floor_nosum": ["benchmarks/flagship_decomposition.py:82"],
+    "tanh_y": ["benchmarks/glm_kernel_variants.py:68"],
+    "tanh_hoist": ["benchmarks/glm_kernel_variants.py:89"],
+    "exp_hoist": ["benchmarks/glm_kernel_variants.py:108"],
+    "split2": ["benchmarks/flagship_decomposition.py:110"],
+    "mm1_pair": ["benchmarks/flagship_decomposition.py:95"],
+}
+
+
+def check_variant(name: str, label: str, Xp, yp, Z) -> dict:
+    """A variant of K1's body against its plain version on the card (the
+    tolerances above), two calls to the same bits, timed."""
+    from mlx_mcmc_tpu_torch.ops import glm_variants
+
+    kernel, plain = glm_variants.VARIANTS[name]
+    kw = {"tile_rows": 1024} if name == "mm1_pair" else {}
+    call = lambda: kernel(Xp, yp, Z, **kw)  # noqa: E731
+    plain_call = lambda: plain(Xp, yp, Z, **kw)  # noqa: E731
+    out, again = call(), call()
+    ll_p, g_p = plain_call()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        fail(f"{label}: two calls on the same inputs give different bits")
+    ll_k, g_k = out
+    if not (torch.isfinite(ll_k).all() and torch.isfinite(g_k).all()):
+        fail(f"{label}: non-finite output")
+    d_ll = (ll_k - ll_p).abs()
+    err_g = float((g_k - g_p).abs().max())
+    g_max = float(g_p.abs().max())
+    c = Z.shape[0]
+    n, d_pad = Xp.shape
+    row = {"shape_c_n_dp": [c, n, d_pad], "max_abs_err": max(float(d_ll.max()), err_g),
+           "max_abs_err_ll": float(d_ll.max()), "max_abs_err_g": err_g}
+    if name == "mm1_pair":
+        agree = glm_variants.mm1_pair_agreement(Xp, Z, ll_k, 1024, PAIR_LL_TOL_REL)
+        row.update(boundary_chains=len(agree["boundary"]), flipped_chains=len(agree["flipped"]),
+                   unexplained_chains=len(agree["unexplained"]),
+                   max_rel_err_off_flipped=agree["max_rel_err"],
+                   margins_of_flipped_ulps=agree["margins_of_flipped"].tolist())
+        log(f"{label}: C={c} N={n} Dp={d_pad} max rel |dll| {agree['max_rel_err']:.3e} off the "
+            f"{row['flipped_chains']} chains with one bf16(ll) rounded the other way (their margins "
+            f"in f32 ulps {row['margins_of_flipped_ulps']}); {row['boundary_chains']} chains within "
+            f"one ulp of a bf16 boundary; {row['unexplained_chains']} unexplained; |ll| up to "
+            f"{float(ll_p.abs().max()):.3e}")
+        if row["unexplained_chains"]:
+            fail(f"{label}: ll of chains {agree['unexplained'][:10].tolist()} off by more than "
+                 f"{PAIR_LL_TOL_REL} relative, not by one flipped bf16 rounding")
+        if row["boundary_chains"] > PAIR_BOUNDARY_SHARE * c or row["flipped_chains"] > PAIR_FLIP_SHARE * c:
+            fail(f"{label}: {row['boundary_chains']} chains within one ulp of a bf16 boundary "
+                 f"(at most {PAIR_BOUNDARY_SHARE:.1%}) or {row['flipped_chains']} flipped (at most "
+                 f"{PAIR_FLIP_SHARE:.1%}) of {c}")
+        if bool(g_k.any()):
+            fail(f"{label}: g is not zero")
+    else:
+        ll_tol = VAR_LL_TOL_ABS + VAR_LL_TOL_REL * ll_p.abs()
+        g_tol = VAR_G_TOL_REL * g_max + VAR_G_TOL_ABS + 2 * glm_variants.residual_flip(name, Xp, Z)
+        log(f"{label}: C={c} N={n} Dp={d_pad} max|dll|={float(d_ll.max()):.3e} (worst share of its "
+            f"tol {float((d_ll / ll_tol).max()):.3f}) max|dg|={err_g:.3e} (tol {g_tol:.3e}, "
+            f"max|g|={g_max:.3e})")
+        if bool((d_ll > ll_tol).any()):
+            fail(f"{label}: ll error above {VAR_LL_TOL_ABS} + {VAR_LL_TOL_REL} |ll|")
+        if err_g > g_tol:
+            fail(f"{label}: grad error {err_g} > {g_tol}")
+    timed_row(row, call, plain_call, variant_bound_ms(name, n, d_pad, c))
+    row["device_breakdown_ms"] = device_breakdown_ms(call, (
+        "round_z", "glm_onepass", "glm_split2", "glm_mm1_pair", "glm_hopper_value",
+        "glm_hopper_grad", "sum_splits"))
+    return row
+
+
+def variants_phase() -> list:
+    """Phase 3b: the benchmark entry points as the path, then every
+    variant against its plain version. Returns the variants' kernels rows."""
+    from mlx_mcmc_tpu_torch.benchmarks import flagship_decomposition as fd
+    from mlx_mcmc_tpu_torch.benchmarks import glm_kernel_variants as gkv
+    from mlx_mcmc_tpu_torch.ops import glm_variants
+
+    def emit(line):
+        log(f"  {line}")
+
+    glm_variants.reset_launch_counts()
+    log("benchmarks.glm_kernel_variants:")
+    gkv.run(emit)
+    log("benchmarks.flagship_decomposition, ablation and grid sweep:")
+    fd.ablation(emit)
+    fd.grid_sweep(emit)
+    launches = glm_variants.launch_counts()
+    glm_variants.reset_launch_counts()
+    log("benchmarks.flagship_decomposition, depth sweep:")
+    fd.depth_sweep(emit)
+    launches["floor_wide"] = glm_variants.launch_counts()["floor"]
+    log(f"variant launches of the entry points: {launches}")
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"the benchmark entry points launched {name} no time")
+
+    Xp, yp, Z = fd.make_operands(10240, 128, 4096)
+    rows = {name: check_variant(name, name, Xp, yp, Z) for name in glm_variants.VARIANTS}
+    wide = {}
+    for d_pad, n in ((256, 5120), (1024, 1280)):
+        Xs, ys, Zs = fd.make_operands(n, d_pad, 4096, seed=1)
+        wide[d_pad] = check_variant("floor", f"floor wide Dp={d_pad}", Xs, ys, Zs)
+    kernels = []
+    for key, row in list(rows.items()) + [("floor_wide", wide[1024])]:
+        name = "floor" if key == "floor_wide" else key
+        devs = {"mm1_pair": ["round_z_kernel", "glm_mm1_pair_kernel"],
+                "split2": ["round_z_kernel", "glm_split2_kernel", "sum_splits_kernel"],
+                "floor_wide": ["round_z_kernel", "glm_hopper_value_kernel", "glm_hopper_grad_kernel",
+                               "sum_splits_kernel"]}.get(key, ["round_z_kernel", "glm_onepass_kernel",
+                                                              "sum_splits_kernel"])
+        extra = {k: v for k, v in row.items() if k not in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        extra.update(device_kernels=devs, sampling_path=False, also_replaces=VARIANT_REPLACES[name][1:])
+        if key == "floor_wide":
+            extra["variants"] = {"dp_256": wide[256]}
+        kernels.append(dict(
+            {"name": "glm_variant_" + ("floor:wide" if key == "floor_wide" else key), "route": "cuda",
+             "source": VARIANT_SOURCE, "replaces": VARIANT_REPLACES[name][0],
+             "launches": launches[key], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+             "library_ms": None},
+            **extra))
+    return kernels
+
+
 def drive(label: str, cfg: dict, problem=None) -> tuple:
     """One run of ``cfg`` through ``sample()``, launch counts set to 0 just
     before it and read just after."""
@@ -546,11 +715,11 @@ def main() -> None:
     from mlx_mcmc_tpu_torch import _build
 
     t0 = time.perf_counter()
-    logs = _build.build(["glm_fused", "poisson_fused", "philox"], verbose=True)
+    logs = _build.build(["glm_fused", "poisson_fused", "philox", "glm_variants"], verbose=True)
     log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(logs) or 'up to date'})")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Performance" in line:
+            if any(w in line for w in ("registers", "spill", "Performance", "warning", "Compiling")):
                 log(f"  ptxas {name}: {line.strip()}")
 
     from mlx_mcmc_tpu_torch.bench import CONFIGS, build_problem
@@ -735,6 +904,10 @@ def main() -> None:
     check_philox("ragged", torch.arange(1000, 1037, device="cuda"), 7, 128, timed=False)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
+    # --- the variants of K1's body, through the benchmark entry points -----
+    variant_kernels = variants_phase()
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
     # --- glm100_fused: the main path --------------------------------------
     metrics, result = drive("glm100_fused", cfg, problem)
     launches = {"K1": metrics["launches"]["glm_fused_logistic"],
@@ -904,6 +1077,7 @@ def main() -> None:
              "bound_by": row["bound_by"], "library_ms": None},
             **extra,
         ))
+    kernels.extend(variant_kernels)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -44,18 +44,34 @@ def library_path(name: str, out_dir: Path = BUILD_DIR) -> Path:
     return Path(out_dir) / f"lib{name}.so"
 
 
+def _sources(src: Path) -> list:
+    """``src`` and the files it includes with ``#include "..."``, recursively."""
+    found, todo = [], [Path(src)]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for line in path.read_text().splitlines():
+            if line.startswith('#include "'):
+                todo.append(path.parent / line.split('"')[1])
+    return found
+
+
 def build(names: Iterable[str], verbose: bool = False, src_dir: Path = CSRC_DIR,
           out_dir: Path = BUILD_DIR) -> Dict[str, str]:
-    """Compile every stale ``<src_dir>/<name>.cu`` in ``names`` into
-    ``<out_dir>/lib<name>.so`` with one ``nvcc`` each, all started together.
-    Returns ``{name: compiler output}`` for the sources it built (with
-    ``verbose``, ptxas's register and shared-memory report). Raises with the
-    compiler's output if any build fails."""
+    """Compile every stale ``<src_dir>/<name>.cu`` in ``names`` (older than
+    it or than a file it includes) into ``<out_dir>/lib<name>.so`` with one
+    ``nvcc`` each, all started together. Returns ``{name: compiler output}``
+    for the sources it built (with ``verbose``, ptxas's register and
+    shared-memory report and its remarks). Raises with the compiler's output
+    if any build fails."""
     Path(out_dir).mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         src, out = Path(src_dir) / f"{name}.cu", library_path(name, out_dir)
-        if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+        newest = max(p.stat().st_mtime for p in _sources(src))
+        if out.exists() and out.stat().st_mtime >= newest:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),

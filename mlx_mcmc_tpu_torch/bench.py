@@ -14,12 +14,10 @@ same settings and the same JSON line. Run on the GPU:
 The timed run follows a warm run (kernel build, allocator and library
 start-up are excluded). ESS is computed on the device. The detail adds every
 kernel's launch count, the host-sync count of the timed run and the seconds
-``build_problem`` took to make the data. The GLM configs sample the
-reference's own datasets: ``models/glm.py`` draws them from the reference's
-threefry streams (``models/jax_random.py``), key for key. The Poisson
-config's counts come from numpy's generator (the reference draws them with
-``jax.random.poisson``, which the port does not reproduce), so its sampler
-statistics match the reference's within run variance only.
+``build_problem`` took to make the data. Every config samples the
+reference's own dataset: ``models/glm.py`` and ``models/poisson.py`` draw
+them from the reference's threefry streams (``models/jax_random.py``), key
+for key, the Poisson counts through ``jax.random.poisson``'s own algorithm.
 ``build_problem`` also knows the Gaussian linear regression
 (``family="linear"``) that ``chip_smoke.py`` drives through K2, and a GLM
 config with ``quantize="int8"`` stores X as the reference's int8 with

@@ -929,7 +929,10 @@ __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
 // of bytes (box 64 or 128 columns x 64 rows, no swizzle); each box lands in
 // the stage's raw slot and warps 1-3 of the producer warpgroup widen it into
 // the stage's two bf16 boxes, which the consumers read as for bf16 X.
-template <class Epilogue, bool kInt8>
+// kGT = false leaves the G^T product out (g = 0) and kLLSum = false the ll
+// sum (ll = 0): the microbenchmark variants of the body
+// (csrc/glm_variants.cu); the production entries keep both.
+template <class Epilogue, bool kInt8, bool kGT = true, bool kLLSum = true>
 __global__ void __launch_bounds__(kHThreads, 1)
 glm_onepass_kernel(const __grid_constant__ CUtensorMap x_map,
                    const __grid_constant__ CUtensorMap z_map, const float* __restrict__ y,
@@ -1055,21 +1058,25 @@ glm_onepass_kernel(const __grid_constant__ CUtensorMap x_map,
           Epilogue::apply(yv[j][1], s[4 * j + 2 * h + 1], tb, rb);
           if (!va) ta = ra = 0.f;
           if (!vb) tb = rb = 0.f;
-          ll[h] += ta;
-          ll[h] += tb;
+          if constexpr (kLLSum) {
+            ll[h] += ta;
+            ll[h] += tb;
+          }
           a[j >> 1][2 * (j & 1) + h] = bf16_pair(ra, rb);
         }
       }
 
       // G^T += R^T X: K = the stage's 64 rows in four k16 slices.
-      fence_acc(g);
-      wgmma_fence();
+      if constexpr (kGT) {
+        fence_acc(g);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n128k16_rs(g, a[kk], sw128_desc(st, kOXBox) + 128 * kk);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_acc(g);
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n128k16_rs(g, a[kk], sw128_desc(st, kOXBox) + 128 * kk);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(g);
+      }
       if (lane == 0) mbar_arrive(&empty[stage]);
       if (++stage == kOStages) {
         stage = 0;
@@ -1132,16 +1139,16 @@ struct Args {
 
 // Dp <= 128, bf16 or int8 X: the TMA + wgmma one-pass kernel. Scratch: zb
 // (round_up(C, 128), Dp) bf16, reached with X through the tensor maps of
-// glm_onepass_tensor_maps (made for X's type). The MUFU form of the
-// epilogue unless kOnePassAccurate.
+// glm_onepass_tensor_maps (made for X's type). launch_onepass_as takes the
+// epilogue E as given (and the kernel's kGT and kLLSum); launch_onepass
+// takes the MUFU form of the epilogue unless kOnePassAccurate.
 constexpr bool kOnePassAccurate = false;
 
-template <class Epilogue, bool kInt8>
-int launch_onepass(const Args& a) {
+template <class E, bool kInt8, bool kGT = true, bool kLLSum = true>
+int launch_onepass_as(const Args& a) {
   if (!covers(a.N, a.splits, a.rows_per_split, kORows) || a.g_splits != a.splits ||
       a.zb == nullptr || a.maps == nullptr || a.Dp > kMaxDp)
     return (int)cudaErrorInvalidValue;
-  using E = typename std::conditional<kOnePassAccurate, Epilogue, Mufu<Epilogue>>::type;
   CUtensorMap m[2];
   memcpy(m, a.maps, sizeof m);
   const int Cp = round_up(a.C, kOChains);
@@ -1151,12 +1158,19 @@ int launch_onepass(const Args& a) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   constexpr uint32_t smem = o_smem(kInt8);
-  err = cudaFuncSetAttribute(glm_onepass_kernel<E, kInt8>,
+  err = cudaFuncSetAttribute(glm_onepass_kernel<E, kInt8, kGT, kLLSum>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  glm_onepass_kernel<E, kInt8><<<dim3(a.splits, Cp / kOChains), kHThreads, smem, a.st>>>(
-      m[0], m[1], a.y, a.ll_part, a.g_part, a.N, a.Dp, a.D, a.C, a.rows_per_split / kORows);
+  glm_onepass_kernel<E, kInt8, kGT, kLLSum>
+      <<<dim3(a.splits, Cp / kOChains), kHThreads, smem, a.st>>>(
+          m[0], m[1], a.y, a.ll_part, a.g_part, a.N, a.Dp, a.D, a.C, a.rows_per_split / kORows);
   return (int)cudaGetLastError();
+}
+
+template <class Epilogue, bool kInt8>
+int launch_onepass(const Args& a) {
+  using E = typename std::conditional<kOnePassAccurate, Epilogue, Mufu<Epilogue>>::type;
+  return launch_onepass_as<E, kInt8>(a);
 }
 
 // Dp > 128, bf16 or int8 X: the two Hopper kernels. Scratch: zb

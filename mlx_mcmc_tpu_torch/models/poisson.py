@@ -1,9 +1,9 @@
 """Hierarchical Poisson event rates, with or without per-count covariates.
 
 Counterpart of ``make_poisson_event_rates`` in
-``mlx_mcmc_tpu/models/poisson.py``, with the same recipe, drawn from numpy's
-generator because the port cannot use ``jax.random`` (the data are not the
-reference's dataset):
+``mlx_mcmc_tpu/models/poisson.py``, drawn key for key from the reference's
+own threefry streams (``models/jax_random.py``), so the port samples the
+reference's dataset:
 
     mu ~ N(0, 5);  log_tau ~ N(0, 1);  theta_raw_g ~ N(0, 1)
     theta_g = mu + tau * theta_raw_g
@@ -25,6 +25,7 @@ import torch
 
 from mlx_mcmc_tpu_torch._device import resolve_device
 from mlx_mcmc_tpu_torch.distributions import Normal
+from mlx_mcmc_tpu_torch.models import jax_random
 
 
 class PoissonSpec(NamedTuple):
@@ -66,12 +67,14 @@ def make_poisson_event_rates(
     device=None,
 ) -> PoissonSpec:
     """Hierarchical Poisson counts with non-centered log-rates (see the
-    module docstring); ``truth`` holds mu, tau and, with covariates, beta."""
+    module docstring), the reference's dataset for the same arguments;
+    ``truth`` holds mu, tau, the groups' log-rates theta and, with
+    covariates, beta."""
     dev = resolve_device(device)
-    rng = np.random.default_rng(seed)
     f32 = np.float32
-    true_theta = f32(true_mu) + f32(true_tau) * rng.standard_normal(num_groups, dtype=f32)
-    truth = {"mu": true_mu, "tau": true_tau}
+    k_theta, k_x, k_beta, k_y = jax_random.split(jax_random.prng_key(seed), 4)
+    true_theta = f32(true_mu) + f32(true_tau) * jax_random.normal(k_theta, (num_groups,))
+    truth = {"mu": true_mu, "tau": true_tau, "theta": torch.from_numpy(true_theta).to(dev)}
     initial = {
         "mu": torch.zeros((), device=dev),
         "log_tau": torch.zeros((), device=dev),
@@ -80,13 +83,15 @@ def make_poisson_event_rates(
     X = None
     log_rate = np.broadcast_to(true_theta[:, None], (num_groups, obs_per_group))
     if covariate_dim > 0:
-        X_np = f32(0.5) * rng.standard_normal((num_groups, obs_per_group, covariate_dim), dtype=f32)
-        true_beta = f32(0.3) * rng.standard_normal(covariate_dim, dtype=f32)
-        log_rate = true_theta[:, None] + X_np @ true_beta
+        X_np = f32(0.5) * jax_random.normal(k_x, (num_groups, obs_per_group, covariate_dim))
+        true_beta = f32(0.3) * jax_random.normal(k_beta, (covariate_dim,))
+        # The K-term contraction formed in float64 and rounded once.
+        xb = (X_np.astype(np.float64) @ true_beta.astype(np.float64)).astype(f32)
+        log_rate = true_theta[:, None] + xb
         X = torch.from_numpy(X_np).to(dev)
         truth["beta"] = torch.from_numpy(true_beta).to(dev)
         initial["beta"] = torch.zeros(covariate_dim, device=dev)
-    y = torch.from_numpy(rng.poisson(np.exp(log_rate)).astype(f32)).to(dev)
+    y = torch.from_numpy(jax_random.poisson(k_y, np.exp(log_rate)).astype(f32)).to(dev)
     return PoissonSpec(
         log_prob=poisson_log_prob(y, X), initial_params=initial, y=y, X=X, truth=truth
     )

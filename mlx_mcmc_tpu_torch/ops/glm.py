@@ -250,8 +250,8 @@ def _check_kernel_args(Xp, y, Z):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_entry(name: str):
-    fn = getattr(_build.load("glm_fused"), name)
+def _kernel_entry(name: str, lib: str = "glm_fused"):
+    fn = getattr(_build.load(lib), name)
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "glm_hopper_tensor_maps":
         fn.argtypes = [p, i, p, p] + [i] * 4 + [p]
@@ -267,20 +267,23 @@ _WORKSPACES: "collections.OrderedDict" = collections.OrderedDict()
 _MAX_WORKSPACES = 4
 
 
-def _workspace(Xp: torch.Tensor, c: int, d: int) -> dict:
-    """The launch plan, split partials, scratch and (TMA paths) tensor maps
-    of X's type for X at ``Xp``'s address and shape with c chains of D
-    columns, made once and kept for the next calls (the last few shapes),
-    so the eager loop neither re-allocates nor re-encodes them and their
-    pointers stay stable. Reusing them is safe on one stream, as the NUTS loop runs."""
-    key = (Xp.device, Xp.data_ptr(), tuple(Xp.shape), Xp.dtype, c, d)
+def _workspace(Xp: torch.Tensor, c: int, d: int, plan: dict = None) -> dict:
+    """The launch plan (:func:`launch_plan`'s unless ``plan`` is given), split
+    partials, scratch and (TMA paths) tensor maps of X's type for X at
+    ``Xp``'s address and shape with c chains of D columns, made once and
+    kept for the next calls (the last few shapes), so the eager loop neither
+    re-allocates nor re-encodes them and their pointers stay stable. Reusing
+    them is safe on one stream, as the NUTS loop runs."""
+    key = (Xp.device, Xp.data_ptr(), tuple(Xp.shape), Xp.dtype, c, d,
+           None if plan is None else tuple(sorted(plan.items())))
     ws = _WORKSPACES.get(key)
     if ws is not None:
         _WORKSPACES.move_to_end(key)
         return ws
     n, d_pad = Xp.shape
     dev = Xp.device
-    plan = launch_plan(n, d_pad, c, sm_count(dev.index or 0), Xp.dtype)
+    if plan is None:
+        plan = launch_plan(n, d_pad, c, sm_count(dev.index or 0), Xp.dtype)
     f32 = dict(dtype=torch.float32, device=dev)
     ws = {"plan": plan, "ll_part": torch.empty((plan["splits"], c), **f32),
           "g_part": torch.empty((plan["g_splits"], c, d), **f32), "zb": None, "rt": None,
@@ -321,12 +324,15 @@ def use_kernel_library(path) -> None:
     _WORKSPACES.clear()
 
 
-def _launch(name: str, Xp: torch.Tensor, y, Z: torch.Tensor):
+def _launch(name: str, Xp: torch.Tensor, y, Z: torch.Tensor, plan: dict = None,
+            lib: str = "glm_fused"):
+    """Entry ``name`` of the library built from ``csrc/<lib>.cu`` (the
+    signature of the GLM entries), with ``plan`` or :func:`launch_plan`'s."""
     _check_kernel_args(Xp, y, Z)
-    fn = _kernel_entry(name)
+    fn = _kernel_entry(name, lib)
     n, d_pad = Xp.shape
     c, d = Z.shape
-    ws = _workspace(Xp, c, d)
+    ws = _workspace(Xp, c, d, plan)
     plan = ws["plan"]
     ll = torch.empty((c,), dtype=torch.float32, device=Xp.device)
     g = torch.empty((c, d), dtype=torch.float32, device=Xp.device)

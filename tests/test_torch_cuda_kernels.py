@@ -29,6 +29,13 @@ Tolerances as in ``chip_smoke.py``:
   summation order move single rates by an ulp).
 - Philox: integer words and uniforms bit for bit; normals within 2e-6
   (``logf``/``sincosf`` against torch's ``log``/``cos``/``sin``).
+- The variants of K1's body (``ops/glm_variants.py``, accurate epilogues):
+  ll per chain within 1e-3 + 1e-5 |ll|, g within 1e-4 of max|g| + 1e-5 and
+  two residual flips (``glm_variants.residual_flip``); mm1_pair's ll within
+  1e-4 relative except chains with one bf16(ll) rounded the other way
+  (``glm_variants.mm1_pair_agreement``; at most 0.5% of them, and at most
+  0.1% within one f32 ulp of a bf16 boundary); two calls give the same
+  bits.
 """
 
 import functools
@@ -37,7 +44,7 @@ import numpy as np
 import pytest
 import torch
 
-from mlx_mcmc_tpu_torch.ops import glm, poisson
+from mlx_mcmc_tpu_torch.ops import glm, glm_variants, poisson
 from mlx_mcmc_tpu_torch.ops import random as prng
 
 
@@ -386,3 +393,93 @@ def test_row_sum_is_batch_invariant(d):
     x = torch.randn(512, d, generator=torch.Generator(device="cuda").manual_seed(d), device="cuda")
     assert torch.equal(row_sum(x[:4].contiguous()), row_sum(x)[:4])
     assert torch.equal(row_sum(x), x.sum(-1))
+
+
+def _variant_case(n, d_pad, c, seed=0):
+    from mlx_mcmc_tpu_torch.benchmarks.flagship_decomposition import make_operands
+
+    return make_operands(n, d_pad, c, seed=seed)
+
+
+def _check_variant(name, Xp, yp, Z, **plan):
+    kernel, plain = glm_variants.VARIANTS[name]
+    before = kernel.launches
+    a = kernel(Xp, yp, Z, **plan)
+    b = kernel(Xp, yp, Z, **plan)
+    assert kernel.launches == before + 2
+    ll_p, g_p = plain(Xp, yp, Z, **({"tile_rows": plan["tile_rows"]} if "tile_rows" in plan else {}))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    ll_k, g_k = a
+    assert ll_k.shape == (Z.shape[0],) and g_k.shape == Z.shape
+    if name == "mm1_pair":
+        agree = glm_variants.mm1_pair_agreement(Xp, Z, ll_k, plan["tile_rows"])
+        assert len(agree["unexplained"]) == 0 and agree["max_rel_err"] <= 1e-4
+        assert len(agree["boundary"]) <= max(1.0, 1e-3 * Z.shape[0])
+        assert len(agree["flipped"]) <= max(1.0, 5e-3 * Z.shape[0])
+        assert not g_k.any()
+        return
+    assert bool(((ll_k - ll_p).abs() <= 1e-3 + 1e-5 * ll_p.abs()).all())
+    flip = glm_variants.residual_flip(name, Xp, Z)
+    assert float((g_k - g_p).abs().max()) <= 1e-4 * float(g_p.abs().max()) + 1e-5 + 2 * flip
+
+
+_VARIANT_SHAPES = [(10_240, 128, 4096), (777, 112, 300), (130, 48, 1), (4097, 128, 129)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [n for n in glm_variants.VARIANTS if n != "mm1_pair"])
+@pytest.mark.parametrize("n,d_pad,c", _VARIANT_SHAPES)
+def test_variant_kernels_match_plain_version(n, d_pad, c, name):
+    # The one-pass family and split2: the reference's shape, ragged N and
+    # C, Dp <= 64 (one X box per stage), a partial last chain tile.
+    _need_gpu()
+    _check_variant(name, *_variant_case(n, d_pad, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 512, 2048, 2560])
+def test_variant_rows_per_split(rows):
+    # The benchmarks' sweep of the one-pass plan: the same function.
+    _need_gpu()
+    Xp, yp, Z = _variant_case(10_240, 128, 512)
+    _check_variant("tanh_y", Xp, yp, Z, rows_per_split=rows)
+    ll, g = glm_variants.current_cuda(Xp, yp, Z, rows_per_split=rows)
+    ll_p, g_p = glm.fused_logistic_vag_reference(Xp, yp, Z)
+    torch.cuda.synchronize()
+    assert float((ll - ll_p).abs().max()) <= 0.05
+    assert float((g - g_p).abs().max()) <= 1e-2 * float(g_p.abs().max()) + 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d_pad,c", [(5120, 256, 4096), (1280, 1024, 4096), (777, 304, 70)])
+def test_floor_variant_wide(n, d_pad, c):
+    # The depth sweep: above Dp = 128 floor takes the wide pair.
+    _need_gpu()
+    _check_variant("floor", *_variant_case(n, d_pad, c, seed=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d_pad,c,tile", [(10_240, 128, 4096, 1024), (777, 112, 300, 128),
+                                            (130, 48, 5, 64)])
+def test_mm1_pair_kernel_matches_plain_version(n, d_pad, c, tile):
+    _need_gpu()
+    _check_variant("mm1_pair", *_variant_case(n, d_pad, c), tile_rows=tile)
+
+
+@pytest.mark.cuda
+def test_variant_kernels_refuse_what_they_do_not_take():
+    _need_gpu()
+    Xp, yp, Z = _variant_case(256, 128, 8)
+    with pytest.raises(ValueError, match="bf16"):
+        glm_variants.floor_cuda(Xp.float(), yp, Z)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        glm_variants.floor_cuda(Xp, yp, Z, rows_per_split=100)
+    with pytest.raises(ValueError, match="tile_rows"):
+        glm_variants.mm1_pair_cuda(Xp, yp, Z, tile_rows=100)
+    Xw, yw, Zw = _variant_case(256, 256, 8)
+    for name in ("mm1_sum", "floor_nosum", "tanh_y", "tanh_hoist", "exp_hoist", "split2"):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            glm_variants.VARIANTS[name][0](Xw, yw, Zw)
+    with pytest.raises(ValueError, match="Dp <= 128"):
+        glm_variants.mm1_pair_cuda(Xw, yw, Zw)

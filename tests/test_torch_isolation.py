@@ -16,6 +16,10 @@ import mlx_mcmc_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mlx_mcmc_tpu_torch.__path__, "mlx_mcmc_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("mlx_mcmc_tpu_torch.ops.glm_variants", "mlx_mcmc_tpu_torch.models.jax_random",
+             "mlx_mcmc_tpu_torch.benchmarks.glm_kernel_variants",
+             "mlx_mcmc_tpu_torch.benchmarks.flagship_decomposition"):
+    assert name in names, name
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mlx_mcmc_tpu"))

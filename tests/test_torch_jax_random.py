@@ -1,13 +1,17 @@
 """The port's threefry streams (numpy) against ``jax.random``, and the port's
-GLM generators against the reference's datasets, on the CPU.
+GLM and Poisson generators against the reference's datasets, on the CPU.
 
 ``split``, ``bits``, ``uniform`` and ``bernoulli`` must match bit for bit.
 ``normal`` goes through XLA's float32 ``erf_inv`` and ``log1p``, which the
 port reproduces with FMAs formed in float64: all but 1e-5 of its values
-must be the same bits and the rest within one ulp. The generators' bounds:
-bf16 X mismatches in at most 1e-5 of its elements, true beta within one
-float32 ulp, and y differing in at most 5 rows, each one whose uniform lies
-within 1e-5 of its probability (the logits are summed in another order).
+must be the same bits and the rest within one ulp. ``lgamma`` (XLA's
+float32 Lanczos form) must match ``jax.lax.lgamma`` bit for bit on the
+integers 1 .. 219,999, and ``poisson`` ``jax.random.poisson`` count for
+count. The GLM generators' bounds: bf16 X mismatches in at most 1e-5 of its
+elements, true beta within one float32 ulp, and y differing in at most 5
+rows, each one whose uniform lies within 1e-5 of its probability (the
+logits are summed in another order). The Poisson generator's theta, X and
+beta must be the same bits and every count the same.
 """
 
 import jax
@@ -17,7 +21,8 @@ import pytest
 import torch
 
 from mlx_mcmc_tpu.models import glm as ref_glm
-from mlx_mcmc_tpu_torch.models import glm, jax_random
+from mlx_mcmc_tpu.models import poisson as ref_poisson
+from mlx_mcmc_tpu_torch.models import glm, jax_random, make_poisson_event_rates
 
 SEEDS = [0, 1, 42, 123456789, 2**31 - 1]
 
@@ -127,3 +132,66 @@ def test_linear_dataset_is_the_reference_one(seed, data_dtype):
     _check_design(ref, got, data_dtype)
     # y = X beta + noise: the same noise; X beta summed in another order.
     np.testing.assert_allclose(got.y.numpy(), np.asarray(ref.y), rtol=0, atol=2e-5)
+
+
+def test_lgamma_bit_for_bit_on_the_integers():
+    # Every k + 1 the Poisson sampler's rejection branch can reach at rates
+    # up to its 1e5 placeholders.
+    x = np.arange(1, 220_000, dtype=np.float32)
+    ref = np.asarray(jax.lax.lgamma(jnp.asarray(x)))
+    got = jax_random.lgamma(x)
+    assert got.dtype == np.float32
+    assert np.array_equal(ref.view(np.uint32), got.view(np.uint32))
+
+
+def test_lgamma_refuses_the_reflection_branch():
+    with pytest.raises(ValueError, match="x >= 0.5"):
+        jax_random.lgamma(np.array([3.0, 0.25], np.float32))
+
+
+def _rates(seed):
+    rng = np.random.default_rng(seed)
+    return np.concatenate([
+        rng.uniform(0.0, 12.0, 3000),  # both branches around lam = 10
+        rng.exponential(40.0, 2000),
+        10.0 ** rng.uniform(-3.0, 4.5, 1000),
+        np.zeros(50),
+        [10.0, np.nextafter(np.float32(10.0), np.float32(0.0)), 1e5],
+    ]).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 5, 123456789])
+def test_poisson_count_for_count(seed):
+    lam = _rates(seed)
+    ref = np.asarray(jax.random.poisson(jax.random.PRNGKey(seed), jnp.asarray(lam)))
+    got = jax_random.poisson(jax_random.prng_key(seed), lam)
+    assert got.dtype == np.int32 and got.shape == lam.shape
+    assert np.array_equal(ref, got)
+    assert not got[lam == 0].any()
+
+
+@pytest.mark.parametrize("lam", [np.full((7, 11), 3.5, np.float32), np.full((3, 5), 250.0, np.float32)],
+                         ids=["knuth_only", "rejection_only"])
+def test_poisson_one_branch_arrays(lam):
+    ref = np.asarray(jax.random.poisson(jax.random.PRNGKey(9), jnp.asarray(lam)))
+    assert np.array_equal(ref, jax_random.poisson(jax_random.prng_key(9), lam))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_poisson1000_cov_dataset_is_the_reference_one(seed):
+    ref = ref_poisson.make_poisson_event_rates(1000, 100, 4, seed=seed)
+    got = make_poisson_event_rates(1000, 100, 4, seed=seed, device="cpu")
+    k_theta = jax.random.split(jax.random.PRNGKey(seed), 4)[0]
+    theta = np.asarray(1.0 + 0.5 * jax.random.normal(k_theta, (1000,)))
+    assert np.array_equal(theta.view(np.uint32), got.truth["theta"].numpy().view(np.uint32))
+    assert np.array_equal(np.asarray(ref.X).view(np.uint32), got.X.numpy().view(np.uint32))
+    assert np.array_equal(np.asarray(ref.truth["beta"]).view(np.uint32),
+                          got.truth["beta"].numpy().view(np.uint32))
+    assert np.array_equal(np.asarray(ref.y), got.y.numpy())  # all 100,000 counts
+
+
+def test_poisson_rates_dataset_is_the_reference_one():
+    ref = ref_poisson.make_poisson_event_rates(200, 30, seed=4)
+    got = make_poisson_event_rates(200, 30, seed=4, device="cpu")
+    assert got.X is None
+    assert np.array_equal(np.asarray(ref.y), got.y.numpy())

@@ -142,7 +142,8 @@ def test_full_data_model_matches_reference(jspec, tdata, covariates):
 def test_generator_and_argument_checks():
     spec = make_poisson_event_rates(7, 9, covariate_dim=3, seed=1, device="cpu")
     assert spec.y.shape == (7, 9) and spec.X.shape == (7, 9, 3)
-    assert set(spec.truth) == {"mu", "tau", "beta"} and spec.truth["beta"].shape == (3,)
+    assert set(spec.truth) == {"mu", "tau", "theta", "beta"} and spec.truth["beta"].shape == (3,)
+    assert spec.truth["theta"].shape == (7,)
     assert bool((spec.y >= 0).all()) and bool((spec.y == spec.y.round()).all())
     rates = make_poisson_event_rates(7, 9, seed=1, device="cpu")
     assert rates.X is None and "beta" not in rates.initial_params

@@ -117,7 +117,7 @@ _WIDEN_LOOP = "  for (int p = wt; p < kLines * kSteps; p += 32 * kWidenWarps) {\
 
 _ONEPASS_S = ("        wgmma_m64n64k16(s, sw128_desc(zs + b * kOZBox, 16) + 2 * kk,\n"
               "                        sw128_desc(st + b * kOXBox, 16) + 2 * kk);\n")
-_ONEPASS_G = "        wgmma_m64n128k16_rs(g, a[kk], sw128_desc(st, kOXBox) + 128 * kk);\n"
+_ONEPASS_G = "          wgmma_m64n128k16_rs(g, a[kk], sw128_desc(st, kOXBox) + 128 * kk);\n"
 
 
 def variants(target: str) -> dict:
