@@ -24,15 +24,20 @@ Phases, each fatal on failure (exit code 1, no result line):
    torch.matmul on (widened) bf16 X as a yardstick; bf16 also the design
    floor), with the seconds the glm1000 data took, and K2 there in bf16; K1
    wide and int8, K2 wide and K4 (hoisted) at ragged wide shapes; K1, K2
-   and K4 on f32 X (the FFMA kernels) at the glm100 shape
-   (timed) and at C=70, N=777, D=300; K4 at the glm100 shape, with its
+   and K4 on f32 X (the 3xTF32 TMA + wgmma pair, on the reference's X in
+   float32) at the glm100 shape (timed, with the two products as
+   torch.matmul in float32 as a yardstick) and at C=70, N=777, D=300, and
+   K1 there at glm1000's shape (timed); against ll and g computed in
+   float64 from the same X, y and Z, the f32 kernels' max errors (ll per
+   chain, g) must be at most twice the plain float32 version's (K1, K2, K4
+   at glm100, K1 at glm1000); K4 at the glm100 shape, with its
    rebuilt ll against K1's (the reference's rejected variant, measured); K3
    (Poisson) at C=512, G=1000, n=100, K=4 (with its profiler split) and
    C=300, G=37, n=61, K=3; Philox at the glm100 step shape (4096 chains,
    D=100, a 32-row uniform table). Bits: two calls give the same bits and
    chains 0-3 of a C=4 call equal those of the full call, for K1, K2 and K4
-   one-pass, K1 int8 one-pass and f32 at glm100 (C=4096), K1 wide and int8
-   wide at glm1000 (C=256) and K3 (C=512). The int8 kernels are held to
+   one-pass, K1 int8 one-pass and K1, K2 and K4 f32 at glm100 (C=4096), K1
+   wide and int8 wide at glm1000 (C=256) and K3 (C=512). The int8 kernels are held to
    the bf16 tolerances (int8 values widen to bf16 exactly), int8 wide at
    glm1000 to the wide g tolerance below.
 3b. The microbenchmark variants of K1's body (``ops/glm_variants.py``,
@@ -52,7 +57,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    statistics are printed beside the reference's (BENCH_r05.json).
 4a. The same on int8 X (``quantize="int8"``) through the int8 one-pass
    kernel, cut to 100 + 100: the same checks, the Laplace approximation
-   on the dequantized X.
+   on the dequantized X; and on f32 X (``x_dtype="float32"``, the
+   reference's X before its bf16 cast) through the 3xTF32 pair, cut to
+   100 + 100: the same checks, the Laplace approximation on that X.
 4b. ``glm1000_fused`` at full width through ``sample()`` and K1's wide path
    (1000 params, 100K obs, bf16 X, 256 chains, 400 + 400, depth 8, target
    0.8, f32 store): accept 0.8 +- 0.05, mean tree depth < 7, divergence
@@ -74,12 +81,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    generator's truth.
 8. Layout invariance: three NUTS steps at fixed tunables, driven by the
    engine's per-chain draws, through a small elementwise model (4 and 8
-   chains), glm100_fused's K1 vag on bf16 and on int8 X (4 and 4096
+   chains), glm100_fused's K1 vag on bf16, int8 and f32 X (4 and 4096
    chains) and poisson1000_cov's K3 vag (4 and 512 chains): chains 0-3
    must be bit-identical.
 9. The kernels JSON line (K1 one-pass, K1 wide, K1 int8 one-pass and wide,
-   K2, K3, K4, Philox, and K1, K2 and K4 on f32 X; K4, int8 wide and the
-   f32 rows, on no sampling path, with their phase-3 launches; the
+   K2, K3, K4, Philox, and K1, K2 and K4 on f32 X, K1 also at glm1000; K4,
+   int8 wide, K2 and K4 f32 and K1 f32 at glm1000, on no sampling path,
+   with their phase-3 launches; K1 f32 with the f32 cut run's; the
    variants with their launches from phase 3b's entry points), then the
    contract line
    ``{"ok": true, "device": {...}}`` last.
@@ -103,6 +111,7 @@ import torch
 # float32 outside the tensor cores, 32-bit integer issue (64 INT32 lanes
 # per SM against 128 FP32: half the float32 rate), HBM3.
 H100_BF16_FLOPS = 989e12
+H100_TF32_FLOPS = 495e12
 H100_F32_FLOPS = 67e12
 H100_INT32_OPS = 33.5e12
 H100_BYTES_PER_S = 3.35e12
@@ -132,9 +141,13 @@ WIDE_G_TOL_REL = 1e-4
 # alone moves ll by several ulps.
 LL_TOL_REL = 1e-6
 # f32 X: nothing is rounded, so single residuals no longer flip by a bf16 ulp
-# and g is held to 1e-4 of max|g| (+1e-4): FMA contraction and summation
-# order move it by a few f32 ulps of its terms. ll as above.
+# and g is held to 1e-4 of max|g| (+1e-4): summation order and the 3xTF32
+# split (~2^-22 of each product) move it by a few f32 ulps of its terms. ll
+# as above. Against float64 (ll and g from the same X, y and Z), the f32
+# kernels' max error may be at most F64_ERR_RATIO times the plain float32
+# version's: float32-class accuracy, which TF32 alone would miss by ~1000x.
 F32_G_TOL_REL, F32_G_TOL_ABS = 1e-4, 1e-4
+F64_ERR_RATIO = 2.0
 # K3 is float32 throughout: FMA contraction and summation order move single
 # rates by an ulp, so its gradients get 1e-4 of their max (+1e-3) and its
 # centered ll the same 0.05 nats (+1e-6 relative).
@@ -170,14 +183,17 @@ def log(msg: str) -> None:
 
 
 def roofline_ms(nbytes: float, tensor_flops: float = 0.0, f32_ops: float = 0.0,
-                transcendentals: float = 0.0, int32_ops: float = 0.0) -> tuple:
+                transcendentals: float = 0.0, int32_ops: float = 0.0,
+                tf32_flops: float = 0.0) -> tuple:
     """The least time for the work: the largest of the bytes over the HBM
-    rate, bf16 tensor-core operations over 989 TFLOP/s, float32 operations
-    over 67 TFLOP/s, transcendentals over the special-function units' rate
-    and 32-bit integer operations over their rate. Returns (ms, bound_by,
-    detail): ``bound_by`` is "bytes" or "operations", ``detail`` names the
-    unit that binds."""
+    rate, bf16 tensor-core operations over 989 TFLOP/s, TF32 tensor-core
+    operations over 495 TFLOP/s, float32 operations over 67 TFLOP/s,
+    transcendentals over the special-function units' rate and 32-bit
+    integer operations over their rate. Returns (ms, bound_by, detail):
+    ``bound_by`` is "bytes" or "operations", ``detail`` names the unit that
+    binds."""
     times = {"bytes": nbytes / H100_BYTES_PER_S, "tensor cores": tensor_flops / H100_BF16_FLOPS,
+             "tf32 tensor cores": tf32_flops / H100_TF32_FLOPS,
              "float32": f32_ops / H100_F32_FLOPS, "transcendentals": transcendentals / H100_MUFU_OPS,
              "int32": int32_ops / H100_INT32_OPS}
     detail = max(times, key=times.get)
@@ -188,15 +204,24 @@ def glm_bound_ms(n: int, d: int, c: int, epilogue_ops: int, transcendentals: int
                  x_bytes: int = 2) -> tuple:
     """Least time for one K1/K2/K4 call: bytes (X at ``x_bytes`` per value,
     y, Z in; ll, g out), the two products (4NDC on bf16 tensor cores for
-    bf16 and int8 X, in float32 outside them for f32 X), the epilogue's
-    float32 operations per (row, chain) (~12 logistic and hoisted, ~4
-    linear) and its transcendentals per (row, chain) (2 logistic and
-    hoisted: an exp and a log; 0 linear)."""
+    bf16 and int8 X; for f32 X three times that on the TF32 tensor cores,
+    the 3xTF32 design's own work), the epilogue's float32 operations per
+    (row, chain) (~12 logistic and hoisted, ~4 linear) and its
+    transcendentals per (row, chain) (2 logistic and hoisted: an exp and a
+    log; 0 linear)."""
     nbytes = n * d * x_bytes + n * 4 + c * d * 4 + c * 4 + c * d * 4
     products = 4.0 * n * d * c
-    return roofline_ms(nbytes, tensor_flops=0.0 if x_bytes == 4 else products,
-                       f32_ops=epilogue_ops * n * c + (products if x_bytes == 4 else 0.0),
+    f32 = x_bytes == 4
+    return roofline_ms(nbytes, tensor_flops=0.0 if f32 else products,
+                       tf32_flops=3 * products if f32 else 0.0, f32_ops=epilogue_ops * n * c,
                        transcendentals=transcendentals * n * c)
+
+
+def ffma_bound_ms(n: int, d: int, c: int, epilogue_ops: int) -> float:
+    """Least time of an f32 K1/K2/K4 call with both products on the CUDA
+    cores (float32 FMA, 67 TFLOP/s): the bound of the FFMA design the
+    3xTF32 pair replaced."""
+    return (4.0 * n * d * c + epilogue_ops * n * c) / H100_F32_FLOPS * 1e3
 
 
 def wide_design_floor_ms(n: int, d_pad: int, c: int) -> float:
@@ -284,22 +309,24 @@ def device_breakdown_ms(fn, parts) -> dict:
 
 
 def check_glm(family: str, name: str, Xp, y, Z, timed: bool, ll_rel: float = None,
-              g_rel: float = None) -> dict:
+              g_rel: float = None, float64: bool = False, XpT=None) -> dict:
     """K1 (logistic), K2 (linear) or K4 (hoisted: y unused; ll is its sum
     of softplus) against the plain version. For int8 ``Xp``, ``Z`` is the
-    scaled operand. ``ll_rel`` defaults to 0 for K1, LL_TOL_REL otherwise;
-    ``g_rel`` to F32_G_TOL_REL for f32 X, G_TOL_REL otherwise."""
+    scaled operand; f32 ``Xp`` comes with its ``XpT``. ``ll_rel`` defaults to 0 for K1, LL_TOL_REL otherwise;
+    ``g_rel`` to F32_G_TOL_REL for f32 X, G_TOL_REL otherwise. With
+    ``float64``, both are also held against ll and g in float64: the
+    kernel's max error at most F64_ERR_RATIO times the plain version's."""
     from mlx_mcmc_tpu_torch.ops import glm
 
     if family == "hoisted":
-        kernel = lambda: glm.fused_hoisted_vag_cuda(Xp, Z)  # noqa: E731
+        kernel = lambda: glm.fused_hoisted_vag_cuda(Xp, Z, XpT)  # noqa: E731
         plain = lambda: glm.fused_hoisted_vag_reference(Xp, Z)  # noqa: E731
     else:
         k, p = {
             "logistic": (glm.fused_logistic_vag_cuda, glm.fused_logistic_vag_reference),
             "linear": (glm.fused_linear_vag_cuda, glm.fused_linear_vag_reference),
         }[family]
-        kernel = lambda: k(Xp, y, Z)  # noqa: E731
+        kernel = lambda: k(Xp, y, Z, XpT)  # noqa: E731
         plain = lambda: p(Xp, y, Z)  # noqa: E731
     tag = {"logistic": "K1", "linear": "K2", "hoisted": "K4"}[family]
     ll_k, g_k = kernel()
@@ -328,9 +355,25 @@ def check_glm(family: str, name: str, Xp, y, Z, timed: bool, ll_rel: float = Non
         fail(f"{tag} {name}: grad error {err_g} > {g_rel} * {g_max} + {g_abs}")
     row = {"shape_c_n_d": [c, n, d], "x_dtype": dtype, "max_abs_err": max(err_ll, err_g),
            "max_abs_err_ll": err_ll, "max_abs_err_g": err_g}
+    if float64:
+        ll_d, g_d = glm.vag_float64(family, Xp, y, Z)
+        for what, got_k, got_p, ref in (("ll", ll_k, ll_p, ll_d), ("g", g_k, g_p, g_d)):
+            err_k = float((got_k.double() - ref).abs().max())
+            err_p = float((got_p.double() - ref).abs().max())
+            row[f"float64_err_{what}"] = {"kernel": err_k, "plain": err_p}
+            log(f"  vs float64: {what} kernel {err_k:.4e}, plain f32 {err_p:.4e} "
+                f"(ratio {err_k / err_p if err_p else float('inf'):.3f}; max|{what}| "
+                f"{float(ref.abs().max()):.4e})")
+            if err_k > F64_ERR_RATIO * err_p:
+                fail(f"{tag} {name}: {what} error against float64 {err_k} > {F64_ERR_RATIO} x the "
+                     f"plain float32 version's {err_p}")
+        del ll_d, g_d
     if timed:
         ops, trans = (4, 0) if family == "linear" else (12, 2)
         timed_row(row, kernel, plain, glm_bound_ms(n, d, c, ops, trans, Xp.element_size()))
+        if dtype == "f32":
+            row["ffma_bound_ms"] = ffma_bound_ms(n, d, c, ops)
+            log(f"  the FFMA design's bound (float32): {row['ffma_bound_ms']:.4f} ms")
     return row
 
 
@@ -350,31 +393,33 @@ def bits_check(label: str, call, Z, *rest) -> None:
     log(f"{label}: two calls bit-identical; chains 0-3 bit-identical at C=4 and C={Z.shape[0]}")
 
 
-def glm_bits_check(label: str, Xp, y, Z) -> None:
+def glm_bits_check(label: str, Xp, y, Z, XpT=None) -> None:
     from mlx_mcmc_tpu_torch.ops import glm
 
-    bits_check(label, lambda z: glm.fused_logistic_vag_cuda(Xp, y, z), Z)
+    bits_check(label, lambda z: glm.fused_logistic_vag_cuda(Xp, y, z, XpT), Z)
 
 
-def products_yardstick_ms(Xp, Z) -> float:
-    """The wide path's two products alone as torch.matmul on bf16 at the
-    kernels' shapes (X Zb^T with chains padded to 256, then R^T X): what the
-    library's GEMMs take for them. A yardstick only; the port never calls
-    it."""
+def products_yardstick_ms(Xp, Z, chain_tile: int = 256) -> float:
+    """A GLM call's two products alone as torch.matmul in X's type (bf16;
+    f32 with TF32 off, as the port sets it) at the kernels' shapes (X Z^T
+    with chains padded to ``chain_tile``, then R^T X): what the library's
+    GEMMs take for them. A yardstick only; the port never calls it."""
     from mlx_mcmc_tpu_torch.bench import device_ms
 
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the f32 yardstick would not be float32")
     n, d_pad = Xp.shape
-    c_pad = -(-Z.shape[0] // 256) * 256
-    zb = torch.zeros(c_pad, d_pad, dtype=torch.bfloat16, device=Xp.device)
+    c_pad = -(-Z.shape[0] // chain_tile) * chain_tile
+    zb = torch.zeros(c_pad, d_pad, dtype=Xp.dtype, device=Xp.device)
     zb[: Z.shape[0], : Z.shape[1]] = Z
-    rt = torch.randn(c_pad, n, device=Xp.device).bfloat16()
+    rt = torch.randn(c_pad, n, device=Xp.device).to(Xp.dtype)
 
     def products():
         torch.matmul(Xp, zb.T)
         torch.matmul(rt, Xp)
 
     t = device_ms(products)
-    log(f"  yardstick: the two products as torch.matmul (bf16) {t:.4f} ms")
+    log(f"  yardstick: the two products as torch.matmul ({Xp.dtype}) {t:.4f} ms")
     return t
 
 
@@ -568,11 +613,11 @@ def variants_phase() -> list:
     kernels = []
     for key, row in list(rows.items()) + [("floor_wide", wide[1024])]:
         name = "floor" if key == "floor_wide" else key
+        sums = ["sum_splits_kernel", "sum_splits_ll_kernel"]
         devs = {"mm1_pair": ["round_z_kernel", "glm_mm1_pair_kernel"],
-                "split2": ["round_z_kernel", "glm_split2_kernel", "sum_splits_kernel"],
-                "floor_wide": ["round_z_kernel", "glm_hopper_value_kernel", "glm_hopper_grad_kernel",
-                               "sum_splits_kernel"]}.get(key, ["round_z_kernel", "glm_onepass_kernel",
-                                                              "sum_splits_kernel"])
+                "split2": ["round_z_kernel", "glm_split2_kernel"] + sums,
+                "floor_wide": ["round_z_kernel", "glm_hopper_value_kernel", "glm_hopper_grad_kernel"]
+                + sums}.get(key, ["round_z_kernel", "glm_onepass_kernel"] + sums)
         extra = {k: v for k, v in row.items() if k not in ("ms", "plain_ms", "bound_ms", "bound_by")}
         extra.update(device_kernels=devs, sampling_path=False, also_replaces=VARIANT_REPLACES[name][1:])
         if key == "floor_wide":
@@ -853,28 +898,59 @@ def main() -> None:
         "hoisted", "int8 wide ragged", rq["Xp"], None, z_rw * rq["col_scale"], timed=False)
     k4_launches = fused_hoisted_vag_cuda.launches
 
-    # f32 X through the FFMA kernels (no sampling config uses it): K1, K2 and
-    # K4 at glm100's shape, timed, and at the ragged wide shape. Their
-    # launches are this block's.
+    # f32 X through the 3xTF32 pair, on the reference's X in float32 (the
+    # recipe's draws before their bf16 cast): K1, K2 and K4 at glm100's
+    # shape, timed, against float64 too, two calls and C = 4 to the same
+    # bits; then at the ragged wide shape; then K1 at glm1000's shape, the
+    # same way. Their launches are this block's (K1 at glm100 takes the f32
+    # cut run's below).
     counters = (fused_logistic_vag_cuda, fused_linear_vag_cuda, fused_hoisted_vag_cuda)
     before = [k.launches for k in counters]
-    x_f32 = data["Xp"].float()
-    rows["K1_f32"] = check_glm("logistic", "f32 main", x_f32, data["yp"], z_main, timed=True)
-    rows["K2_f32"] = check_glm("linear", "f32 main", lin_data["Xp"].float(), lin_data["yp"], z_main,
-                               timed=True)
-    rows["K4_f32"] = check_glm("hoisted", "f32 main", x_f32, None, z_main, timed=True)
-    glm_bits_check("K1 f32", x_f32, data["yp"], z_main)
-    del x_f32
+    t0 = time.perf_counter()
+    f32_problem = build_problem(dict(cfg, x_dtype="float32"))
+    log_f32 = f32_problem[2]
+    lin_f32 = build_problem(dict(lin_cfg, x_dtype="float32"))[2]
+    log(f"glm100_fused and linear data with f32 X: {time.perf_counter() - t0:.2f} s")
+    f32_calls = {
+        "K1_f32": ("logistic", lambda z: fused_logistic_vag_cuda(log_f32["Xp"], log_f32["yp"], z,
+                                                                 log_f32["XpT"])),
+        "K2_f32": ("linear", lambda z: fused_linear_vag_cuda(lin_f32["Xp"], lin_f32["yp"], z,
+                                                             lin_f32["XpT"])),
+        "K4_f32": ("hoisted", lambda z: fused_hoisted_vag_cuda(log_f32["Xp"], z, log_f32["XpT"])),
+    }
+    f32_parts = ("pad_z", "glm_tf32_value", "glm_tf32_grad", "sum_splits")
+    for key, (family, call) in f32_calls.items():
+        dat = lin_f32 if family == "linear" else log_f32
+        rows[key] = check_glm(family, "f32 main", dat["Xp"], None if family == "hoisted" else dat["yp"],
+                              z_main, timed=True, float64=True, XpT=dat["XpT"])
+        rows[key]["products_library_ms"] = products_yardstick_ms(dat["Xp"], z_main, chain_tile=128)
+        rows[key]["device_breakdown_ms"] = device_breakdown_ms(lambda: call(z_main), f32_parts)
+        bits_check(f"{key[:2]} f32", call, z_main)
     rwf = prepare_fused_logistic_data(x_w.float(), y_w)
+    lwf = prepare_fused_linear_data(x_w.float(), y_wl)
     variants["K1_f32"]["f32_wide_ragged"] = check_glm(
-        "logistic", "f32 wide ragged", rwf["Xp"], y_w, z_rw, timed=False)
+        "logistic", "f32 wide ragged", rwf["Xp"], y_w, z_rw, timed=False, XpT=rwf["XpT"])
     variants["K2_f32"]["f32_wide_ragged"] = check_glm(
-        "linear", "f32 wide ragged", prepare_fused_linear_data(x_w.float(), y_wl)["Xp"], y_wl, z_rw,
-        timed=False)
+        "linear", "f32 wide ragged", lwf["Xp"], y_wl, z_rw, timed=False, XpT=lwf["XpT"])
     variants["K4_f32"]["f32_wide_ragged"] = check_glm(
-        "hoisted", "f32 wide ragged", rwf["Xp"], None, z_rw, timed=False)
+        "hoisted", "f32 wide ragged", rwf["Xp"], None, z_rw, timed=False, XpT=rwf["XpT"])
     f32_launches = {key: k.launches - b
                     for key, k, b in zip(("K1_f32", "K2_f32", "K4_f32"), counters, before)}
+    t0 = time.perf_counter()
+    wf_data = build_problem(dict(wcfg, x_dtype="float32"))[2]
+    log(f"glm1000_fused data with f32 X: {time.perf_counter() - t0:.2f} s")
+    before = fused_logistic_vag_cuda.launches
+    rows["K1_f32_wide"] = check_glm("logistic", "f32 glm1000", wf_data["Xp"], wf_data["yp"], z_w,
+                                    timed=True, ll_rel=LL_TOL_REL, float64=True,
+                                    XpT=wf_data["XpT"])
+    rows["K1_f32_wide"]["products_library_ms"] = products_yardstick_ms(wf_data["Xp"], z_w,
+                                                                       chain_tile=128)
+    rows["K1_f32_wide"]["device_breakdown_ms"] = device_breakdown_ms(
+        lambda: fused_logistic_vag_cuda(wf_data["Xp"], wf_data["yp"], z_w, wf_data["XpT"]),
+        f32_parts)
+    glm_bits_check("K1 f32 glm1000", wf_data["Xp"], wf_data["yp"], z_w, wf_data["XpT"])
+    f32_launches["K1_f32_wide"] = fused_logistic_vag_cuda.launches - before
+    del wf_data
 
     p_problem = build_problem(pcfg)
     p_data = p_problem[2]
@@ -947,6 +1023,23 @@ def main() -> None:
     if z_gap > 0.25 or not (0.9 <= sd_lo and sd_hi <= 1.1):
         fail("glm100_fused int8: posterior moments disagree with the Laplace approximation")
     del iresult, beta
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # --- glm100_fused on f32 X, cut: the 3xTF32 pair -----------------------
+    f32_cfg = dict(cfg, x_dtype="float32", num_warmup=100, num_samples=100)
+    f32_metrics, f32_result = drive("glm100_fused f32 (100 + 100)", f32_cfg, f32_problem)
+    launches["K1_f32"] = f32_metrics["launches"]["glm_fused_logistic"]
+    beta = f32_result.samples["beta"]
+    want = (f32_cfg["num_chains"], f32_cfg["num_samples"], f32_cfg["num_features"])
+    if tuple(beta.shape) != want or not bool(torch.isfinite(beta).all()):
+        fail(f"glm100_fused f32: draws of shape {tuple(beta.shape)} or non-finite, want {want}")
+    check_sampler("glm100_fused f32", f32_metrics, 0.8, 5, ["glm_fused_logistic", "philox_step_draws"])
+    z_gap, sd_lo, sd_hi = laplace_check(f32_problem[2], beta)
+    log(f"glm100_fused f32 vs Laplace on the same f32 X: max |mean - MAP| / sd = {z_gap:.4f}, "
+        f"sd ratio in [{sd_lo:.4f}, {sd_hi:.4f}]")
+    if z_gap > 0.25 or not (0.9 <= sd_lo and sd_hi <= 1.1):
+        fail("glm100_fused f32: posterior moments disagree with the Laplace approximation")
+    del f32_result, beta
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- glm1000_fused: the wide path --------------------------------------
@@ -1027,6 +1120,8 @@ def main() -> None:
                       (4, cfg["num_chains"]), 0.02, cfg["max_tree_depth"], init_scale=0.1)
     layout_invariance("glm100_fused int8 through K1", lambda Z: k1_vag(Z, i_problem[2]), d,
                       (4, cfg["num_chains"]), 0.02, cfg["max_tree_depth"], init_scale=0.1)
+    layout_invariance("glm100_fused f32 through K1", lambda Z: k1_vag(Z, f32_problem[2]), d,
+                      (4, cfg["num_chains"]), 0.02, cfg["max_tree_depth"], init_scale=0.1)
     layout_invariance("poisson1000_cov through K3", lambda Z: k3_vag(Z, p_data),
                       pcfg["covariate_dim"] + 2 + pcfg["num_groups"], (4, c_p), 0.002,
                       pcfg["max_tree_depth"], init_scale=0.1)
@@ -1036,31 +1131,31 @@ def main() -> None:
                   "mlx_mcmc_tpu/ops/pallas/glm.py:113")
     # (name, source, replaces, device kernels); a path of the GLM entries
     # that runs other device kernels has its own row.
+    sums = ["sum_splits_kernel", "sum_splits_ll_kernel"]
+    onepass = ["round_z_kernel", "glm_onepass_kernel"] + sums
+    f32_kernels = ["pad_z_kernel", "glm_tf32_value_kernel", "glm_tf32_grad_kernel"] + sums
     sources = {
-        "K1": ("glm_fused_logistic", glm_src, k1, ["round_z_kernel", "glm_onepass_kernel", "sum_splits_kernel"]),
+        "K1": ("glm_fused_logistic", glm_src, k1, onepass),
         "K1_wide": ("glm_fused_logistic:wide_bf16", glm_src, k1,
                     ["glm_hopper_value_kernel", "glm_hopper_grad_kernel"]),
-        "K1_int8": ("glm_fused_logistic:int8", glm_src, k1,
-                    ["round_z_kernel", "glm_onepass_kernel", "sum_splits_kernel"]),
+        "K1_int8": ("glm_fused_logistic:int8", glm_src, k1, onepass),
         "K1_int8_wide": ("glm_fused_logistic:wide_int8", glm_src, k1,
                          ["glm_hopper_value_kernel", "glm_hopper_grad_kernel"]),
-        "K1_f32": ("glm_fused_logistic:f32", glm_src, k1,
-                   ["glm_f32_value_kernel", "glm_f32_grad_kernel"]),
-        "K2": ("glm_fused_linear", glm_src, k2, ["round_z_kernel", "glm_onepass_kernel", "sum_splits_kernel"]),
-        "K2_f32": ("glm_fused_linear:f32", glm_src, k2,
-                   ["glm_f32_value_kernel", "glm_f32_grad_kernel"]),
+        "K1_f32": ("glm_fused_logistic:f32", glm_src, k1, f32_kernels),
+        "K1_f32_wide": ("glm_fused_logistic:f32_glm1000", glm_src, k1, f32_kernels),
+        "K2": ("glm_fused_linear", glm_src, k2, onepass),
+        "K2_f32": ("glm_fused_linear:f32", glm_src, k2, f32_kernels),
         "K3": ("poisson_fused", "mlx_mcmc_tpu_torch/csrc/poisson_fused.cu",
                "mlx_mcmc_tpu/ops/pallas/poisson.py:62",
                ["poisson_fused_kernel", "sum_splits_warp_kernel"]),
-        "K4": ("glm_fused_hoisted", glm_src, k4, ["round_z_kernel", "glm_onepass_kernel", "sum_splits_kernel"]),
-        "K4_f32": ("glm_fused_hoisted:f32", glm_src, k4,
-                   ["glm_f32_value_kernel", "glm_f32_grad_kernel"]),
+        "K4": ("glm_fused_hoisted", glm_src, k4, onepass),
+        "K4_f32": ("glm_fused_hoisted:f32", glm_src, k4, f32_kernels),
         "philox": ("philox_step_draws", "mlx_mcmc_tpu_torch/csrc/philox.cu",
                    "mlx_mcmc_tpu/inference/engine.py:390", ["philox_step_kernel"]),
     }
     launches["K4"] = k4_launches
     launches["K1_int8_wide"] = int8_wide_launches
-    launches.update(f32_launches)
+    launches.update({k: v for k, v in f32_launches.items() if k != "K1_f32"})
     kernels = []
     for key, (name, source, replaces, device_kernels) in sources.items():
         row = rows[key]
@@ -1068,8 +1163,10 @@ def main() -> None:
         extra["device_kernels"] = device_kernels
         if variants.get(key):
             extra["variants"] = variants[key]
-        if key in ("K4", "K1_int8_wide") or key.endswith("_f32"):
+        if key in ("K4", "K1_int8_wide", "K2_f32", "K4_f32", "K1_f32_wide"):
             extra["sampling_path"] = False
+        if key == "K1_f32":
+            extra["phase3_launches"] = f32_launches["K1_f32"]
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[key], "max_abs_err": row["max_abs_err"],

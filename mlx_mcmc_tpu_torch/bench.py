@@ -19,15 +19,17 @@ reference's own dataset: ``models/glm.py`` and ``models/poisson.py`` draw
 them from the reference's threefry streams (``models/jax_random.py``), key
 for key, the Poisson counts through ``jax.random.poisson``'s own algorithm.
 ``build_problem`` also knows the Gaussian linear regression
-(``family="linear"``) that ``chip_smoke.py`` drives through K2, and a GLM
+(``family="linear"``) that ``chip_smoke.py`` drives through K2; a GLM
 config with ``quantize="int8"`` stores X as the reference's int8 with
-per-column scales; the reference's bench has neither config, so neither
-has this one.
+per-column scales, and one with ``x_dtype="float32"`` keeps the
+reference's X in float32 (the recipe's draws before the bf16 cast); the
+reference's bench has none of these configs, so neither has this one.
 """
 
 from __future__ import annotations
 
 import importlib
+import inspect
 import json
 import statistics
 import subprocess
@@ -126,10 +128,11 @@ CONFIGS = {
 
 def build_problem(cfg):
     """Return ``(log_prob_fn, initial_params, data, extra_kwargs)``."""
+    x_dtype = torch.float32 if cfg.get("x_dtype") == "float32" else torch.bfloat16
     if cfg["family"] == "glm":
         spec = make_logistic_regression(
             num_features=cfg["num_features"], num_obs=cfg["num_obs"], seed=0,
-            data_dtype=torch.bfloat16,
+            data_dtype=x_dtype,
         )
         data = prepare_fused_logistic_data(spec.X, spec.y, quantize=cfg.get("quantize"))
         extra = {"value_and_grad_fn": make_fused_logistic_vag(prior_scale=1.0)}
@@ -137,7 +140,7 @@ def build_problem(cfg):
     if cfg["family"] == "linear":
         spec = make_linear_regression(
             num_features=cfg["num_features"], num_obs=cfg["num_obs"], seed=0,
-            data_dtype=torch.bfloat16,
+            data_dtype=x_dtype,
         )
         data = prepare_fused_linear_data(spec.X, spec.y)
         extra = {"value_and_grad_fn": make_fused_linear_vag(prior_scale=1.0)}
@@ -327,14 +330,19 @@ def _bench_from(root: str):
 
 # The kernels each config's main path runs, timed by ``paired_times`` at the
 # config's shape: (label, wrapper name in this module, family of the data;
-# "glm_int8" is the GLM data stored as int8, the scales folded into Z).
+# "glm_int8" is the GLM data stored as int8, the scales folded into Z;
+# "glm_f32" and "linear_f32" the data with X in float32).
 PAIRED_KERNELS = {
     "glm100_fused": [("K1", "fused_logistic_vag_cuda", "glm"),
                      ("K2", "fused_linear_vag_cuda", "linear"),
                      ("K4", "fused_hoisted_vag_cuda", "glm"),
-                     ("K1_int8", "fused_logistic_vag_cuda", "glm_int8")],
+                     ("K1_int8", "fused_logistic_vag_cuda", "glm_int8"),
+                     ("K1_f32", "fused_logistic_vag_cuda", "glm_f32"),
+                     ("K2_f32", "fused_linear_vag_cuda", "linear_f32"),
+                     ("K4_f32", "fused_hoisted_vag_cuda", "glm_f32")],
     "glm1000_fused": [("K1", "fused_logistic_vag_cuda", "glm"),
-                      ("K1_int8", "fused_logistic_vag_cuda", "glm_int8")],
+                      ("K1_int8", "fused_logistic_vag_cuda", "glm_int8"),
+                      ("K1_f32", "fused_logistic_vag_cuda", "glm_f32")],
     "poisson1000_cov": [("K3", "fused_poisson_vag_cuda", "poisson")],
 }
 
@@ -345,9 +353,10 @@ def _kernel_call(pkg, wrapper: str, cfg: dict, family: str):
     and chain positions drawn from a fixed seed: unit scale for glm100 (|s|
     ~ 1, as its posterior gives), 0.05 for glm1000, near the generator's
     scale for the Poisson model."""
-    int8 = family == "glm_int8"
-    data = build_problem(dict(cfg, family="glm" if int8 else family,
-                              quantize="int8" if int8 else None))[2]
+    base, _, form = family.partition("_")
+    int8 = form == "int8"
+    data = build_problem(dict(cfg, family=base, quantize="int8" if int8 else None,
+                              x_dtype="float32" if form == "f32" else None))[2]
     gen = torch.Generator(device="cuda").manual_seed(1)
     fn = getattr(pkg, wrapper)
     if family == "poisson":
@@ -360,9 +369,12 @@ def _kernel_call(pkg, wrapper: str, cfg: dict, family: str):
     Z = scale * torch.randn(cfg["num_chains"], data["dim"], generator=gen, device="cuda")
     if int8:
         Z = Z * data["col_scale"]
+    # f32 X's transpose travels with the data; a checkout whose wrappers
+    # take no XpT (from before it did) makes its own.
+    xt = {"XpT": data["XpT"]} if "XpT" in data and "XpT" in inspect.signature(fn).parameters else {}
     if wrapper == "fused_hoisted_vag_cuda":
-        return lambda: fn(data["Xp"], Z)
-    return lambda: fn(data["Xp"], data["yp"], Z)
+        return lambda: fn(data["Xp"], Z, **xt)
+    return lambda: fn(data["Xp"], data["yp"], Z, **xt)
 
 
 def paired_times(names, against: str | None = None, runs: bool = True, emit=None) -> dict:

@@ -17,6 +17,7 @@ from mlx_mcmc_tpu_torch._device import resolve_device
 from mlx_mcmc_tpu_torch.kernels.adaptation import AdaptationState, DualAveragingState
 from mlx_mcmc_tpu_torch.kernels.base import Tunables
 from mlx_mcmc_tpu_torch.kernels.hmc import HMCState
+from mlx_mcmc_tpu_torch.ops.glm import transpose_f32
 from mlx_mcmc_tpu_torch.ops.math import WelfordState
 
 # The reference's ROWS_PER_GROUP (mlx_mcmc_tpu/ops/pallas/poisson.py): each
@@ -50,6 +51,8 @@ def fused_logistic_data_from_jax(np_dict: Mapping[str, Any], device=None) -> dic
     }
     if "col_scale" in np_dict:
         data["col_scale"] = to_tensor(np_dict["col_scale"], dev).float().contiguous()
+    if Xp.dtype == torch.float32:
+        data["XpT"] = transpose_f32(Xp)
     return data
 
 
@@ -61,13 +64,17 @@ def fused_linear_data_from_jax(np_dict: Mapping[str, Any], device=None) -> dict:
     over as floats; the ``tile`` marker has no counterpart.
     """
     dev = resolve_device(device)
-    return {
-        "Xp": to_tensor(np_dict["Xp"], dev).contiguous(),
+    Xp = to_tensor(np_dict["Xp"], dev).contiguous()
+    data = {
+        "Xp": Xp,
         "yp": to_tensor(np_dict["yp"], dev).float().reshape(-1).contiguous(),
         "ll_norm": float(np.asarray(np_dict["ll_norm"])),
         "inv_noise_var": float(np.asarray(np_dict["inv_noise_var"])),
         "dim": int(np.asarray(np_dict["dim"]).shape[0]),
     }
+    if Xp.dtype == torch.float32:
+        data["XpT"] = transpose_f32(Xp)
+    return data
 
 
 def fused_poisson_data_from_jax(np_dict: Mapping[str, Any], device=None) -> dict:

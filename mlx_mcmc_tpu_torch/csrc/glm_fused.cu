@@ -90,14 +90,36 @@
 // int8 X takes the same two kernels with the widening stage (the value
 // kernel then keeps three ring stages instead of four, for shared memory).
 //
-// f32 X (any Dp): two simple kernels in exact f32 on the CUDA cores, no
-// tensor cores (TF32 is off on every value path, and a bf16 split would not
-// give f32 accuracy): glm_f32_value_kernel (s through shared-memory tiles
-// and 4x4 FFMA micro-tiles per thread, the epilogue, ll partials and the f32
-// residual R^T) and glm_f32_grad_kernel (g^T = R^T X the same way). Bound at
-// glm100's shape: 4 N D C flop / 67 TFLOP/s = 0.24 ms.
+// f32 X (any Dp), the reference's f32 input (x_ref "f32, bf16, or int8",
+// glm.py:87): the same two products at float32-class accuracy, which TF32
+// is not (TF32 stays off on every value path) and a bf16 split is not
+// either. The CUDA cores' float32 rate bounds an FFMA design at 4 N D C /
+// 67 TFLOP/s = 0.24 ms at glm100's shape; the tensor cores beat that only
+// through a split, 3xTF32: x = x_hi + x_lo with x_hi = tf32(x) (rounded to
+// nearest, low 13 bits zero) and x_lo = tf32(x - x_hi), and a b ~ a_hi b_hi
+// + a_hi b_lo + a_lo b_hi, ~22 bits of each product, every product exact
+// in the tensor core. Six TF32 passes: 12 N D C flop / 495 TFLOP/s = 0.10
+// ms at glm100, 0.62 ms at glm1000. Two kernels with the wide path's
+// structure (TMA producer, a 4-deep ring, two consumer warpgroups) on
+// persistent grids, both D = A B^T with A split by the consumers into
+// registers (register-A wgmma) and B split in shared memory by three warps
+// of the producer warpgroup, as int8's widening stage does; every operand
+// arrives raw, at its own 4 bytes (split copies would double the bytes, and
+// at glm1000 they would outweigh the tensor work):
+//   A) glm_tf32_value_kernel: S^T = Z X^T (M = 128 chains a block, N = 128
+//      rows, K = Dp in 32-float stages; A = Z padded once per call by
+//      pad_z_kernel, B = X), the MUFU epilogue, ll partials and the f32
+//      residual R^T by TMA store.
+//   B) glm_tf32_grad_kernel: G^T = R^T X (N = 128 columns of g, K = rows in
+//      32-row stages; A = R^T). A tf32 wgmma takes B K-major only (no
+//      transpose bit), so B is X^T, made once with the data (XpT).
+// The tensor core truncates as it accumulates, so each ring stage's twelve
+// product groups go into a fresh accumulator that is then added to a
+// register total in round-to-nearest f32 (tf32x3_stage). The f32 residual
+// R^T makes one round trip through device memory (165 MB at glm100).
 //
-// Every path reduces per-split partial sums with a small kernel in a fixed
+// Every path reduces its per-split partial sums the same way (sum_outputs:
+// ll by sum_splits_ll_kernel in double, g by sum_splits_kernel), in a fixed
 // order: no float atomics, so results are reproducible run to run.
 
 #include <cuda.h>  // CUtensorMap; the encoder comes from the driver at run time
@@ -206,145 +228,6 @@ __global__ void round_z_kernel(const float* __restrict__ Z, __nv_bfloat16* __res
   if (i >= (size_t)Cp * Dp) return;
   const int c = static_cast<int>(i / Dp), d = static_cast<int>(i - (size_t)c * Dp);
   Zb[i] = __float2bfloat16_rn((c < C && d < D) ? Z[(size_t)c * D + d] : 0.f);
-}
-
-// ---- f32 X: exact f32 on the CUDA cores ------------------------------------
-
-constexpr int kFT = 64;         // rows (value) or columns of g (gradient), and chains, per block tile
-constexpr int kFK = 16;         // depth of one staged chunk
-constexpr int kFLd = kFT + 4;   // row stride of the staged chunks: float4-aligned, at most
-                                // 2-way bank conflicts on the transposing stores
-constexpr int kFThreads = 256;  // 16 x 16 threads, a 4 x 4 micro-tile each
-
-// f32 value kernel: s = X Z^T for 64 chains and one row range walked in
-// 64-row tiles, the epilogue, per-split ll partials and the f32 residual
-// Rt[chain][row] (row stride ldr, a multiple of 64). Thread (tr, tc) owns
-// rows 4 tr + i and chains 4 tc + j of a tile.
-template <class Epilogue>
-__global__ void __launch_bounds__(kFThreads)
-glm_f32_value_kernel(const float* __restrict__ X, const float* __restrict__ y,
-                     const float* __restrict__ Z, float* __restrict__ ll_part,
-                     float* __restrict__ Rt, int N, int Dp, int D, int C, int ldr,
-                     int rows_per_split) {
-  __shared__ __align__(16) float Xs[kFK * kFLd];  // [k][row]
-  __shared__ __align__(16) float Zs[kFK * kFLd];  // [k][chain]
-  __shared__ float red[16 * kFT];                 // [tr][chain]
-  const int tid = threadIdx.x, tr = tid & 15, tc = tid >> 4;
-  const int c0 = blockIdx.x * kFT, split = blockIdx.y;
-  const int row_begin = split * rows_per_split;
-  const int row_end = min(N, row_begin + rows_per_split);
-
-  float ll_acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int r0 = row_begin; r0 < row_end; r0 += kFT) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    for (int k0 = 0; k0 < Dp; k0 += kFK) {
-      // 64 rows of X and 64 chains of Z, 16 deep; consecutive threads read
-      // consecutive k of one row.
-#pragma unroll
-      for (int p = tid; p < kFT * kFK; p += kFThreads) {
-        const int r = p / kFK, k = p % kFK, row = r0 + r, c = c0 + r;
-        Xs[k * kFLd + r] = row < row_end ? X[(size_t)row * Dp + k0 + k] : 0.f;
-        Zs[k * kFLd + r] = (c < C && k0 + k < D) ? Z[(size_t)c * D + k0 + k] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kFK; ++k) {
-        const float4 a = *reinterpret_cast<const float4*>(Xs + k * kFLd + 4 * tr);
-        const float4 b = *reinterpret_cast<const float4*>(Zs + k * kFLd + 4 * tc);
-        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-    // Epilogue: ll in registers, the residual to Rt, four rows per 16-byte
-    // store.
-    float yv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + 4 * tr + i;
-      yv[i] = (Epilogue::kUsesY && row < row_end) ? y[row] : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float r4[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float term, res;
-        Epilogue::apply(yv[i], acc[i][j], term, res);
-        if (r0 + 4 * tr + i >= row_end) term = res = 0.f;
-        ll_acc[j] += term;
-        r4[i] = res;
-      }
-      *reinterpret_cast<float4*>(Rt + (size_t)(c0 + 4 * tc + j) * ldr + r0 + 4 * tr) =
-          make_float4(r4[0], r4[1], r4[2], r4[3]);
-    }
-  }
-
-  // ll: the 16 row groups of the block, in a fixed order.
-#pragma unroll
-  for (int j = 0; j < 4; ++j) red[tr * kFT + 4 * tc + j] = ll_acc[j];
-  __syncthreads();
-  if (tid < kFT && c0 + tid < C) {
-    float v = red[tid];
-    for (int t = 1; t < 16; ++t) v += red[t * kFT + tid];
-    ll_part[(size_t)split * C + c0 + tid] = v;
-  }
-}
-
-// f32 gradient kernel: g^T = R^T X for 64 chains and 64 columns of g over one
-// row split, in 16-row chunks. Thread (td, tc) owns chains 4 tc + i and
-// columns 4 td + j.
-__global__ void __launch_bounds__(kFThreads)
-glm_f32_grad_kernel(const float* __restrict__ X, const float* __restrict__ Rt,
-                    float* __restrict__ g_part, int N, int Dp, int D, int C, int ldr,
-                    int rows_per_split) {
-  __shared__ __align__(16) float Rs[kFK * kFLd];  // [row][chain]
-  __shared__ __align__(16) float Xs[kFK * kFLd];  // [row][d]
-  const int tid = threadIdx.x, td = tid & 15, tc = tid >> 4;
-  const int c0 = blockIdx.x * kFT, d0 = blockIdx.y * kFT, split = blockIdx.z;
-  const int row_begin = split * rows_per_split;
-  const int row_end = min(N, row_begin + rows_per_split);
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  for (int r0 = row_begin; r0 < row_end; r0 += kFK) {
-#pragma unroll
-    for (int p = tid; p < kFT * kFK; p += kFThreads) {
-      // R^T: consecutive threads read consecutive rows of one chain; X:
-      // consecutive columns of one row.
-      const int cl = p / kFK, kr = p % kFK, kx = p / kFT, dl = p % kFT;
-      Rs[kr * kFLd + cl] = r0 + kr < row_end ? Rt[(size_t)(c0 + cl) * ldr + r0 + kr] : 0.f;
-      Xs[kx * kFLd + dl] =
-          (r0 + kx < row_end && d0 + dl < Dp) ? X[(size_t)(r0 + kx) * Dp + d0 + dl] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kFK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(Rs + k * kFLd + 4 * tc);
-      const float4 b = *reinterpret_cast<const float4*>(Xs + k * kFLd + 4 * td);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + 4 * tc + i, d = d0 + 4 * td + j;
-      if (c < C && d < D) g_part[((size_t)split * C + c) * D + d] = acc[i][j];
-    }
-  }
 }
 
 // ---- Hopper wide path for bf16 and int8 X: TMA rings and wgmma -------------
@@ -1104,7 +987,399 @@ glm_onepass_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-// out[i] = sum over splits of part[s][i], always in split order.
+// ---- f32 X on Hopper: the 3xTF32 pair on TMA rings ---------------------------
+
+constexpr int kTRows = 128;    // value kernel: rows per tile, the wgmma N
+constexpr int kTChains = 128;  // chains per block: one m64 slice per consumer warpgroup
+constexpr int kTCols = 128;    // gradient kernel: columns of g per block, the wgmma N
+constexpr int kTK = 32;        // depth of a ring stage: 32 floats, one 128-byte swizzle line
+constexpr int kTStages = 4;
+constexpr int kSplitWarps = 3;  // warps 1-3 of the producer warpgroup split the B boxes
+constexpr uint32_t kTBox = 128 * kTK * 4;     // one operand box: 128 lines of 128 bytes, 16 KB
+constexpr uint32_t kTStageBytes = 3 * kTBox;  // A raw, B hi (raw as loaded), B lo
+constexpr uint32_t kTStgBytes = 64 * kTK * 4;  // one R^T store box: 64 chains x 32 rows, 8 KB
+// The value kernel's ring, then two store boxes per consumer warpgroup, then
+// the full, empty and raw barriers; the gradient kernel's ring, then its
+// barriers.
+constexpr uint32_t kTValueBarOff = kTStages * kTStageBytes + 2 * 2 * kTStgBytes;
+constexpr uint32_t kTValueSmem = kTValueBarOff + 3 * kTStages * 8 + 1024;
+constexpr uint32_t kTGradBarOff = kTStages * kTStageBytes;
+constexpr uint32_t kTGradSmem = kTGradBarOff + 3 * kTStages * 8 + 1024;
+static_assert(kTValueSmem <= kMaxSmem && kTGradSmem <= kMaxSmem, "3xTF32 kernels smem");
+
+// x rounded to nearest with 11 significant bits (a tf32 value: its low 13
+// bits are zero), by Veltkamp's split in round-to-nearest float32: c = x
+// (2^13 + 1), hi = c - (c - x). Three float32 operations at the full FP32
+// rate, where cvt.rna.tf32.f32 issues at the conversion rate (16 a clock
+// per SM) and bounded the splitting warps (measured on the H100). The
+// intrinsics keep the compiler from contracting them into an FMA. |x| <
+// 4e34 (no overflow of c).
+__device__ __forceinline__ float tf32_round(float x) {
+  const float c = __fmul_rn(x, 8193.f);
+  return __fsub_rn(c, __fsub_rn(c, x));
+}
+
+// x = hi + lo to ~2^-22 of x: hi = tf32_round(x), lo = tf32_round(x - hi)
+// (x - hi is exact).
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(__fsub_rn(x, hi));
+}
+
+// Splits a stage's raw B box (as TMA wrote it, 128-byte swizzled) into
+// B_hi, in place, and B_lo in the next box, element by element, so both
+// keep the swizzled layout the descriptors read; then fences the stores for
+// the async proxy (wgmma reads them there) and, lane 0 of each warp, arrives
+// on ``full``. ``wt`` is the thread's index among the 32 x kSplitWarps
+// splitting threads.
+__device__ __forceinline__ void split_b_box(unsigned char* hi, int wt, uint64_t* full) {
+  unsigned char* lo = hi + kTBox;
+#pragma unroll 2
+  for (int p = wt; p < (int)(kTBox / 16); p += 32 * kSplitWarps) {
+    float4 v = *reinterpret_cast<const float4*>(hi + 16 * p), l;
+    split_tf32(v.x, v.x, l.x);
+    split_tf32(v.y, v.y, l.y);
+    split_tf32(v.z, v.z, l.z);
+    split_tf32(v.w, v.w, l.w);
+    *reinterpret_cast<float4*>(hi + 16 * p) = v;
+    *reinterpret_cast<float4*>(lo + 16 * p) = l;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(full);
+}
+
+// D (64 x 128, f32) = (scale_d ? D : 0) + A (64 x 8) B with A from
+// registers (tf32, the m16n8k8 A layout of each warp's 16 rows: a[0] row
+// lane / 4, column lane % 4; a[1] row + 8; a[2] column + 4; a[3] both) and
+// B (128 x 8) K-major tf32 in shared memory: a tf32 wgmma has no transpose
+// bit. The accumulator layout of wgmma_m64n128k16.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : WG_F32(d, 0), WG_F32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// tot += A B^T over one ring stage (K = 32) for the warpgroup's 64 lines of
+// A, in 3xTF32. A (the raw f32 box, 128-byte swizzled, as TMA wrote it) is
+// loaded in the A fragment layout and split into hi and lo in registers
+// (register-A wgmma; measured faster than splitting it in shared memory);
+// B_hi and B_lo are the split warps'. acc = A_hi B_lo + A_lo B_hi + A_hi
+// B_hi over the stage's four k8 slices into a fresh accumulator, the small
+// products first, then tot += acc in round-to-nearest f32. The tensor core
+// truncates as it accumulates, so a sum kept there across the whole depth
+// would drift towards zero by ~1 ulp of itself per product group; here only
+// the four large groups of one stage truncate, at the size of that stage's
+// partial sum, whose sign hardly follows the total's.
+__device__ __forceinline__ void tf32x3_stage(float (&acc)[64], float (&tot)[64],
+                                             const unsigned char* st, int wg) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int line = wg * 64 + warp * 16 + (lane >> 2);  // and line + 8; line % 8 = lane / 4
+  uint32_t ah[kTK / 8][4], al[kTK / 8][4];
+#pragma unroll
+  for (int k = 0; k < kTK / 8; ++k) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int l = line + 8 * (q & 1), chunk = 2 * k + (q >> 1);
+      const float x = *reinterpret_cast<const float*>(st + l * 128 + ((chunk ^ (l & 7)) << 4) +
+                                                      4 * (lane & 3));
+      float h, lo;
+      split_tf32(x, h, lo);
+      ah[k][q] = __float_as_uint(h);
+      al[k][q] = __float_as_uint(lo);
+    }
+  }
+  const uint64_t bh = sw128_desc(st + kTBox, 16);
+  const uint64_t bl = sw128_desc(st + 2 * kTBox, 16);
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < kTK / 8; ++k) wgmma_m64n128k8_tf32(acc, ah[k], bl + 2 * k, k > 0);
+#pragma unroll
+  for (int k = 0; k < kTK / 8; ++k) wgmma_m64n128k8_tf32(acc, al[k], bh + 2 * k, 1);
+#pragma unroll
+  for (int k = 0; k < kTK / 8; ++k) wgmma_m64n128k8_tf32(acc, ah[k], bh + 2 * k, 1);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_acc(acc);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) tot[i] += acc[i];
+}
+
+// Zp (C x Dp) = Z padded with zeros past D: the value kernel's A operand,
+// at a row stride TMA can take.
+__global__ void pad_z_kernel(const float* __restrict__ Z, float* __restrict__ zp, int C, int D,
+                             int Dp) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)C * Dp) return;
+  const int c = static_cast<int>(i / Dp), d = static_cast<int>(i - (size_t)c * Dp);
+  zp[i] = d < D ? Z[(size_t)c * D + d] : 0.f;
+}
+
+// Value kernel of the f32 path: S^T = Z X^T in 3xTF32 (M = chains, N =
+// rows, K = Dp), the epilogue, per-split ll partials and the f32 residual
+// R^T[chain][row]. A persistent grid walks the work items (row split, chain
+// tile of 128) in the order item = split * chain_tiles + ct; a block's
+// producer streams every stage of its items through one ring, so the next
+// tile's loads overlap an epilogue. Consumer warpgroup w owns chains [64 w,
+// 64 w + 64) of the tile; a thread's accumulators hold 2 chains over 32 rows
+// (ll in registers, two shuffles per item). Maps (raw f32, box 32 columns x
+// 128 lines): X (N x Dp; B, split in shared memory by warps 1-3 of the
+// producer warpgroup), Zp (C x Dp; A, split by the consumers) and Rt (C x
+// ldr, box 32 rows x 64 chains; stored to, TMA clips rows past N and chains
+// past C).
+template <class Epilogue>
+__global__ void __launch_bounds__(kHThreads, 1)
+glm_tf32_value_kernel(const __grid_constant__ CUtensorMap x_map,
+                      const __grid_constant__ CUtensorMap z_map,
+                      const __grid_constant__ CUtensorMap rt_map, const float* __restrict__ y,
+                      float* __restrict__ ll_part, int N, int Dp, int C, int splits,
+                      int tiles_per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kTValueBarOff);
+  uint64_t* empty = full + kTStages;
+  uint64_t* rawf = empty + kTStages;
+  const int chain_tiles = (C + kTChains - 1) / kTChains;
+  const int items = splits * chain_tiles;
+  const int n_tiles = (N + kTRows - 1) / kTRows;
+  const int nk = (Dp + kTK - 1) / kTK;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTStages; ++s) {
+      mbar_init(&full[s], kSplitWarps);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&rawf[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const bool loader = threadIdx.x == 2 * 128, splitter = threadIdx.x >= 2 * 128 + 32;
+    if (!loader && !splitter) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int ct = item % chain_tiles, sp = item / chain_tiles;
+      const int tile_end = min((sp + 1) * tiles_per_split, n_tiles);
+      for (int t = sp * tiles_per_split; t < tile_end; ++t) {
+        for (int kc = 0; kc < nk; ++kc) {
+          unsigned char* st = smem + stage * kTStageBytes;
+          if (loader) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_expect_tx(&rawf[stage], 2 * kTBox);
+            tma_load_2d(st, &z_map, &rawf[stage], kc * kTK, ct * kTChains);
+            tma_load_2d(st + kTBox, &x_map, &rawf[stage], kc * kTK, t * kTRows);
+          } else {
+            mbar_wait(&rawf[stage], phase);
+            split_b_box(st + kTBox, threadIdx.x - (2 * 128 + 32), &full[stage]);
+          }
+          if (++stage == kTStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tw = threadIdx.x & 127, warp = tw >> 5, lane = tw & 31;
+    const int cl = warp * 16 + (lane >> 2);  // this thread's chains: cl and cl + 8 of the 64
+    unsigned char* stg = smem + kTStages * kTStageBytes + wg * 2 * kTStgBytes;
+    float acc[64], tot[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int ct = item % chain_tiles, sp = item / chain_tiles;
+      const int tile_end = min((sp + 1) * tiles_per_split, n_tiles);
+      float ll[2] = {0.f, 0.f};  // [h], over the item's rows
+      for (int t = sp * tiles_per_split; t < tile_end; ++t) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) tot[i] = 0.f;
+        for (int kc = 0; kc < nk; ++kc) {
+          mbar_wait(&full[stage], phase);
+          mbar_wait(&rawf[stage], phase);  // the raw A box, read here by generic loads
+          tf32x3_stage(acc, tot, smem + stage * kTStageBytes, wg);
+          if (lane == 0) mbar_arrive(&empty[stage]);
+          if (++stage == kTStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+
+
+        // Epilogue, one 64-row half at a time: tot[4 j + 2 h + e] is chain
+        // cl + 8 h, row 8 j + 2 (lane % 4) + e. Rows past N masked, ll summed
+        // per tile in registers, the residual in row pairs into the two
+        // swizzled store boxes (line = chain, 16-byte chunk = (row % 32) / 4
+        // ^ chain % 8), then TMA stores.
+        float tl[2] = {0.f, 0.f};
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          if (tw == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+          named_barrier(2 + wg, 128);  // the store boxes are free
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int j = 8 * half + jj;
+            const int row = t * kTRows + 8 * j + 2 * (lane & 3);
+            const bool va = row < N, vb = row + 1 < N;
+            const float ya = (Epilogue::kUsesY && va) ? __ldg(y + row) : 0.f;
+            const float yb = (Epilogue::kUsesY && vb) ? __ldg(y + row + 1) : 0.f;
+            const int chunk = 2 * (jj & 3) + ((lane & 3) >> 1);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float ta, ra, tb, rb;
+              Epilogue::apply(ya, tot[4 * j + 2 * h], ta, ra);
+              Epilogue::apply(yb, tot[4 * j + 2 * h + 1], tb, rb);
+              if (!va) ta = ra = 0.f;
+              if (!vb) tb = rb = 0.f;
+              tl[h] += ta;
+              tl[h] += tb;
+              const int line = cl + 8 * h;
+              *reinterpret_cast<float2*>(stg + (jj >> 2) * kTStgBytes + line * 128 +
+                                         ((chunk ^ (line & 7)) << 4) + (lane & 1) * 8) =
+                  make_float2(ra, rb);
+            }
+          }
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          named_barrier(2 + wg, 128);
+          if (tw == 0) {
+            const int r0 = t * kTRows + 64 * half, c0 = ct * kTChains + 64 * wg;
+            tma_store_2d(&rt_map, stg, r0, c0);
+            tma_store_2d(&rt_map, stg + kTStgBytes, r0 + 32, c0);
+          }
+        }
+        ll[0] += tl[0];
+        ll[1] += tl[1];
+      }
+
+      // ll: the four lanes that share a chain, then one partial per split.
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = ll[h];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        const int c = ct * kTChains + wg * 64 + cl + 8 * h;
+        if ((lane & 3) == 0 && c < C) ll_part[(size_t)sp * C + c] = v;
+      }
+    }
+    if (tw == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// Gradient kernel of the f32 path: G^T = R^T X in 3xTF32 (M = chains, N =
+// 128 columns of g, K = rows in 32-row stages) over one row split. A
+// persistent grid walks the work items (row split, column tile, chain tile)
+// in the order item = (split * col_tiles + dt) * chain_tiles + ct. Maps
+// (raw f32): Rt (box 32 rows x 64 chains, two per stage; A, split by the
+// consumers) and XT (X^T, Dp x ldx, box 32 rows x 128 columns; B, split in
+// shared memory by warps 1-3 of the producer warpgroup): B must be K-major,
+// and X^T makes it so. Writes g_part[split][c][d].
+__global__ void __launch_bounds__(kHThreads, 1)
+glm_tf32_grad_kernel(const __grid_constant__ CUtensorMap rt_map,
+                     const __grid_constant__ CUtensorMap xt_map, float* __restrict__ g_part,
+                     int N, int Dp, int D, int C, int g_splits, int chunks_per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kTGradBarOff);
+  uint64_t* empty = full + kTStages;
+  uint64_t* rawf = empty + kTStages;
+  const int chain_tiles = (C + kTChains - 1) / kTChains;
+  const int col_tiles = (Dp + kTCols - 1) / kTCols;
+  const int items = g_splits * col_tiles * chain_tiles;
+  const int n_chunks = (N + kTK - 1) / kTK;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTStages; ++s) {
+      mbar_init(&full[s], kSplitWarps);
+      mbar_init(&empty[s], 8);
+      mbar_init(&rawf[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const bool loader = threadIdx.x == 2 * 128, splitter = threadIdx.x >= 2 * 128 + 32;
+    if (!loader && !splitter) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int ct = item % chain_tiles, dt = (item / chain_tiles) % col_tiles;
+      const int sp = item / chain_tiles / col_tiles;
+      const int chunk_end = min((sp + 1) * chunks_per_split, n_chunks);
+      for (int ch = sp * chunks_per_split; ch < chunk_end; ++ch) {
+        unsigned char* st = smem + stage * kTStageBytes;
+        if (loader) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&rawf[stage], 2 * kTBox);
+          tma_load_2d(st, &rt_map, &rawf[stage], ch * kTK, ct * kTChains);
+          tma_load_2d(st + kTBox / 2, &rt_map, &rawf[stage], ch * kTK, ct * kTChains + 64);
+          tma_load_2d(st + kTBox, &xt_map, &rawf[stage], ch * kTK, dt * kTCols);
+        } else {
+          mbar_wait(&rawf[stage], phase);
+          split_b_box(st + kTBox, threadIdx.x - (2 * 128 + 32), &full[stage]);
+        }
+        if (++stage == kTStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tw = threadIdx.x & 127, warp = tw >> 5, lane = tw & 31;
+    float acc[64], tot[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int ct = item % chain_tiles, dt = (item / chain_tiles) % col_tiles;
+      const int sp = item / chain_tiles / col_tiles;
+      const int chunk_end = min((sp + 1) * chunks_per_split, n_chunks);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) tot[i] = 0.f;
+      for (int ch = sp * chunks_per_split; ch < chunk_end; ++ch) {
+        mbar_wait(&full[stage], phase);
+        mbar_wait(&rawf[stage], phase);  // the raw A box, read here by generic loads
+        tf32x3_stage(acc, tot, smem + stage * kTStageBytes, wg);
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == kTStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      const int cb = ct * kTChains + wg * 64 + warp * 16 + (lane >> 2);
+      const int db0 = dt * kTCols + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int c = cb + 8 * (q >> 1), d = db0 + 8 * j + (q & 1);
+          if (c < C && d < D) g_part[((size_t)sp * C + c) * D + d] = tot[4 * j + q];
+        }
+      }
+    }
+  }
+}
+
+// out[i] = sum over splits of part[s][i], always in split order: g.
 __global__ void sum_splits_kernel(const float* __restrict__ part,
                                   float* __restrict__ out, int n, int splits) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -1112,6 +1387,25 @@ __global__ void sum_splits_kernel(const float* __restrict__ part,
   float v = part[i];
   for (int s = 1; s < splits; ++s) v += part[(size_t)s * n + i];
   out[i] = v;
+}
+
+// ll: out[c] = sum over splits of part[s][c] in double, rounded once, one
+// warp per chain: lane l sums splits l, l + 32, ..., then a fixed xor
+// butterfly (the order set by the split count alone). The f32 value kernel
+// writes one partial per row split (up to one per SM), all of one sign, and
+// a float sum of ~100 of them would add ~1 ulp of |ll|, beside ~0.3 ulp for
+// a tree sum over the rows. A thread per chain summing 132 partials in
+// double was 0.003 ms slower at glm1000 (one block of 256 chains; H100).
+__global__ void sum_splits_ll_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                     int n, int splits) {
+  const int i = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (i >= n) return;  // i is the warp's, so whole warps leave
+  double v = 0.0;
+  for (int s = lane; s < splits; s += 32) v += part[(size_t)s * n + i];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (lane == 0) out[i] = static_cast<float>(v);
 }
 
 int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -1134,8 +1428,19 @@ struct Args {
   void* rt;
   const void* maps;
   int N, Dp, D, C, splits, rows_per_split, g_splits, g_rows_per_split;
+  int grid;  // blocks of the persistent f32 grids (the SM count); unused elsewhere
   cudaStream_t st;
 };
+
+// ll (C,) and g (C, D) from their per-split partials, on every path.
+int sum_outputs(const Args& a, void* ll, void* g) {
+  sum_splits_ll_kernel<<<(a.C + 7) / 8, 256, 0, a.st>>>(a.ll_part, static_cast<float*>(ll),
+                                                        a.C, a.splits);
+  const int ng = a.C * a.D;
+  sum_splits_kernel<<<(ng + 255) / 256, 256, 0, a.st>>>(a.g_part, static_cast<float*>(g), ng,
+                                                        a.g_splits);
+  return (int)cudaGetLastError();
+}
 
 // Dp <= 128, bf16 or int8 X: the TMA + wgmma one-pass kernel. Scratch: zb
 // (round_up(C, 128), Dp) bf16, reached with X through the tensor maps of
@@ -1209,22 +1514,46 @@ int launch_hopper(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// f32 X, any Dp: the two FFMA kernels. Scratch: rt (round_up(C, 64),
-// round_up(N, 64)) f32.
+// The f32 value kernel's epilogue: its MUFU form (kTF32Accurate false; as
+// close to ll and g in float64 as the accurate tanhf/logf form, measured on
+// the H100, and 0.06 ms faster at glm100's shape).
+constexpr bool kTF32Accurate = false;
+
+// f32 X, any Dp: pad_z_kernel, then the 3xTF32 pair on persistent grids
+// (a.grid blocks, the caller's SM count, at most one per work item).
+// Scratch: zb (C, Dp) f32 for the padded Z and rt (C, ldr) f32; with the
+// caller's X^T (Dp, ldx) f32, all reached through the tensor maps of
+// glm_tf32_tensor_maps.
 template <class Epilogue>
-int launch_f32(const Args& a) {
-  if (!covers(a.N, a.splits, a.rows_per_split, kFT) ||
-      !covers(a.N, a.g_splits, a.g_rows_per_split, kFK) || a.rt == nullptr)
+int launch_tf32(const Args& a) {
+  if (!covers(a.N, a.splits, a.rows_per_split, kTRows) ||
+      !covers(a.N, a.g_splits, a.g_rows_per_split, kTK) || a.zb == nullptr ||
+      a.maps == nullptr || a.grid <= 0)
     return (int)cudaErrorInvalidValue;
-  const int chain_tiles = (a.C + kFT - 1) / kFT, ldr = round_up(a.N, kFT);
-  const float* X = static_cast<const float*>(a.X);
-  float* R = static_cast<float*>(a.rt);
-  glm_f32_value_kernel<Epilogue><<<dim3(chain_tiles, a.splits), kFThreads, 0, a.st>>>(
-      X, a.y, a.Z, a.ll_part, R, a.N, a.Dp, a.D, a.C, ldr, a.rows_per_split);
+  CUtensorMap m[4];
+  memcpy(m, a.maps, sizeof m);
+  const size_t nz = (size_t)a.C * a.Dp;
+  pad_z_kernel<<<(unsigned)((nz + 255) / 256), 256, 0, a.st>>>(a.Z, static_cast<float*>(a.zb), a.C,
+                                                               a.D, a.Dp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  glm_f32_grad_kernel<<<dim3(chain_tiles, (a.Dp + kFT - 1) / kFT, a.g_splits), kFThreads, 0,
-                        a.st>>>(X, R, a.g_part, a.N, a.Dp, a.D, a.C, ldr, a.g_rows_per_split);
+  using E = typename std::conditional<kTF32Accurate, Epilogue, Mufu<Epilogue>>::type;
+  err = cudaFuncSetAttribute(glm_tf32_value_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kTValueSmem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(glm_tf32_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kTGradSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = a.grid;
+  const int chain_tiles = (a.C + kTChains - 1) / kTChains;
+  const int v_items = a.splits * chain_tiles;
+  glm_tf32_value_kernel<E><<<v_items < sms ? v_items : sms, kHThreads, kTValueSmem, a.st>>>(
+      m[0], m[1], m[3], a.y, a.ll_part, a.N, a.Dp, a.C, a.splits, a.rows_per_split / kTRows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int g_items = a.g_splits * ((a.Dp + kTCols - 1) / kTCols) * chain_tiles;
+  glm_tf32_grad_kernel<<<g_items < sms ? g_items : sms, kHThreads, kTGradSmem, a.st>>>(
+      m[3], m[2], a.g_part, a.N, a.Dp, a.D, a.C, a.g_splits, a.g_rows_per_split / kTK);
   return (int)cudaGetLastError();
 }
 
@@ -1236,26 +1565,22 @@ int launch(int x_dtype, const Args& a, void* ll, void* g) {
   int err;
   const bool int8 = x_dtype == kXInt8;
   if (x_dtype == kXF32)
-    err = launch_f32<Epilogue>(a);
+    err = launch_tf32<Epilogue>(a);
   else if (a.Dp <= kMaxDp)
     err = int8 ? launch_onepass<Epilogue, true>(a) : launch_onepass<Epilogue, false>(a);
   else
     err = int8 ? launch_hopper<Epilogue, true>(a) : launch_hopper<Epilogue, false>(a);
   if (err != 0) return err;
-  sum_splits_kernel<<<(a.C + 255) / 256, 256, 0, a.st>>>(a.ll_part, static_cast<float*>(ll), a.C,
-                                                          a.splits);
-  const int ng = a.C * a.D;
-  sum_splits_kernel<<<(ng + 255) / 256, 256, 0, a.st>>>(a.g_part, static_cast<float*>(g), ng,
-                                                        a.g_splits);
-  return (int)cudaGetLastError();
+  return sum_outputs(a, ll, g);
 }
 
 Args make_args(const void* X, const void* y, const void* Z, void* ll_part, void* g_part,
                void* zb, void* rt, const void* maps, int N, int Dp, int D, int C, int splits,
-               int rows_per_split, int g_splits, int g_rows_per_split, void* stream) {
+               int rows_per_split, int g_splits, int g_rows_per_split, int grid,
+               void* stream) {
   return Args{X,      static_cast<const float*>(y), static_cast<const float*>(Z),
               static_cast<float*>(ll_part), static_cast<float*>(g_part), zb, rt, maps, N, Dp, D,
-              C,      splits, rows_per_split, g_splits, g_rows_per_split,
+              C,      splits, rows_per_split, g_splits, g_rows_per_split, grid,
               static_cast<cudaStream_t>(stream)};
 }
 
@@ -1295,6 +1620,14 @@ bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem, const void*
 bool encode_bf16_2d(CUtensorMap* map, const void* base, int inner, int outer, int ld,
                     int box_inner, int box_outer) {
   return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, inner, outer, ld, box_inner,
+                   box_outer, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// f32 with the 128-byte swizzle (32 floats a line): the 3xTF32 kernels'
+// operands.
+bool encode_f32_2d(CUtensorMap* map, const void* base, int inner, int outer, int ld, int box_inner,
+                   int box_outer) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, inner, outer, ld, box_inner,
                    box_outer, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
@@ -1352,23 +1685,47 @@ extern "C" int glm_onepass_tensor_maps(const void* X, int x_dtype, const void* z
   return 0;
 }
 
+// The four tensor maps of the f32 path, written to ``out`` (4 x 128
+// bytes), all f32 in 32-element (128-byte) lines with the 128-byte swizzle:
+// X (N x Dp) in 32-column x 128-row boxes (value kernel B), Zp (C x Dp,
+// pad_z_kernel's output) in 32-column x 128-chain boxes (value kernel A),
+// X^T (Dp x ldx, its first N columns used) in 32-row x 128-column boxes
+// (gradient kernel B) and Rt (C x ldr, its first N columns used) in 32-row
+// x 64-chain boxes (value kernel store; gradient kernel A, two per stage).
+// The caller keeps them with X^T and its scratch. Returns a CUDA error
+// code, 0 on success.
+extern "C" int glm_tf32_tensor_maps(const void* X, const void* xt, const void* zp, const void* rt,
+                                    int N, int Dp, int C, int ldx, int ldr, void* out) {
+  CUtensorMap m[4];
+  const bool ok = Dp % 16 == 0 && ldx >= N && ldx % 4 == 0 && ldr >= N && ldr % 4 == 0 &&
+                  encode_f32_2d(&m[0], X, Dp, N, Dp, kTK, kTRows) &&
+                  encode_f32_2d(&m[1], zp, Dp, C, Dp, kTK, kTChains) &&
+                  encode_f32_2d(&m[2], xt, N, Dp, ldx, kTK, kTCols) &&
+                  encode_f32_2d(&m[3], rt, N, C, ldr, kTK, 64);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  memcpy(out, m, sizeof m);
+  return 0;
+}
+
 // One signature for the three entries. x_dtype: 0 bf16, 1 int8, 2 f32.
 // ll_part is (splits, C) and g_part (g_splits, C, D); the narrow path
 // (Dp <= 128) takes g_splits == splits, zb and the tensor maps of
 // glm_onepass_tensor_maps, the wide path zb and the tensor maps of
 // glm_hopper_tensor_maps (which name zb and rt), both made for X's type;
-// the f32 path takes rt (shapes at each launch function). Returns a CUDA
-// error code, 0 on success.
+// the f32 path zb (the padded Z), the tensor maps of glm_tf32_tensor_maps
+// and grid, the persistent grids' block count (shapes at each launch
+// function; grid is unused on the other paths). Returns a CUDA error code,
+// 0 on success.
 #define GLM_ENTRY(name, Epilogue, refuse_int8)                                                  \
   extern "C" int name(const void* X, int x_dtype, const void* y, const void* Z, void* ll_part,  \
                       void* g_part, void* ll, void* g, void* zb, void* rt, const void* maps,    \
                       int N, int Dp, int D, int C, int splits, int rows_per_split, int g_splits, \
-                      int g_rows_per_split, void* stream) {                                     \
+                      int g_rows_per_split, int grid, void* stream) {                           \
     if (refuse_int8 && x_dtype == kXInt8) return (int)cudaErrorInvalidValue;                    \
     return launch<Epilogue>(x_dtype,                                                            \
                             make_args(X, y, Z, ll_part, g_part, zb, rt, maps, N, Dp, D, C,      \
                                       splits, rows_per_split, g_splits, g_rows_per_split,       \
-                                      stream),                                                  \
+                                      grid, stream),                                            \
                             ll, g);                                                             \
   }
 

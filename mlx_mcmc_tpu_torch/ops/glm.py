@@ -19,7 +19,10 @@ version only for CPU tensors; for CUDA tensors they launch the kernels or
 raise. The kernels take any padded width ``Dp`` that is a multiple of 16;
 :func:`launch_plan` says which path a shape takes: one TMA + wgmma pass over
 X up to ``Dp = 128`` and two TMA + wgmma kernels above it (bf16, and int8
-widened to bf16 in shared memory), two FFMA kernels at any ``Dp`` (f32).
+widened to bf16 in shared memory), two 3xTF32 TMA + wgmma kernels at any
+``Dp`` (f32: each operand split into two tf32 parts, :func:`split_tf32`, so
+the tensor cores give float32-class products; their gradient kernel reads
+X^T, which f32 data carry as ``XpT``, :func:`transpose_f32`).
 
 int8 data (``quantize="int8"``) stores X ~ Xq diag(col_scale) with
 symmetric per-column scales, as the reference does; at the kernel level Z
@@ -44,17 +47,18 @@ from mlx_mcmc_tpu_torch import _build
 from mlx_mcmc_tpu_torch._device import resolve_device, sm_count
 from mlx_mcmc_tpu_torch.ops.math import row_sum
 
-_CHAIN_TILE = 64  # chains per block of the f32 kernels (kFT)
 _MAX_D_PAD = 128  # widest Dp of the one-pass kernel (kMaxDp)
-_ROW_TILE = 64  # rows per tile of the one-pass kernel (kORows) and f32 value kernel
+_ROW_TILE = 64  # rows per tile of the one-pass kernel (kORows)
 _NARROW_SPLITS = 4  # one-pass row splits: bounds the g partials (splits x C x Dp x 4 B)
 _ONEPASS_CHAIN_TILE = 128  # one-pass kernel: chains per block (kOChains)
 _WIDE_ROW_TILE = 128  # rows per tile, wide value kernel (kHRows)
 _HOPPER_CHAIN_TILE = 256  # wide kernels: chains per block (kHChains)
 _HOPPER_ROW_CHUNK = 64  # gradient kernel: rows per ring stage (kHK)
 _HOPPER_D_TILE = 128  # gradient kernel: columns of g per block (kHCols)
-_F32_ROW_CHUNK = 16  # f32 gradient kernel: rows per chunk (kFK)
-_F32_SPLITS_PER_SM = 1 / 16  # f32 value kernel's row splits per SM; the gradient's half that
+_TF32_ROW_TILE = 128  # f32 value kernel: rows per tile (kTRows)
+_TF32_ROW_CHUNK = 32  # f32 gradient kernel: rows per ring stage (kTK)
+_TF32_D_TILE = 128  # f32 gradient kernel: columns of g per block (kTCols)
+_TF32_MIN_GRAD_ROWS = 512  # f32 gradient kernel: fewest rows per split (bounds g_part)
 _X_DTYPE_CODE = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
 
 
@@ -101,6 +105,8 @@ def prepare_fused_logistic_data(X, y, quantize=None, num_shards: int = 1, device
     data = {"Xp": Xp, "yp": yp, "pad_const": 0.0, "dim": d}
     if col_scale is not None:
         data["col_scale"] = col_scale
+    if Xp.dtype == torch.float32:
+        data["XpT"] = transpose_f32(Xp)
     return data
 
 
@@ -114,13 +120,28 @@ def prepare_fused_linear_data(
     if quantize is not None:
         raise ValueError(f"quantize={quantize!r}: the linear kernel takes f32/bf16 X only")
     Xp, yp, d, _ = _pack(X, y, None, num_shards, device)
-    return {
+    data = {
         "Xp": Xp,
         "yp": yp,
         "ll_norm": -0.5 * Xp.shape[0] * math.log(2.0 * math.pi * noise_scale**2),
         "inv_noise_var": 1.0 / noise_scale**2,
         "dim": d,
     }
+    if Xp.dtype == torch.float32:
+        data["XpT"] = transpose_f32(Xp)
+    return data
+
+
+def transpose_f32(Xp: torch.Tensor) -> torch.Tensor:
+    """X^T as the f32 gradient kernel reads it: ``(Dp, round_up(N, 4))``
+    float32, zero past column N (TMA's row strides are multiples of 16
+    bytes). A tf32 ``wgmma`` takes its B operand K-major only, so that
+    kernel cannot read X itself. f32 data carry it as ``XpT``, made once
+    with ``Xp``; the kernels trust it to be ``Xp``'s transpose."""
+    n, d_pad = Xp.shape
+    xt = Xp.new_zeros((d_pad, _round_up(n, 4)), dtype=torch.float32)
+    xt[:, :n] = Xp.T
+    return xt
 
 
 def _logistic_epilogue(y, s):
@@ -145,6 +166,23 @@ def _operand_dtype(Xp: torch.Tensor) -> torch.dtype:
     return torch.bfloat16 if Xp.dtype == torch.int8 else Xp.dtype
 
 
+def split_tf32(x: torch.Tensor):
+    """``(hi, lo)`` of float32 ``x`` as the f32 kernels split their
+    operands, bit for bit: ``hi = tf32(x)``, rounded to nearest to 11
+    significant bits (a tf32 value, the low 13 bits zero) by Veltkamp's
+    split in float32, ``c = x (2^13 + 1)``, ``hi = c - (c - x)``; and ``lo
+    = tf32(x - hi)`` the same way. ``hi + lo`` is ``x`` to ~2^-22 of it;
+    ``a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi`` (3xTF32)."""
+
+    def tf32(v):
+        c = v * 8193.0
+        return c - (c - v)
+
+    x = x.float()
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
 def _vag_reference(Xp, y, Z, epilogue):
     """Rounds at the kernel's points when ``Xp`` is bf16 or int8: ``Z`` to
     bf16 before the first product and the residual to bf16 before the
@@ -156,6 +194,23 @@ def _vag_reference(Xp, y, Z, epilogue):
     s = Z.to(cdt).float() @ X.T  # (C, N)
     term, res = epilogue(y, s)
     return term.sum(dim=-1), res.to(cdt).float() @ X
+
+
+def vag_float64(family: str, Xp: torch.Tensor, y, Z: torch.Tensor):
+    """``(ll (C,), grad (C, D))`` of the ``"logistic"``, ``"linear"`` or
+    ``"hoisted"`` kernel's function (y unused; ll its sum of softplus)
+    computed in float64 from the same X, y and Z, rounded nowhere: the
+    yardstick of the f32 kernels' accuracy and their plain versions'."""
+    X, Zd = Xp[:, :Z.shape[1]].double(), Z.double()
+    s = Zd @ X.T
+    if family == "linear":
+        r = y.double() - s
+        return (-0.5 * r * r).sum(-1), r @ X
+    softplus = torch.logaddexp(s, torch.zeros_like(s))
+    if family == "hoisted":
+        return softplus.sum(-1), torch.sigmoid(s) @ X
+    yd = y.double()
+    return (yd * s - softplus).sum(-1), (yd - torch.sigmoid(s)) @ X
 
 
 def fused_logistic_vag_reference(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor):
@@ -187,22 +242,31 @@ def _fixed_splits(n: int, row_tile: int, target: int):
 
 def launch_plan(n: int, d_pad: int, c: int, sms: int, x_dtype=torch.bfloat16) -> dict:
     """The kernels' grid for X (n, d_pad) of ``x_dtype`` and c chains on
-    ``sms`` SMs, with the scratch shapes (``zb_shape`` bf16 Z, ``rt_shape``
-    the residual R^T of type ``rt_dtype``). ``path`` is ``"narrow"`` (one
-    pass, Dp <= 128: the TMA + wgmma kernel), ``"wide"`` (bf16, Dp > 128:
-    the TMA + wgmma pair), ``"wide_int8"`` (int8, Dp > 128: the same pair
-    and schedule with tensor maps of bytes) or ``"f32"`` (any Dp). int8 X
-    is widened to bf16 in shared memory on both TMA paths. On every path
-    the row splits depend on n, Dp and ``sms`` only, never on c: a chain's
-    ll and g are summed in the same order, to the same bits, whatever the
-    number of chains in the call; chain tiles only add blocks."""
+    ``sms`` SMs, with the scratch shapes (``zb_shape`` Z as the kernels read
+    it, f32 on the f32 path and bf16 elsewhere; ``rt_shape`` the residual
+    R^T of type ``rt_dtype``). ``path`` is
+    ``"narrow"`` (one pass, Dp <= 128: the TMA + wgmma kernel), ``"wide"``
+    (bf16, Dp > 128: the TMA + wgmma pair), ``"wide_int8"`` (int8, Dp >
+    128: the same pair and schedule with tensor maps of bytes) or ``"f32"``
+    (any Dp: the 3xTF32 pair on persistent grids of at most ``grid`` = sms
+    blocks; Z padded to Dp, R^T with rows padded to a multiple of 4 for
+    TMA's 16-byte strides).
+    int8 X is widened to bf16 in shared memory on both TMA paths. On every
+    path the row splits depend on n, Dp and ``sms`` only, never on c: a
+    chain's ll and g are summed in the same order, to the same bits,
+    whatever the number of chains in the call; chain tiles only add blocks
+    (or, on the persistent f32 grids, work items)."""
     if x_dtype == torch.float32:
-        target = max(1, round(sms * _F32_SPLITS_PER_SM))
-        splits, rows = _fixed_splits(n, _ROW_TILE, target)
-        g_splits, g_rows = _fixed_splits(n, _F32_ROW_CHUNK, max(1, target // 2))
+        # One chain tile's value items fill the SMs; the gradient's row
+        # splits do so within each column tile, but keep at least
+        # _TF32_MIN_GRAD_ROWS rows, so the g partials (g_splits x C x D)
+        # stay small at many chains.
+        splits, rows = _fixed_splits(n, _TF32_ROW_TILE, sms)
+        g_target = min(sms // -(-d_pad // _TF32_D_TILE), -(-n // _TF32_MIN_GRAD_ROWS))
+        g_splits, g_rows = _fixed_splits(n, _TF32_ROW_CHUNK, max(1, g_target))
         return {"path": "f32", "splits": splits, "rows_per_split": rows,
-                "g_splits": g_splits, "g_rows_per_split": g_rows, "zb_shape": None,
-                "rt_shape": (_round_up(c, _CHAIN_TILE), _round_up(n, _ROW_TILE)),
+                "g_splits": g_splits, "g_rows_per_split": g_rows, "grid": sms,
+                "zb_shape": (c, d_pad), "rt_shape": (c, _round_up(n, 4)),
                 "rt_dtype": torch.float32}
     if d_pad <= _MAX_D_PAD:
         splits, rows = _fixed_splits(n, _ROW_TILE, _NARROW_SPLITS)
@@ -220,7 +284,7 @@ def launch_plan(n: int, d_pad: int, c: int, sms: int, x_dtype=torch.bfloat16) ->
             "rt_shape": (c_pad, _round_up(n, _WIDE_ROW_TILE)), "rt_dtype": torch.bfloat16}
 
 
-def _check_kernel_args(Xp, y, Z):
+def _check_kernel_args(Xp, y, Z, XpT=None):
     tensors = (Xp, Z) if y is None else (Xp, y, Z)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("the CUDA kernel takes CUDA tensors only")
@@ -247,6 +311,14 @@ def _check_kernel_args(Xp, y, Z):
         raise ValueError("Xp must be 16-byte aligned")
     if c * d >= 2**31 or n >= 2**31:
         raise ValueError("C * D and N must fit in int32")
+    if Xp.dtype == torch.float32:
+        if XpT is None:
+            raise ValueError("f32 X needs its transpose XpT (transpose_f32; f32 data carry it)")
+        if (XpT.dtype != torch.float32 or XpT.device != Xp.device or not XpT.is_contiguous()
+                or tuple(XpT.shape) != (d_pad, _round_up(n, 4))):
+            raise ValueError(f"XpT must be transpose_f32(Xp): contiguous f32 ({d_pad}, "
+                             f"{_round_up(n, 4)}) on Xp's device, got {XpT.dtype} "
+                             f"{tuple(XpT.shape)} on {XpT.device}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -255,10 +327,12 @@ def _kernel_entry(name: str, lib: str = "glm_fused"):
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "glm_hopper_tensor_maps":
         fn.argtypes = [p, i, p, p] + [i] * 4 + [p]
+    elif name == "glm_tf32_tensor_maps":
+        fn.argtypes = [p] * 4 + [i] * 5 + [p]
     elif name == "glm_onepass_tensor_maps":
         fn.argtypes = [p, i, p] + [i] * 3 + [p]
     else:
-        fn.argtypes = [p, i] + [p] * 9 + [i] * 8 + [p]
+        fn.argtypes = [p, i] + [p] * 9 + [i] * 9 + [p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -267,14 +341,16 @@ _WORKSPACES: "collections.OrderedDict" = collections.OrderedDict()
 _MAX_WORKSPACES = 4
 
 
-def _workspace(Xp: torch.Tensor, c: int, d: int, plan: dict = None) -> dict:
+def _workspace(Xp: torch.Tensor, c: int, d: int, plan: dict = None, XpT=None) -> dict:
     """The launch plan (:func:`launch_plan`'s unless ``plan`` is given), split
-    partials, scratch and (TMA paths) tensor maps of X's type for X at
-    ``Xp``'s address and shape with c chains of D columns, made once and
-    kept for the next calls (the last few shapes), so the eager loop neither
-    re-allocates nor re-encodes them and their pointers stay stable. Reusing
-    them is safe on one stream, as the NUTS loop runs."""
-    key = (Xp.device, Xp.data_ptr(), tuple(Xp.shape), Xp.dtype, c, d,
+    partials, scratch and tensor maps of X's type for X at ``Xp``'s address
+    and shape with c chains of D columns, made once and kept for the next
+    calls (the last few shapes), so the eager loop neither re-allocates nor
+    re-encodes them and their pointers stay stable. Reusing them is safe on
+    one stream, as the NUTS loop runs. On the f32 path the maps also name
+    ``XpT`` (X^T, the caller's)."""
+    key = (Xp.device, Xp.data_ptr(), tuple(Xp.shape), Xp.dtype,
+           None if XpT is None else XpT.data_ptr(), c, d,
            None if plan is None else tuple(sorted(plan.items())))
     ws = _WORKSPACES.get(key)
     if ws is not None:
@@ -289,7 +365,8 @@ def _workspace(Xp: torch.Tensor, c: int, d: int, plan: dict = None) -> dict:
           "g_part": torch.empty((plan["g_splits"], c, d), **f32), "zb": None, "rt": None,
           "maps": None}
     if plan["zb_shape"] is not None:
-        ws["zb"] = torch.empty(plan["zb_shape"], dtype=torch.bfloat16, device=dev)
+        zb_dtype = torch.float32 if plan["path"] == "f32" else torch.bfloat16
+        ws["zb"] = torch.empty(plan["zb_shape"], dtype=zb_dtype, device=dev)
     if plan["rt_shape"] is not None:
         ws["rt"] = torch.empty(plan["rt_shape"], dtype=plan["rt_dtype"], device=dev)
     x_code = _X_DTYPE_CODE[Xp.dtype]
@@ -301,6 +378,13 @@ def _workspace(Xp: torch.Tensor, c: int, d: int, plan: dict = None) -> dict:
             ldr, ws["maps"])
         if err != 0:
             raise RuntimeError(f"glm_hopper_tensor_maps failed with CUDA error {err}")
+    elif plan["path"] == "f32":
+        ws["maps"] = ctypes.create_string_buffer(4 * 128)
+        err = _kernel_entry("glm_tf32_tensor_maps")(
+            Xp.data_ptr(), XpT.data_ptr(), ws["zb"].data_ptr(), ws["rt"].data_ptr(), n,
+            d_pad, c, XpT.shape[1], plan["rt_shape"][1], ws["maps"])
+        if err != 0:
+            raise RuntimeError(f"glm_tf32_tensor_maps failed with CUDA error {err}")
     elif plan["path"] == "narrow":
         ws["maps"] = ctypes.create_string_buffer(2 * 128)
         err = _kernel_entry("glm_onepass_tensor_maps")(
@@ -325,14 +409,14 @@ def use_kernel_library(path) -> None:
 
 
 def _launch(name: str, Xp: torch.Tensor, y, Z: torch.Tensor, plan: dict = None,
-            lib: str = "glm_fused"):
+            lib: str = "glm_fused", XpT=None):
     """Entry ``name`` of the library built from ``csrc/<lib>.cu`` (the
     signature of the GLM entries), with ``plan`` or :func:`launch_plan`'s."""
-    _check_kernel_args(Xp, y, Z)
+    _check_kernel_args(Xp, y, Z, XpT)
     fn = _kernel_entry(name, lib)
     n, d_pad = Xp.shape
     c, d = Z.shape
-    ws = _workspace(Xp, c, d, plan)
+    ws = _workspace(Xp, c, d, plan, XpT if Xp.dtype == torch.float32 else None)
     plan = ws["plan"]
     ll = torch.empty((c,), dtype=torch.float32, device=Xp.device)
     g = torch.empty((c, d), dtype=torch.float32, device=Xp.device)
@@ -341,7 +425,7 @@ def _launch(name: str, Xp: torch.Tensor, y, Z: torch.Tensor, plan: dict = None,
         Z.data_ptr(), ws["ll_part"].data_ptr(), ws["g_part"].data_ptr(), ll.data_ptr(),
         g.data_ptr(), *(None if ws[k] is None else ws[k].data_ptr() for k in ("zb", "rt")),
         ws["maps"], n, d_pad, d, c, plan["splits"], plan["rows_per_split"],
-        plan["g_splits"], plan["g_rows_per_split"],
+        plan["g_splits"], plan["g_rows_per_split"], plan.get("grid", 0),
         torch.cuda.current_stream(Xp.device).cuda_stream,
     )
     if err != 0:
@@ -349,32 +433,33 @@ def _launch(name: str, Xp: torch.Tensor, y, Z: torch.Tensor, plan: dict = None,
     return ll, g
 
 
-def fused_logistic_vag_cuda(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor):
+def fused_logistic_vag_cuda(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor, XpT=None):
     """Launch the logistic kernel: ``(ll (C,), grad (C, D))``, likelihood
-    only; for int8 ``Xp``, ``Z`` is the scaled operand. Raises on anything
-    the kernel does not take. Launches on the current stream and adds one
-    to ``fused_logistic_vag_cuda.launches``."""
-    out = _launch("glm_fused_logistic", Xp, y, Z)
+    only; for int8 ``Xp``, ``Z`` is the scaled operand; f32 ``Xp`` needs
+    ``XpT`` (:func:`transpose_f32`). Raises on anything the kernel does not
+    take. Launches on the current stream and adds one to
+    ``fused_logistic_vag_cuda.launches``."""
+    out = _launch("glm_fused_logistic", Xp, y, Z, XpT=XpT)
     fused_logistic_vag_cuda.launches += 1
     return out
 
 
-def fused_linear_vag_cuda(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor):
+def fused_linear_vag_cuda(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor, XpT=None):
     """Launch the linear kernel: unit-noise ``(ll (C,), grad (C, D))``,
-    likelihood only, bf16 or f32 ``Xp``. Adds one to
+    likelihood only, bf16 or f32 ``Xp`` (f32 with ``XpT``). Adds one to
     ``fused_linear_vag_cuda.launches``."""
     if Xp.dtype == torch.int8:
         raise ValueError("the linear kernel takes bf16 or f32 X (no int8, as in the reference)")
-    out = _launch("glm_fused_linear", Xp, y, Z)
+    out = _launch("glm_fused_linear", Xp, y, Z, XpT=XpT)
     fused_linear_vag_cuda.launches += 1
     return out
 
 
-def fused_hoisted_vag_cuda(Xp: torch.Tensor, Z: torch.Tensor):
+def fused_hoisted_vag_cuda(Xp: torch.Tensor, Z: torch.Tensor, XpT=None):
     """Launch the hoisted kernel: ``(sum softplus(s) (C,), X^T
-    bf16(sigmoid(s)) (C, D))``; it reads no y. Adds one to
-    ``fused_hoisted_vag_cuda.launches``."""
-    out = _launch("glm_fused_hoisted", Xp, None, Z)
+    bf16(sigmoid(s)) (C, D))``; it reads no y (f32 ``Xp`` with ``XpT``).
+    Adds one to ``fused_hoisted_vag_cuda.launches``."""
+    out = _launch("glm_fused_hoisted", Xp, None, Z, XpT=XpT)
     fused_hoisted_vag_cuda.launches += 1
     return out
 
@@ -384,25 +469,28 @@ fused_linear_vag_cuda.launches = 0
 fused_hoisted_vag_cuda.launches = 0
 
 
-def fused_logistic_value_and_grad(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor):
-    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+def fused_logistic_value_and_grad(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor, XpT=None):
+    """The plain version for CPU tensors, the kernel for CUDA tensors
+    (``XpT`` as the kernel takes it; the plain version does not read it)."""
     if Z.device.type == "cpu":
         return fused_logistic_vag_reference(Xp, y, Z)
-    return fused_logistic_vag_cuda(Xp, y, Z)
+    return fused_logistic_vag_cuda(Xp, y, Z, XpT)
 
 
-def fused_linear_value_and_grad(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor):
-    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+def fused_linear_value_and_grad(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor, XpT=None):
+    """The plain version for CPU tensors, the kernel for CUDA tensors
+    (``XpT`` as the kernel takes it; the plain version does not read it)."""
     if Z.device.type == "cpu":
         return fused_linear_vag_reference(Xp, y, Z)
-    return fused_linear_vag_cuda(Xp, y, Z)
+    return fused_linear_vag_cuda(Xp, y, Z, XpT)
 
 
-def fused_hoisted_value_and_grad(Xp: torch.Tensor, Z: torch.Tensor):
-    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+def fused_hoisted_value_and_grad(Xp: torch.Tensor, Z: torch.Tensor, XpT=None):
+    """The plain version for CPU tensors, the kernel for CUDA tensors
+    (``XpT`` as the kernel takes it; the plain version does not read it)."""
     if Z.device.type == "cpu":
         return fused_hoisted_vag_reference(Xp, Z)
-    return fused_hoisted_vag_cuda(Xp, Z)
+    return fused_hoisted_vag_cuda(Xp, Z, XpT)
 
 
 def hoisted_outcomes(Xp: torch.Tensor, y: torch.Tensor, dim: int) -> torch.Tensor:
@@ -411,7 +499,8 @@ def hoisted_outcomes(Xp: torch.Tensor, y: torch.Tensor, dim: int) -> torch.Tenso
     return y.float() @ Xp[:, :dim].float()
 
 
-def hoisted_logistic_value_and_grad(Xp: torch.Tensor, yX: torch.Tensor, Z: torch.Tensor):
+def hoisted_logistic_value_and_grad(Xp: torch.Tensor, yX: torch.Tensor, Z: torch.Tensor,
+                                    XpT=None):
     """The logistic likelihood rebuilt from the hoisted kernel, as the
     reference's benchmark rebuilds it (benchmarks/glm_kernel_variants.py:186,
     216-220): ``ll = yX . bf16(z) - sum softplus(s)`` and ``g = yX - X^T
@@ -423,7 +512,7 @@ def hoisted_logistic_value_and_grad(Xp: torch.Tensor, yX: torch.Tensor, Z: torch
     reduce; NUTS adaptation collapsed on it in the reference
     (mlx_mcmc_tpu/ops/pallas/glm.py:125-136, docs/DESIGN.md §4b). It is
     kept beside K1 as a kernel held against its plain version."""
-    sp, gs = fused_hoisted_value_and_grad(Xp, Z)
+    sp, gs = fused_hoisted_value_and_grad(Xp, Z, XpT)
     zr = Z.to(_operand_dtype(Xp)).float()
     return zr @ yX - sp, yX - gs
 
@@ -442,7 +531,7 @@ def make_fused_logistic_vag(prior_scale: float = 1.0):
             raise ValueError(f"Z has {Z.shape[-1]} columns, data has dim {d}")
         col_scale = data.get("col_scale")
         Z_op = Z if col_scale is None else Z * col_scale
-        ll, g = fused_logistic_value_and_grad(data["Xp"], data["yp"], Z_op)
+        ll, g = fused_logistic_value_and_grad(data["Xp"], data["yp"], Z_op, data.get("XpT"))
         if col_scale is not None:
             g = g * col_scale
         ll = ll + data["pad_const"]
@@ -463,7 +552,7 @@ def make_fused_linear_vag(prior_scale: float = 1.0, include_prior: bool = True):
         d = data["dim"]
         if Z.shape[-1] != d:
             raise ValueError(f"Z has {Z.shape[-1]} columns, data has dim {d}")
-        ll, g = fused_linear_value_and_grad(data["Xp"], data["yp"], Z)
+        ll, g = fused_linear_value_and_grad(data["Xp"], data["yp"], Z, data.get("XpT"))
         ll = ll * data["inv_noise_var"] + data["ll_norm"]
         g = g * data["inv_noise_var"]
         if not include_prior:

@@ -200,9 +200,9 @@ def _plan(Xp: torch.Tensor, c: int, rows_per_split) -> dict:
 
 
 def _check(Xp: torch.Tensor, y, Z: torch.Tensor):
-    glm._check_kernel_args(Xp, y, Z)
     if Xp.dtype != torch.bfloat16:
         raise ValueError(f"the variants take bf16 X, as the reference's scripts run them; got {Xp.dtype}")
+    glm._check_kernel_args(Xp, y, Z)
 
 
 def _one_pass_variant(name: str):

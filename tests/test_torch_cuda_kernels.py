@@ -16,9 +16,13 @@ Tolerances as in ``chip_smoke.py``:
   to 1e-4 of max|g| + 1e-3: max|g| grows with N there while a flip does not,
   and 1e-2 would let a 64-row chunk of the gradient kernel's split schedule
   be dropped or taken twice (measured error ~1e-5 of max|g| at glm1000).
-- GLM kernels on f32 X (nothing rounded): ll as above, g within 1e-4 of
-  max|g| + 1e-4 (FMA contraction and summation order move g by a few f32
-  ulps of its terms).
+- GLM kernels on f32 X (nothing rounded; 3xTF32 products): ll as above, g
+  within 1e-4 of max|g| + 1e-4 (summation order and the split's ~2^-22 per
+  product move g by a few f32 ulps of its terms). Against ll and g computed
+  in float64 from the same X, y and Z (``glm.vag_float64``), the kernels'
+  max error is at most twice the plain float32 version's; at the one-row
+  and one-chain shapes, where both errors are a single rounding or two and
+  their ratio is noise, plus two f32 ulps of the largest value.
 - Every kernel is also held to exact equality where the design promises
   it: two calls on the same inputs give the same bits, and chains 0-3 give
   the same bits in a call with 4 chains as in one with 4096 (glm100's shape,
@@ -120,9 +124,10 @@ def test_linear_kernel_matches_plain_version(n, d, c):
 
 
 def _vag(family):
-    """(kernel, plain version) of one GLM family, as f(Xp, y, Z)."""
+    """(kernel, plain version) of one GLM family, as f(Xp, y, Z) (the
+    kernel f(Xp, y, Z, XpT) for f32 X)."""
     if family == "hoisted":
-        return (lambda X, y, Z: glm.fused_hoisted_vag_cuda(X, Z),
+        return (lambda X, y, Z, XpT=None: glm.fused_hoisted_vag_cuda(X, Z, XpT),
                 lambda X, y, Z: glm.fused_hoisted_vag_reference(X, Z))
     return {"logistic": (glm.fused_logistic_vag_cuda, glm.fused_logistic_vag_reference),
             "linear": (glm.fused_linear_vag_cuda, glm.fused_linear_vag_reference)}[family]
@@ -138,11 +143,17 @@ def test_f32_kernels_match_plain_version(n, d, c, family):
                         x_dtype=torch.float32)
     assert data["Xp"].dtype == torch.float32
     kernel, plain = _vag(family)
-    ll_k, g_k = kernel(data["Xp"], data["yp"], Z)
+    ll_k, g_k = kernel(data["Xp"], data["yp"], Z, data["XpT"])
     ll_p, g_p = plain(data["Xp"], data["yp"], Z)
     torch.cuda.synchronize()
     assert float((ll_k - ll_p).abs().max()) <= 0.05 + 1e-6 * float(ll_p.abs().max())
     assert float((g_k - g_p).abs().max()) <= 1e-4 * float(g_p.abs().max()) + 1e-4
+    ll_d, g_d = glm.vag_float64(family, data["Xp"], data["yp"], Z)
+    single = n == 1 or c == 1  # both errors a rounding or two: the ratio is noise
+    for k, p, ref in ((ll_k, ll_p, ll_d), (g_k, g_p, g_d)):
+        err_k, err_p = float((k.double() - ref).abs().max()), float((p.double() - ref).abs().max())
+        slack = 2 * 2.0**-23 * float(ref.abs().max()) if single else 0.0
+        assert err_k <= 2 * err_p + slack, (err_k, err_p)
 
 
 @functools.lru_cache(maxsize=2)
@@ -261,9 +272,10 @@ def test_glm_kernels_are_reproducible_and_batch_invariant(x_dtype, quantize, d, 
     data, Z = _glm_case(10_000, d, 4096, "linear" if family == "linear" else "logistic",
                         quantize=quantize, x_dtype=x_dtype)
     kernel, _ = _vag(family)
-    a = kernel(data["Xp"], data["yp"], Z)
-    b = kernel(data["Xp"], data["yp"], Z)
-    four = kernel(data["Xp"], data["yp"], Z[:4].contiguous())
+    xt = data.get("XpT")
+    a = kernel(data["Xp"], data["yp"], Z, xt)
+    b = kernel(data["Xp"], data["yp"], Z, xt)
+    four = kernel(data["Xp"], data["yp"], Z[:4].contiguous(), xt)
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert torch.equal(a[0][:4], four[0]) and torch.equal(a[1][:4], four[1])
@@ -275,9 +287,13 @@ def test_glm_kernel_refuses_what_it_does_not_take():
     Xp = torch.zeros(10, 16, dtype=torch.bfloat16, device="cuda")
     y = torch.zeros(10, device="cuda")
     Z = torch.zeros(3, 16, device="cuda")
-    hoisted = lambda X, y, Z: glm.fused_hoisted_vag_cuda(X, Z)  # noqa: E731
+    hoisted = lambda X, y, Z, XpT=None: glm.fused_hoisted_vag_cuda(X, Z, XpT)  # noqa: E731
     for launch in (glm.fused_logistic_vag_cuda, glm.fused_linear_vag_cuda, hoisted):
-        launch(Xp.float(), y, Z)  # f32: taken
+        launch(Xp.float(), y, Z, glm.transpose_f32(Xp.float()))  # f32 with its X^T: taken
+        with pytest.raises(ValueError, match="XpT"):
+            launch(Xp.float(), y, Z)
+        with pytest.raises(ValueError, match="XpT"):
+            launch(Xp.float(), y, Z, Xp.float().T.contiguous())  # rows not padded to 4
         for dtype in (torch.float16, torch.float64):
             with pytest.raises(ValueError, match="bf16, int8 or f32"):
                 launch(Xp.to(dtype), y, Z)

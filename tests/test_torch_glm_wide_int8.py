@@ -153,18 +153,23 @@ def test_launch_plan_covers_every_row(n, d_pad, c, x_dtype):
     else:
         path = "wide_int8" if x_dtype == torch.int8 else "wide"
     assert plan["path"] == path
-    tiles = {"narrow": (64, 64), "wide": (128, 64), "wide_int8": (128, 64), "f32": (64, 16)}[path]
+    tiles = {"narrow": (64, 64), "wide": (128, 64), "wide_int8": (128, 64), "f32": (128, 32)}[path]
     for (s, r), tile in zip([("splits", "rows_per_split"), ("g_splits", "g_rows_per_split")], tiles):
         splits, rows = plan[s], plan[r]
         assert rows % tile == 0 and splits * rows >= n > (splits - 1) * rows
-    c64, c256 = -(-c // 64) * 64, -(-c // 256) * 256
+    c256 = -(-c // 256) * 256
     if path in ("wide", "wide_int8"):
         # int8 X runs the bf16 TMA + wgmma pair, widened in shared memory.
         assert plan["zb_shape"] == (c256, d_pad)
         assert plan["rt_shape"] == (c256, -(-n // 128) * 128) and plan["rt_dtype"] == torch.bfloat16
     elif path == "f32":
-        assert plan["zb_shape"] is None
-        assert plan["rt_shape"] == (c64, -(-n // 64) * 64) and plan["rt_dtype"] == torch.float32
+        # The 3xTF32 pair: Z padded to Dp, R^T in f32 with rows padded to
+        # a multiple of 4 (TMA's 16-byte strides), persistent grids of at
+        # most one block per SM.
+        n4 = -(-n // 4) * 4
+        assert plan["zb_shape"] == (c, d_pad)
+        assert plan["rt_shape"] == (c, n4) and plan["rt_dtype"] == torch.float32
+        assert plan["grid"] == 132
     else:
         # bf16 and int8: the TMA + wgmma kernel reads Z as bf16 (chains padded to 128)
         assert plan["g_splits"] == plan["splits"] and plan["rt_shape"] is None

@@ -1,6 +1,6 @@
 """Where the time of the GLM kernels goes, by ablation, on the card.
 
-    PYTHONPATH=. python3 tools/ablate_wide.py [wide] [onepass] [k3] [int8]   # from the repository's root
+    PYTHONPATH=. python3 tools/ablate_wide.py [wide] [onepass] [k3] [int8] [f32]   # from the repository's root
 
 Builds variants of ``mlx_mcmc_tpu_torch/csrc/glm_fused.cu`` that each change
 one part of a kernel's work, and times K1 with each, in turns, by CUDA
@@ -45,6 +45,25 @@ glm100_fused's shape and in the wide pair at glm1000_fused's:
   int8-to-bf16 conversion by one XOR per pair;
 - ``no_widen``: the widening warps only fence and arrive, so the stage's
   bf16 boxes are never written (the MMAs read stale tiles).
+
+``f32``: K1 on f32 X (the reference's X in float32) through the 3xTF32
+pair, at glm100_fused's shape (C = 4096, N = 10K, D = 100) and at
+glm1000_fused's (C = 256, N = 100K, D = 1000, unit-scale positions):
+
+- ``full``: the source as it is (the MUFU epilogue);
+- ``no_split``: the split warps only fence and arrive, so the B_hi and
+  B_lo boxes are never written from the raw ones (the MMAs read stale
+  tiles);
+- ``accurate``: the value kernel's accurate tanhf/logf epilogue (right
+  values);
+- ``hi_hi_only``: one TF32 product per slice (A_hi B_hi) instead of three;
+- ``no_mma``: no wgmma at all (loads, splits, flushes and epilogues stay);
+- ``no_epilogue_math``: the value kernel's epilogue replaced by one
+  addition per element (the residual stores and the ll sums stay);
+- ``no_reloads``: the loaders load their first ring's worth of stages
+  only, then signal each stage without loading (stale tiles);
+- ``no_store``: the value kernel's R^T stores left out;
+- ``no_split_no_mma``: neither the split nor any wgmma.
 
 The variants that change the math compute wrong values by construction;
 only their times mean anything. The variants are cut from the source's
@@ -98,9 +117,9 @@ _ONEPASS_EPILOGUE_OFF = ("          ta = ra = s[4 * j + 2 * h] + yv[j][0];\n"
 _ONEPASS_MUFU = "constexpr bool kOnePassAccurate = false;"
 
 
-def _cut(src: str, old: str, new: str, what: str) -> str:
-    if src.count(old) != 1:
-        raise ValueError(f"{what} was not found once in the source")
+def _cut(src: str, old: str, new: str, what: str, times: int = 1) -> str:
+    if src.count(old) != times:
+        raise ValueError(f"{what} was not found {times} times in the source")
     return src.replace(old, new)
 
 
@@ -120,6 +139,39 @@ _ONEPASS_S = ("        wgmma_m64n64k16(s, sw128_desc(zs + b * kOZBox, 16) + 2 * 
 _ONEPASS_G = "          wgmma_m64n128k16_rs(g, a[kk], sw128_desc(st, kOXBox) + 128 * kk);\n"
 
 
+_TF32_SMALL = (
+    "  for (int k = 0; k < kTK / 8; ++k) wgmma_m64n128k8_tf32(acc, ah[k], bl + 2 * k, k > 0);\n"
+    "#pragma unroll\n"
+    "  for (int k = 0; k < kTK / 8; ++k) wgmma_m64n128k8_tf32(acc, al[k], bh + 2 * k, 1);\n"
+    "#pragma unroll\n")
+_TF32_BIG = "  for (int k = 0; k < kTK / 8; ++k) wgmma_m64n128k8_tf32(acc, ah[k], bh + 2 * k, 1);\n"
+_TF32_SPLIT_LOOP = "  for (int p = wt; p < (int)(kTBox / 16); p += 32 * kSplitWarps) {\n"
+_TF32_LOADER = "    const bool loader = threadIdx.x == 2 * 128, splitter = threadIdx.x >= 2 * 128 + 32;\n"
+_TF32_EXPECT = "            mbar_expect_tx(&rawf[stage], 2 * kTBox);\n"
+_TF32_STORE = ("            tma_store_2d(&rt_map, stg, r0, c0);\n"
+               "            tma_store_2d(&rt_map, stg + kTStgBytes, r0 + 32, c0);\n")
+
+
+def _tf32_reloads_off(src: str) -> str:
+    """Each f32 kernel's loader issues the loads of its first ring's worth
+    of stages only; later stages are signalled without loading."""
+    src = _cut(src, _TF32_LOADER, _TF32_LOADER + "    int loads = 0;\n", "the f32 loaders", 2)
+    src = _cut(src, "mbar_expect_tx(&rawf[stage], 2 * kTBox);",
+               "if (++loads > kTStages) mbar_arrive(&rawf[stage]);\n"
+               "          else mbar_expect_tx(&rawf[stage], 2 * kTBox);", "the f32 loaders' expects", 2)
+    for load in ("tma_load_2d(st, &z_map", "tma_load_2d(st + kTBox, &x_map", "tma_load_2d(st, &rt_map",
+                 "tma_load_2d(st + kTBox / 2, &rt_map", "tma_load_2d(st + kTBox, &xt_map"):
+        src = _cut(src, load, "if (loads <= kTStages) " + load, "an f32 load")
+    return src
+
+
+_TF32_ACCURATE = "constexpr bool kTF32Accurate = false;"
+_TF32_EPILOGUE = ("              Epilogue::apply(ya, tot[4 * j + 2 * h], ta, ra);\n"
+                  "              Epilogue::apply(yb, tot[4 * j + 2 * h + 1], tb, rb);\n")
+_TF32_EPILOGUE_OFF = ("              ta = ra = tot[4 * j + 2 * h] + ya;\n"
+                      "              tb = rb = tot[4 * j + 2 * h + 1] + yb;\n")
+
+
 def variants(target: str) -> dict:
     if target == "k3":
         src = (_build.CSRC_DIR / "poisson_fused.cu").read_text()
@@ -131,6 +183,24 @@ def variants(target: str) -> dict:
                 "no_convert": _cut(src, _WIDEN_CONVERT, "  r = x ^ neg;\n", "the int8 conversion"),
                 "no_widen": _cut(src, _WIDEN_LOOP, _WIDEN_LOOP.replace("kLines * kSteps", "0"),
                                  "the widening loop")}
+    if target == "f32":
+        return {"full": src,
+                "no_split": _cut(src, _TF32_SPLIT_LOOP, _TF32_SPLIT_LOOP.replace(
+                    "(int)(kTBox / 16)", "0"), "the split loop"),
+                "accurate": _cut(src, _TF32_ACCURATE, _TF32_ACCURATE.replace("false", "true"),
+                                 "the f32 epilogue switch"),
+                "hi_hi_only": _cut(_cut(src, _TF32_SMALL, "", "the small products"), _TF32_BIG,
+                                   _TF32_BIG.replace("k, 1);", "k, k > 0);"), "the large product"),
+                "no_mma": _cut(_cut(src, _TF32_SMALL, "", "the small products"), _TF32_BIG, "",
+                               "the large product"),
+                "no_epilogue_math": _cut(src, _TF32_EPILOGUE, _TF32_EPILOGUE_OFF,
+                                         "the f32 value kernel's epilogue"),
+                "no_reloads": _tf32_reloads_off(src),
+                "no_store": _cut(src, _TF32_STORE, "", "the R^T stores"),
+                "no_split_no_mma": _cut(_cut(_cut(src, _TF32_SMALL, "", "the small products"),
+                                             _TF32_BIG, "", "the large product"),
+                                        _TF32_SPLIT_LOOP, _TF32_SPLIT_LOOP.replace(
+                                            "(int)(kTBox / 16)", "0"), "the split loop")}
     if target == "onepass":
         return {"full": src,
                 "accurate": _cut(src, _ONEPASS_MUFU, _ONEPASS_MUFU.replace("false", "true"),
@@ -192,6 +262,15 @@ def _int8_call(d: int, n: int, c: int, scale: float):
     return lambda: glm.fused_logistic_vag_cuda(data["Xp"], data["yp"], Z)
 
 
+def _f32_call(d: int, n: int, c: int):
+    """K1 on the GLM dataset of width d and n rows with X in float32, at c
+    unit-scale chain positions."""
+    spec = make_logistic_regression(num_features=d, num_obs=n, seed=0, data_dtype=torch.float32)
+    data = glm.prepare_fused_logistic_data(spec.X, spec.y)
+    Z = torch.randn(c, d, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    return lambda: glm.fused_logistic_vag_cuda(data["Xp"], data["yp"], Z, data["XpT"])
+
+
 def ablate(target: str) -> dict:
     if target == "k3":
         return ablate_k3()
@@ -199,6 +278,8 @@ def ablate(target: str) -> dict:
     if target == "int8":
         calls = {"K1_int8": _int8_call(100, 10_000, 4096, 1.0),
                  "K1_int8_wide": _int8_call(1000, 100_000, 256, 0.05)}
+    elif target == "f32":
+        calls = {"K1_f32": _f32_call(100, 10_000, 4096), "K1_f32_glm1000": _f32_call(1000, 100_000, 256)}
     else:
         wide = target == "wide"
         d, n, c = (1000, 100_000, 256) if wide else (100, 10_000, 4096)
@@ -221,7 +302,7 @@ def ablate(target: str) -> dict:
 
 
 def main() -> None:
-    targets = [a for a in sys.argv[1:] if a in ("wide", "onepass", "k3", "int8")] or ["wide"]
+    targets = [a for a in sys.argv[1:] if a in ("wide", "onepass", "k3", "int8", "f32")] or ["wide"]
     out = {target: ablate(target) for target in targets}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
