@@ -49,6 +49,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    operands, 10,240 x 128 bf16, C = 4096; mm1_pair with 1,024-row tiles)
    and floor at Dp = 256 and 1024 (the wide pair) against its plain
    version, two calls to the same bits, timed.
+3c. CUDA graphs of the NUTS transition (``inference/graphs.py``) against
+   the eager loop (one host check per pair iteration): three steps at
+   fixed tunables from the engine's per-chain draws through K1 on bf16 X
+   (glm100, 4096 chains; also with ``static_schedule=True``), K1 on int8
+   and f32 X, K1 wide (glm1000, 256 chains), K2 (linear, 4096 chains), K3
+   (poisson1000_cov, 512 chains) and the generic autograd value+grad (the
+   funnel, 512 chains; captured because its model declares ``graph_safe``,
+   and reported as eager if it did not). Every output of every step must
+   be bit-identical, twice (capture, then replays of the cached graphs).
 4. ``glm100_fused`` at full width through ``sample()`` and K1 (100 params,
    10K obs, bf16 X, 4096 chains, 300 warmup + 2000 draws, depth 6, target
    0.8, bf16 store) on the reference's dataset (its threefry streams):
@@ -65,11 +74,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    0.8, f32 store): accept 0.8 +- 0.05, mean tree depth < 7, divergence
    rate <= 1%, finite draws of shape (256, 400, 1000), the Laplace check at
    D = 1000.
-5. Funnel detail: centered eight schools, 512 chains, target 0.9, depth 10,
-   with warmup and draws cut from the bench's 400 + 400 to 100 + 50 so the
-   whole smoke stays near half its time limit on a slow host too (the eager
-   NUTS pair loop costs ~9-14 ms per iteration there; 200 + 100 took
-   289-599 s on the H100, the full row 919 s).
+5. Funnel detail: centered eight schools, 512 chains, 400 + 400, target
+   0.9, depth 10, at the bench's size, through the generic autograd
+   value+grad replayed as CUDA graphs (the model declares ``graph_safe``;
+   run eagerly, the full row took 919 s on the H100 and the smoke cut it).
 6. Linear path through K2: Gaussian linear regression, 100 features, 10K
    obs, bf16 X, 4096 chains, 300 + 2000, depth 6, target 0.8, bf16 store:
    accept 0.8 +- 0.05, depth < 5, divergence rate <= 1%, posterior mean and
@@ -80,10 +88,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    mu and tau posterior means within 4 posterior sd (+0.02) of the
    generator's truth.
 8. Layout invariance: three NUTS steps at fixed tunables, driven by the
-   engine's per-chain draws, through a small elementwise model (4 and 8
-   chains), glm100_fused's K1 vag on bf16, int8 and f32 X (4 and 4096
-   chains) and poisson1000_cov's K3 vag (4 and 512 chains): chains 0-3
-   must be bit-identical.
+   engine's per-chain draws and replayed as the transition's CUDA graphs,
+   through a small elementwise model (4 and 8 chains), glm100_fused's K1
+   vag on bf16, int8 and f32 X (4 and 4096 chains) and poisson1000_cov's
+   K3 vag (4 and 512 chains): chains 0-3 must be bit-identical.
 9. The kernels JSON line (K1 one-pass, K1 wide, K1 int8 one-pass and wide,
    K2, K3, K4, Philox, and K1, K2 and K4 on f32 X, K1 also at glm1000; K4,
    int8 wide, K2 and K4 f32 and K1 f32 at glm1000, on no sampling path,
@@ -93,7 +101,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``{"ok": true, "device": {...}}`` last.
 
 Every path runs with the launch counts set to 0 just before it and read
-just after; a path that launched one of its kernels no time fails.
+just after; a path that launched one of its kernels no time fails. Phases
+4-7 sample through ``sample()``, whose transitions replay CUDA graphs
+wherever the value+grad declares that they may (every fused path): each
+prints its wall, host syncs, graph replays and the pair iterations per
+replay, and a fused path that replayed no graph fails. Launches inside a
+graph are counted at capture and added at every replay.
 Imports nothing of JAX or of the reference package.
 """
 
@@ -634,14 +647,107 @@ def variants_phase() -> list:
 
 def drive(label: str, cfg: dict, problem=None) -> tuple:
     """One run of ``cfg`` through ``sample()``, launch counts set to 0 just
-    before it and read just after."""
-    from mlx_mcmc_tpu_torch.bench import launch_counts, reset_launch_counts, run_config
+    before it and read just after. A path whose value+grad declares that
+    graphs capture it must have replayed them."""
+    from mlx_mcmc_tpu_torch.bench import build_problem, launch_counts, reset_launch_counts, run_config
+    from mlx_mcmc_tpu_torch.inference import graphs
 
+    problem = problem or build_problem(cfg)
     reset_launch_counts()
     metrics, result, _ = run_config(cfg, seed=1, problem=problem)
     metrics["launches"] = launch_counts()
     log(f"{label}: " + json.dumps(metrics))
+    graphed = graphs.captures(problem[3].get("value_and_grad_fn") or problem[0])
+    log(f"{label}: wall {metrics['wall_seconds']:.2f} s, host syncs {metrics['host_syncs']}, "
+        f"graph replays {metrics['graph_replays']}, pairs per replay "
+        f"{metrics['pairs_per_replay']}" + ("" if graphed else " (eager: not captured)"))
+    if graphed and metrics["graph_replays"] == 0:
+        fail(f"{label}: its value+grad is graph_safe, but no graph was replayed")
     return metrics, result
+
+
+def bind(vag, data):
+    """``vag(Z, data)`` as a one-argument value+grad, graph-safe as ``vag``."""
+    from mlx_mcmc_tpu_torch.inference import graphs
+
+    def bound(Z):
+        return vag(Z, data)
+
+    bound.graph_safe = graphs.captures(vag)
+    return bound
+
+
+def elementwise_vag():
+    """A diagonal Gaussian's value+grad on the card (its constants made
+    here: a capture may not copy host data to the card)."""
+    inv_var = torch.tensor([1.0, 0.25, 4.0], device="cuda")
+
+    def vag(Z):
+        return -0.5 * (Z * Z * inv_var).sum(-1), -Z * inv_var
+
+    vag.graph_safe = True
+    return vag
+
+
+def graphs_vs_eager(label: str, vag, dim: int, num_chains: int, step_size: float,
+                    max_tree_depth: int, init_scale: float = 1.0, static: bool = False) -> dict:
+    """Phase 3c: three NUTS steps at fixed tunables through ``vag`` from the
+    engine's per-chain draws, eagerly (one host check per pair iteration)
+    and through the transition's CUDA graphs (with ``static``, also the
+    ``static_schedule`` graphs), twice each: every output bit for bit.
+    Returns host-clock ms per step (eager; graphs after capture)."""
+    from mlx_mcmc_tpu_torch.inference import graphs
+    from mlx_mcmc_tpu_torch.inference.engine import step_inputs
+    from mlx_mcmc_tpu_torch.kernels.base import Tunables
+    from mlx_mcmc_tpu_torch.kernels.hmc import HMCState
+    from mlx_mcmc_tpu_torch.kernels.nuts import make_nuts_kernel
+    from mlx_mcmc_tpu_torch.ops.random import step_draws
+
+    tun = Tunables(torch.tensor(step_size, device="cuda"), torch.ones(dim, device="cuda"))
+    chains = torch.arange(num_chains, device="cuda")
+    z0 = init_scale * step_draws(11, chains, 999, dim, 0)[0]
+
+    def three(step_fn):
+        state = HMCState(z0, *vag(z0))
+        outs, syncs = [], 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(3):
+            r0, U = step_inputs(11, chains, t, tun.inv_mass_diag, 1 << (max_tree_depth - 1))
+            state, info, n = step_fn(state, tun, r0, U)
+            syncs += n
+            outs.append([x.clone() for x in (*state, *info)])
+        torch.cuda.synchronize()
+        return outs, syncs, (time.perf_counter() - t0) / 3 * 1e3
+
+    if not graphs.captures(vag):
+        log(f"graphs vs eager ({label}): the value+grad is not graph_safe; it runs eagerly")
+        return {"captured": False}
+    _, eager_step = make_nuts_kernel(vag, max_tree_depth=max_tree_depth)
+    three(eager_step)
+    ref, ref_syncs, eager_ms = three(eager_step)
+    out = {"captured": True, "eager_ms_per_step": eager_ms, "eager_host_syncs": ref_syncs}
+    runs = {"graphs": False, "static_schedule graphs": True} if static else {"graphs": False}
+    for name, static_schedule in runs.items():
+        transition = graphs.GraphedTransition(vag, max_tree_depth, static_schedule)
+        for attempt in ("capture", "replay"):
+            got, syncs, ms = three(transition.step)
+            for t, (a, b) in enumerate(zip(ref, got)):
+                for field, x, y in zip(_STEP_FIELDS, a, b):
+                    if x.dtype != y.dtype or not torch.equal(x, y):
+                        fail(f"graphs vs eager ({label}, {name}, {attempt}): step {t} {field} "
+                             "differs from the eager loop's")
+        if static_schedule and syncs != 0:
+            fail(f"graphs vs eager ({label}): static_schedule made {syncs} host syncs")
+        out[f"{name}_ms_per_step"] = ms
+        out[f"{name}_host_syncs"] = syncs
+        out[f"{name}_replays"] = transition.replays
+    log(f"graphs vs eager ({label}): bit-identical over 3 steps; " + json.dumps(out))
+    return out
+
+
+_STEP_FIELDS = ("position", "log_prob", "grad", "accept_prob", "is_accepted", "is_divergent",
+                "energy", "info.log_prob", "num_integration_steps", "tree_depth", "step_size")
 
 
 def check_sampler(label, metrics, target, max_depth, need) -> None:
@@ -717,29 +823,34 @@ def layout_invariance(label: str, vag, dim: int, counts: tuple, step_size: float
     a run of each chain count in ``counts``, each chain's start and random
     inputs from the engine's per-chain streams: chains 0-3 must come out
     bit-identical."""
+    from mlx_mcmc_tpu_torch.inference import graphs
     from mlx_mcmc_tpu_torch.inference.engine import step_inputs
     from mlx_mcmc_tpu_torch.kernels.base import Tunables
-    from mlx_mcmc_tpu_torch.kernels.nuts import make_nuts_kernel
+    from mlx_mcmc_tpu_torch.kernels.hmc import HMCState
     from mlx_mcmc_tpu_torch.ops.random import step_draws
 
+    if not graphs.captures(vag):
+        fail(f"layout invariance ({label}): the value+grad is not graph_safe")
     tun = Tunables(torch.tensor(step_size, device="cuda"), torch.ones(dim, device="cuda"))
     out = {}
     for c in counts:
         chains = torch.arange(c, device="cuda")
-        init_fn, step_fn = make_nuts_kernel(vag, max_tree_depth=max_tree_depth)
-        state = init_fn(init_scale * step_draws(11, chains, 999, dim, 0)[0])
+        transition = graphs.GraphedTransition(vag, max_tree_depth)
+        z0 = init_scale * step_draws(11, chains, 999, dim, 0)[0]
+        state = HMCState(z0, *vag(z0))
         infos = []
         for t in range(3):
             r0, U = step_inputs(11, chains, t, tun.inv_mass_diag, 1 << (max_tree_depth - 1))
-            state, info, _ = step_fn(state, tun, r0, U)
-            infos.append(info.tree_depth)
-        out[c] = (state.position[:4], state.log_prob[:4], torch.stack(infos, 1)[:4])
+            state, info, _ = transition.step(state, tun, r0, U)
+            infos.append(info.tree_depth.clone())
+        out[c] = (state.position[:4].clone(), state.log_prob[:4].clone(),
+                  torch.stack(infos, 1)[:4])
     for a, b in zip(out[counts[0]], out[counts[1]]):
         if not torch.equal(a, b):
             fail(f"layout invariance ({label}): chains 0-3 differ between a {counts[0]}-chain "
                  f"and a {counts[1]}-chain run")
     log(f"layout invariance ({label}): chains 0-3 bit-identical over 3 steps at {counts[0]} and "
-        f"{counts[1]} chains (tree depths {out[counts[0]][2].tolist()})")
+        f"{counts[1]} chains through CUDA graphs (tree depths {out[counts[0]][2].tolist()})")
 
 
 def main() -> None:
@@ -870,6 +981,7 @@ def main() -> None:
     del x_wf
     variants["K2"]["wide_glm1000"] = check_glm("linear", "wide glm1000", w_data["Xp"], y_wl, z_w,
                                                timed=True, g_rel=WIDE_G_TOL_REL)
+    variants["K2"]["wide_glm1000"]["products_library_ms"] = products_yardstick_ms(w_data["Xp"], z_w)
     del y_wl
     n_w, d_w, c_w = 777, 300, 70
     x_w = (torch.randn(n_w, d_w, generator=gen, device="cuda") / math.sqrt(d_w)).bfloat16()
@@ -984,6 +1096,40 @@ def main() -> None:
     variant_kernels = variants_phase()
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
+    # --- CUDA graphs of the transition against the eager loop --------------
+    from mlx_mcmc_tpu_torch.inference import graphs
+    from mlx_mcmc_tpu_torch.inference.engine import make_batched_value_and_grad
+    from mlx_mcmc_tpu_torch.models import eight_schools
+    from mlx_mcmc_tpu_torch.ops.glm import make_fused_linear_vag, make_fused_logistic_vag
+    from mlx_mcmc_tpu_torch.ops.poisson import make_fused_poisson_vag
+    from mlx_mcmc_tpu_torch.ops.ravel import make_flat_logprob
+
+    log(f"CUDA graphs: {graphs.PAIRS_PER_REPLAY} pair iterations per replay")
+    k1_vag, k2_vag, k3_vag = make_fused_logistic_vag(1.0), make_fused_linear_vag(1.0), make_fused_poisson_vag()
+    q_glm100 = prepare_fused_logistic_data(data["Xp"][:, :d], data["yp"], quantize="int8")
+    depth_main, depth_wide = cfg["max_tree_depth"], wcfg["max_tree_depth"]
+    graph_checks = {
+        "K1 bf16 glm100": graphs_vs_eager("K1 bf16 glm100", bind(k1_vag, data), d, cfg["num_chains"],
+                                          0.02, depth_main, 0.1, static=True),
+        "K1 int8 glm100": graphs_vs_eager("K1 int8 glm100", bind(k1_vag, q_glm100), d,
+                                          cfg["num_chains"], 0.02, depth_main, 0.1),
+        "K1 f32 glm100": graphs_vs_eager("K1 f32 glm100", bind(k1_vag, log_f32), d,
+                                         cfg["num_chains"], 0.02, depth_main, 0.1),
+        "K1 wide glm1000": graphs_vs_eager("K1 wide glm1000", bind(k1_vag, w_data), w_data["dim"],
+                                           wcfg["num_chains"], 0.005, depth_wide, 0.02),
+        "K2 glm100": graphs_vs_eager("K2 glm100", bind(k2_vag, lin_data), d, cfg["num_chains"],
+                                     0.01, depth_main, 0.1),
+        "K3 poisson1000_cov": graphs_vs_eager(
+            "K3 poisson1000_cov", bind(k3_vag, p_data), pcfg["covariate_dim"] + 2 + g_p, c_p, 0.002,
+            pcfg["max_tree_depth"], 0.1),
+    }
+    f_spec = eight_schools(centered=True)
+    f_flp, _, _ = make_flat_logprob(f_spec.log_prob, f_spec.initial_params, device="cuda")
+    graph_checks["generic (funnel)"] = graphs_vs_eager(
+        "generic (funnel)", make_batched_value_and_grad(f_flp), 10, 512, 0.05, 10, 0.3)
+    del q_glm100
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
     # --- glm100_fused: the main path --------------------------------------
     metrics, result = drive("glm100_fused", cfg, problem)
     launches = {"K1": metrics["launches"]["glm_fused_logistic"],
@@ -1061,8 +1207,8 @@ def main() -> None:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- funnel detail ----------------------------------------------------
-    fcfg = dict(CONFIGS["funnel8"], num_warmup=100, num_samples=50)
-    fmetrics, fresult = drive("funnel8 (100 + 50)", fcfg)
+    fcfg = CONFIGS["funnel8"]
+    fmetrics, fresult = drive("funnel8", fcfg)
     if fmetrics["launches"]["philox_step_draws"] == 0:
         fail("the funnel launched the Philox kernel no time")
     for k, v in fresult.samples.items():
@@ -1109,20 +1255,14 @@ def main() -> None:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- layout invariance -------------------------------------------------
-    from mlx_mcmc_tpu_torch.ops.glm import make_fused_logistic_vag
-    from mlx_mcmc_tpu_torch.ops.poisson import make_fused_poisson_vag
-
-    inv_var = torch.tensor([1.0, 0.25, 4.0], device="cuda")
-    layout_invariance("elementwise", lambda Z: (-0.5 * (Z * Z * inv_var).sum(-1), -Z * inv_var),
-                      3, (4, 8), 0.4, 6)
-    k1_vag, k3_vag = make_fused_logistic_vag(1.0), make_fused_poisson_vag()
-    layout_invariance("glm100_fused through K1", lambda Z: k1_vag(Z, data), d,
+    layout_invariance("elementwise", elementwise_vag(), 3, (4, 8), 0.4, 6)
+    layout_invariance("glm100_fused through K1", bind(k1_vag, data), d,
                       (4, cfg["num_chains"]), 0.02, cfg["max_tree_depth"], init_scale=0.1)
-    layout_invariance("glm100_fused int8 through K1", lambda Z: k1_vag(Z, i_problem[2]), d,
+    layout_invariance("glm100_fused int8 through K1", bind(k1_vag, i_problem[2]), d,
                       (4, cfg["num_chains"]), 0.02, cfg["max_tree_depth"], init_scale=0.1)
-    layout_invariance("glm100_fused f32 through K1", lambda Z: k1_vag(Z, f32_problem[2]), d,
+    layout_invariance("glm100_fused f32 through K1", bind(k1_vag, f32_problem[2]), d,
                       (4, cfg["num_chains"]), 0.02, cfg["max_tree_depth"], init_scale=0.1)
-    layout_invariance("poisson1000_cov through K3", lambda Z: k3_vag(Z, p_data),
+    layout_invariance("poisson1000_cov through K3", bind(k3_vag, p_data),
                       pcfg["covariate_dim"] + 2 + pcfg["num_groups"], (4, c_p), 0.002,
                       pcfg["max_tree_depth"], init_scale=0.1)
 

@@ -6,15 +6,21 @@ same settings and the same JSON line. Run on the GPU:
 
     python -m mlx_mcmc_tpu_torch.bench [glm100_fused | glm1000_fused | poisson1000_cov]
     python -m mlx_mcmc_tpu_torch.bench loop    # costs inside the NUTS loop
+    python -m mlx_mcmc_tpu_torch.bench ksweep [CONFIG ...]
+        # full runs (warm, then timed) at each pair-iteration count per
+        # graph replay, graphs.PAIRS_PER_REPLAY = 1, 2, 4, 8 (default
+        # configs glm100_fused, glm1000_fused and poisson1000_cov)
     python -m mlx_mcmc_tpu_torch.bench paired [CONFIG ...] [--against ROOT] [--no-runs]
         # the kernels of each config's main path at its shape, then its walls
         # and device busy share, beside ROOT's package in turns (default
         # configs glm100_fused and poisson1000_cov)
 
 The timed run follows a warm run (kernel build, allocator and library
-start-up are excluded). ESS is computed on the device. The detail adds every
-kernel's launch count, the host-sync count of the timed run and the seconds
-``build_problem`` took to make the data. Every config samples the
+start-up are excluded; so is the capture of the transition's CUDA graphs,
+which the runner cache keeps from the warm run). ESS is computed on the
+device. The detail adds every kernel's launch count, the host-sync count
+and the graph replays of the timed run, the pair iterations per replay and
+the seconds ``build_problem`` took to make the data. Every config samples the
 reference's own dataset: ``models/glm.py`` and ``models/poisson.py`` draw
 them from the reference's threefry streams (``models/jax_random.py``), key
 for key, the Poisson counts through ``jax.random.poisson``'s own algorithm.
@@ -42,6 +48,7 @@ import torch
 
 from mlx_mcmc_tpu_torch import sample
 from mlx_mcmc_tpu_torch.diagnostics.device import device_ess_chunked
+from mlx_mcmc_tpu_torch.inference import graphs
 from mlx_mcmc_tpu_torch.models import (
     eight_schools,
     make_linear_regression,
@@ -172,7 +179,8 @@ def run_config(cfg, seed: int = 1, problem=None):
         num_samples=cfg["num_samples"], num_warmup=cfg["num_warmup"],
         num_chains=cfg["num_chains"], kernel="nuts", seed=seed,
         max_tree_depth=cfg["max_tree_depth"], target_accept=cfg["target_accept"],
-        store_dtype=cfg["store_dtype"], **extra,
+        store_dtype=cfg["store_dtype"], static_schedule=cfg.get("static_schedule", False),
+        **extra,
     )
     flat = torch.cat(
         [v.reshape(v.shape[0], v.shape[1], -1) for v in result.samples.values()], dim=-1
@@ -198,6 +206,8 @@ def run_config(cfg, seed: int = 1, problem=None):
         "ess_backend": "device",
         "launches": {k: v - launches0[k] for k, v in launch_counts().items()},
         "host_syncs": result.host_syncs,
+        "graph_replays": result.graph_replays,
+        "pairs_per_replay": graphs.PAIRS_PER_REPLAY,
     }
     return metrics, result, ess
 
@@ -212,12 +222,22 @@ def _ms_per_call(fn, arg, reps: int = 50) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def _elementwise_vag(z):
+    return -0.5 * (z * z).sum(-1), -z
+
+
+_elementwise_vag.graph_safe = True
+
+
 def loop_costs() -> dict:
-    """Host-clock costs inside the eager NUTS loop, at the funnel's shape
-    (512 chains, centered eight schools): one NUTS step's ms per pair
-    iteration with a trivial value+grad (the loop body alone) and with the
-    generic one, and the generic value+grad per call beside
-    ``vmap(grad_and_value)``, the form it replaced."""
+    """Host-clock costs inside the NUTS loop, at the funnel's shape (512
+    chains, centered eight schools): one NUTS step's ms per pair iteration
+    with a trivial value+grad (the loop body alone) and with the generic
+    one, eagerly (one host check per iteration) and, where the value+grad
+    is captured, through the transition's CUDA graphs (per pair iteration
+    run: ``graphs.PAIRS_PER_REPLAY`` per replay; None where not captured);
+    and the generic value+grad per call beside ``vmap(grad_and_value)``,
+    the form it replaced."""
     from mlx_mcmc_tpu_torch.inference.engine import make_batched_value_and_grad
     from mlx_mcmc_tpu_torch.kernels.base import Tunables
     from mlx_mcmc_tpu_torch.kernels.nuts import make_nuts_kernel
@@ -236,7 +256,7 @@ def loop_costs() -> dict:
     tun = Tunables(torch.tensor(0.05, device="cuda"), torch.ones(10, device="cuda"))
     r0 = torch.randn(512, 10, generator=gen, device="cuda")
     U = torch.rand(512, 512, 4, generator=gen, device="cuda")
-    for name, vag in [("body", lambda z: (-0.5 * (z * z).sum(-1), -z)), ("funnel", generic)]:
+    for name, vag in [("body", _elementwise_vag), ("funnel", generic)]:
         init_fn, step_fn = make_nuts_kernel(vag, max_tree_depth=10)
         state = init_fn(Z)
         step_fn(state, tun, r0, U)
@@ -246,6 +266,51 @@ def loop_costs() -> dict:
         torch.cuda.synchronize()
         out[f"{name}_ms_per_iteration"] = (time.perf_counter() - t0) / syncs * 1e3
         out[f"{name}_iterations"] = syncs
+        out[f"{name}_graph_ms_per_iteration"] = None
+        if graphs.captures(vag):
+            transition = graphs.GraphedTransition(vag, max_tree_depth=10)
+            transition.step(state, tun, r0, U)  # captures
+            torch.cuda.synchronize()
+            replays0 = transition.graphs["pairs"].replays
+            t0 = time.perf_counter()
+            transition.step(state, tun, r0, U)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            replays = transition.graphs["pairs"].replays - replays0
+            out[f"{name}_graph_ms_per_iteration"] = wall / (replays * transition.k) * 1e3
+            out[f"{name}_graph_ms_per_step"] = wall * 1e3
+    out["pairs_per_replay"] = graphs.PAIRS_PER_REPLAY
+    return out
+
+
+def k_sweep(names, ks=(1, 2, 4, 8), emit=None) -> dict:
+    """For each config in ``names`` and each k in ``ks``: a full run with
+    ``graphs.PAIRS_PER_REPLAY = k`` (warm: its capture), then the same run
+    timed (wall to the device ESS, host syncs, graph replays, launches,
+    sampler statistics, which must not move with k); then the config cut
+    to 100 + 100 with ``static_schedule=True`` (warm, then timed; k =
+    "static"). ``emit(name, k, metrics)`` after each."""
+    emit = emit or (lambda name, k, metrics: None)
+    keep = graphs.PAIRS_PER_REPLAY
+    out = {}
+    try:
+        for name in names:
+            cfg = CONFIGS[name]
+            problem = build_problem(cfg)
+            for k in ks:
+                graphs.PAIRS_PER_REPLAY = k
+                run_config(cfg, seed=0, problem=problem)
+                metrics, _, _ = run_config(cfg, seed=1, problem=problem)
+                out.setdefault(name, {})[k] = metrics
+                emit(name, k, metrics)
+            static = dict(cfg, num_warmup=100, num_samples=100, static_schedule=True)
+            run_config(static, seed=0, problem=problem)
+            metrics, _, _ = run_config(static, seed=1, problem=problem)
+            out[name]["static"] = metrics
+            emit(name, "static", metrics)
+            del problem
+    finally:
+        graphs.PAIRS_PER_REPLAY = keep
     return out
 
 
@@ -420,9 +485,10 @@ def paired_times(names, against: str | None = None, runs: bool = True, emit=None
             pkg.run_config(dict(cfg, num_warmup=20, num_samples=20), seed=0, problem=problems[key])
         for key in order:
             metrics, _, _ = packages[key].run_config(cfg, seed=1, problem=problems[key])
-            res[key]["runs"].append({k: metrics[k] for k in (
+            res[key]["runs"].append({k: metrics.get(k) for k in (
                 "wall_seconds", "min_ess", "mean_accept", "mean_tree_depth", "divergences",
-                "host_syncs")} | {"launches": metrics["launches"]})
+                "host_syncs", "graph_replays", "pairs_per_replay")}
+                                    | {"launches": metrics["launches"]})
         emit("runs", name, res)
         short = dict(cfg, num_warmup=20, num_samples=20)
         for key, pkg in packages.items():
@@ -435,16 +501,26 @@ def paired_times(names, against: str | None = None, runs: bool = True, emit=None
 
 def main() -> None:
     name = sys.argv[1] if len(sys.argv) > 1 else "glm100_fused"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
     if name == "loop":
-        print(json.dumps(dict(loop_costs(), device=torch.cuda.get_device_name(0))))
+        print(json.dumps(dict(loop_costs(), device=smi)))
+        return
+    if name == "ksweep":
+        names = [a for a in sys.argv[2:] if a in CONFIGS] or [
+            "glm100_fused", "glm1000_fused", "poisson1000_cov"]
+
+        def emit_k(config, k, metrics):
+            print(json.dumps({"phase": "ksweep", "config": config, "device": smi, **metrics,
+                              "pairs_per_replay": k}), flush=True)
+
+        k_sweep(names, emit=emit_k)
         return
     if name == "paired":
         args = sys.argv[2:]
         against = args[args.index("--against") + 1] if "--against" in args else None
         runs = "--no-runs" not in args
         names = [a for a in args if a in CONFIGS] or ["glm100_fused", "poisson1000_cov"]
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                             capture_output=True, text=True).stdout.strip()
 
         def emit(phase, config, res):
             print(json.dumps({"phase": phase, "config": config, "device": smi, **res}), flush=True)

@@ -129,9 +129,30 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <mutex>
+#include <set>
 #include <type_traits>
+#include <utility>
 
 namespace {
+
+// Raises a kernel's dynamic shared memory limit once per device and kernel
+// (each template instantiation is a kernel of its own), so that launches
+// make no attribute call: an eager launch skips the host work, and a launch
+// captured into a CUDA graph relies on no call made during the capture.
+// The first launch of each kernel is an eager one (graphs warm up first).
+cudaError_t max_dynamic_smem_once(const void* kernel, int bytes) {
+  static std::mutex mu;
+  static std::set<std::pair<int, const void*>> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count({dev, kernel})) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.insert({dev, kernel});
+  return err;
+}
 
 constexpr int kMaxDp = 128;  // one-pass kernel: G^T (64 chains x Dp) stays in registers
 
@@ -1463,8 +1484,8 @@ int launch_onepass_as(const Args& a) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   constexpr uint32_t smem = o_smem(kInt8);
-  err = cudaFuncSetAttribute(glm_onepass_kernel<E, kInt8, kGT, kLLSum>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = max_dynamic_smem_once(
+      reinterpret_cast<const void*>(glm_onepass_kernel<E, kInt8, kGT, kLLSum>), (int)smem);
   if (err != cudaSuccess) return (int)err;
   glm_onepass_kernel<E, kInt8, kGT, kLLSum>
       <<<dim3(a.splits, Cp / kOChains), kHThreads, smem, a.st>>>(
@@ -1497,11 +1518,11 @@ int launch_hopper(const Args& a) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   constexpr uint32_t vsmem = v_smem(kInt8), gsmem = g_smem(kInt8);
-  err = cudaFuncSetAttribute(glm_hopper_value_kernel<Epilogue, kInt8>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)vsmem);
+  err = max_dynamic_smem_once(
+      reinterpret_cast<const void*>(glm_hopper_value_kernel<Epilogue, kInt8>), (int)vsmem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(glm_hopper_grad_kernel<kInt8>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gsmem);
+  err = max_dynamic_smem_once(reinterpret_cast<const void*>(glm_hopper_grad_kernel<kInt8>),
+                              (int)gsmem);
   if (err != cudaSuccess) return (int)err;
   glm_hopper_value_kernel<Epilogue, kInt8>
       <<<dim3(a.splits, Cp / kHChains), kHThreads, vsmem, a.st>>>(
@@ -1538,11 +1559,11 @@ int launch_tf32(const Args& a) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   using E = typename std::conditional<kTF32Accurate, Epilogue, Mufu<Epilogue>>::type;
-  err = cudaFuncSetAttribute(glm_tf32_value_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kTValueSmem);
+  err = max_dynamic_smem_once(reinterpret_cast<const void*>(glm_tf32_value_kernel<E>),
+                              (int)kTValueSmem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(glm_tf32_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kTGradSmem);
+  err = max_dynamic_smem_once(reinterpret_cast<const void*>(glm_tf32_grad_kernel),
+                              (int)kTGradSmem);
   if (err != cudaSuccess) return (int)err;
   const int sms = a.grid;
   const int chain_tiles = (a.C + kTChains - 1) / kTChains;

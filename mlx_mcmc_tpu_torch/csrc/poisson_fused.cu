@@ -46,6 +46,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <set>
+#include <utility>
+
 namespace {
 
 constexpr int kChains = 256;         // chains per block, one per thread
@@ -202,13 +206,32 @@ size_t shared_bytes(int K, int groups_per_block, int chunk_rows) {
   return ((size_t)chunk_rows * (K + 1) + (size_t)groups_per_block * kChains) * sizeof(float);
 }
 
+// Raises poisson_fused_kernel<K>'s dynamic shared memory limit once per
+// device, to the most any launch of it takes (kMaxGroups groups, a chunk of
+// kMaxChunkRows rows), so that launches make no attribute call: an eager
+// launch skips the host work, and a launch captured into a CUDA graph relies
+// on no call made during the capture (graphs warm up eagerly first).
+template <int K>
+cudaError_t max_dynamic_smem_once() {
+  static std::mutex mu;
+  static std::set<int> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count(dev)) return cudaSuccess;
+  err = cudaFuncSetAttribute(poisson_fused_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)shared_bytes(K, kMaxGroups, kMaxChunkRows));
+  if (err == cudaSuccess) done.insert(dev);
+  return err;
+}
+
 template <int K>
 int launch(dim3 grid, cudaStream_t st, const float* X, const float* y, const float* shat,
            const float* lamhat, const float* theta, const float* beta, float* part,
            float* r_theta, int C, int G, int n, int gpb, int chunk_rows, int splits) {
   const size_t smem = shared_bytes(K, gpb, chunk_rows);
-  cudaError_t err = cudaFuncSetAttribute(poisson_fused_kernel<K>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = max_dynamic_smem_once<K>();
   if (err != cudaSuccess) return (int)err;
   poisson_fused_kernel<K><<<grid, kChains, smem, st>>>(X, y, shat, lamhat, theta, beta, part,
                                                         r_theta, C, G, n, gpb, chunk_rows, splits);

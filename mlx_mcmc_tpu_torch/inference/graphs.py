@@ -1,0 +1,205 @@
+"""The NUTS transition as captured CUDA graphs: the port's ``jax.jit``.
+
+The reference compiles a whole transition into one program: its pair loop
+is a ``lax.while_loop`` (``mlx_mcmc_tpu/kernels/nuts.py:427``) or, with
+``static_schedule``, a fixed-trip ``lax.scan`` (``:408-425``). Run eagerly,
+the port's loop launches every op of every pair iteration from the host
+(hundreds of launches) and reads ``active.any()`` once per iteration. Here
+the parts of :func:`mlx_mcmc_tpu_torch.kernels.nuts.make_nuts_parts` are
+captured once per static configuration as ``torch.cuda.CUDAGraph``s, all in
+one memory pool, and replayed:
+
+- ``root``: the peeled root leaf, from the step's inputs (copied into
+  static buffers: position, log_prob, grad, ``r0``, ``U``, ``step_size``
+  and ``inv_mass_diag``) into the carry buffers, and whether any chain is
+  active;
+- ``pairs``: :data:`PAIRS_PER_REPLAY` pair iterations on the carry buffers
+  in place, and whether any chain is still active, which the host reads
+  once per replay; with ``static_schedule``, the whole fixed-trip loop
+  (``2**(max_tree_depth-1) - 1`` iterations) and no host read;
+- ``result``: the new state and ``TransitionInfo`` into static output
+  buffers.
+
+The same kernels run on the same inputs in the same order as in the eager
+loop, so the draws are bit-identical to it: surplus pair iterations change
+nothing (the masked freeze). The Philox draws, the adaptation update and
+the draw store stay outside the graphs, as eager launches.
+
+A value+grad is captured only if it says it can be with ``graph_safe =
+True``: the fused GLM and Poisson ones do. Any other runs eagerly; the
+engine reads the attribute (:func:`captures`) and never tries a capture to
+find out. On the card a capture or a replay that fails raises: nothing is
+retried eagerly.
+
+A captured kernel launch keeps raw pointers: the data, the kernel's launch
+workspace and the tensor maps in its parameters, which encode workspace
+addresses. Each :class:`CapturedGraph` holds what its capture pinned
+(``_capture.pin``), so a workspace cache that evicts an entry frees no
+memory a graph still reads. The kernel wrappers count a captured launch in
+the recording, not in their ``launches``; every replay adds the recorded
+counts, so ``launches`` counts launches on the card either way.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable
+
+import torch
+
+from mlx_mcmc_tpu_torch import _capture
+from mlx_mcmc_tpu_torch.kernels.base import TransitionInfo, Tunables
+from mlx_mcmc_tpu_torch.kernels.hmc import HMCState
+from mlx_mcmc_tpu_torch.kernels.nuts import NutsInputs, _NutsCarry, make_nuts_parts
+
+# Pair iterations per replay of the pairs graph. Measured on the H100 at 1,
+# 2, 4 and 8 (`python -m mlx_mcmc_tpu_torch.bench ksweep`, PERF.md §6):
+# 1 gave the shortest walls on glm100_fused (6.33 s against 8.17-13.89)
+# and glm1000_fused (8.15 against 8.58-9.44) and the least in sum; a surplus
+# iteration (every chain's two leapfrogs) costs the card more than the host
+# check it saves. poisson1000_cov (~32 iterations a step) was 7% faster at 4.
+PAIRS_PER_REPLAY = 1
+
+
+def captures(value_and_grad: Callable) -> bool:
+    """Whether ``value_and_grad`` declared that CUDA graphs may capture it."""
+    return bool(getattr(value_and_grad, "graph_safe", False))
+
+
+class CapturedGraph:
+    """A captured graph, what its capture recorded and how often it ran:
+    each :meth:`replay` adds the recorded launches to each kernel
+    wrapper's ``launches``."""
+
+    def __init__(self, graph, recording: _capture.Recording):
+        self.graph = graph
+        self.launches = dict(recording.launches)
+        self.pinned = recording.pinned
+        self.replays = 0
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for wrapper, n in self.launches.items():
+            wrapper.launches += n
+        self.replays += 1
+
+
+def capture(fn: Callable, pool=None):
+    """``(CapturedGraph, fn's outputs)``: ``fn`` captured on the current
+    device, its kernel launches recorded."""
+    graph = torch.cuda.CUDAGraph()
+    with _capture.recording() as rec:
+        with torch.cuda.graph(graph, pool=pool):
+            out = fn()
+    return CapturedGraph(graph, rec), out
+
+
+@contextlib.contextmanager
+def side_stream(device):
+    """Run the body on a side stream that follows the current one, which
+    then waits for it: the eager warm-up before a capture."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        yield
+    torch.cuda.current_stream(device).wait_stream(side)
+
+
+class GraphedTransition:
+    """One NUTS transition for ``value_and_grad``, replayed as CUDA graphs.
+
+    ``step(state, tunables, r0, U) -> (state, info, host_syncs)`` as the
+    eager ``step_fn`` of ``kernels/nuts.py`` gives them. The first step
+    fixes the static configuration (chains, width, dtypes and device of
+    the inputs) and captures the graphs, after one eager warm-up of every
+    part on a side stream; a later step with other shapes raises. The
+    returned state and info are the graphs' static outputs: the next step
+    overwrites them, so a caller that keeps them clones them.
+    """
+
+    def __init__(self, value_and_grad: Callable, max_tree_depth: int = 10,
+                 static_schedule: bool = False):
+        self.parts = make_nuts_parts(value_and_grad, max_tree_depth)
+        self.k = PAIRS_PER_REPLAY
+        self.static_schedule = static_schedule
+        self.graphs = None
+
+    @property
+    def replays(self) -> int:
+        """Replays of every graph so far."""
+        return sum(g.replays for g in self.graphs.values()) if self.graphs else 0
+
+    def step(self, state: HMCState, tunables: Tunables, r0: torch.Tensor, U: torch.Tensor):
+        values = NutsInputs(state.position, state.log_prob, state.grad, r0, U,
+                            tunables.step_size, tunables.inv_mass_diag)
+        if self.graphs is None:
+            self._capture(values)
+        for name, buf, value in zip(NutsInputs._fields, self.inputs, values):
+            if (buf.shape != value.shape or buf.dtype != value.dtype
+                    or buf.device != value.device):
+                raise ValueError(
+                    f"{name}: the graphs were captured for {buf.dtype} {tuple(buf.shape)} on "
+                    f"{buf.device}, got {value.dtype} {tuple(value.shape)} on {value.device}")
+            buf.copy_(value)
+        self.graphs["root"].replay()
+        if self.static_schedule:
+            self.graphs["pairs"].replay()
+            host_syncs = 0
+        else:
+            host_syncs = 1
+            any_active = self.any_root
+            while bool(any_active):
+                self.graphs["pairs"].replay()
+                host_syncs += 1
+                any_active = self.any_pairs
+        self.graphs["result"].replay()
+        return self.state_out, self.info_out, host_syncs
+
+    def _capture(self, values: NutsInputs) -> None:
+        self.inputs = NutsInputs(*(v.clone(memory_format=torch.contiguous_format)
+                                   for v in values))
+        device = self.inputs.position.device
+        parts = self.parts
+        k = parts.static_pairs if self.static_schedule else self.k
+
+        # Warm-up, eagerly on a side stream, as torch.cuda.graph requires:
+        # it also makes what must exist before a capture (the kernels'
+        # libraries, launch workspaces and shared-memory limits, the
+        # checkpoint slot tables).
+        with side_stream(device):
+            frame, carry = parts.root(self.inputs)
+            carry, _ = parts.pairs(frame, carry, k)
+            parts.result(frame, carry)
+        del frame, carry
+
+        def root():
+            frame, carry = parts.root(self.inputs)
+            # One buffer per field (the root's carry shares storage between
+            # fields, which the in-place update of ``pairs`` must not).
+            carry = _NutsCarry(*(t.clone() for t in carry))
+            return frame, carry, parts.active(carry).any()
+
+        pool = torch.cuda.graph_pool_handle()
+        graphs = {}
+        graphs["root"], (frame, carry, self.any_root) = capture(root, pool)
+
+        def pairs():
+            new, any_active = parts.pairs(frame, carry, k)
+            for buf, value in zip(carry, new):
+                buf.copy_(value)
+            return any_active
+
+        graphs["pairs"], self.any_pairs = capture(pairs, pool)
+
+        def result():
+            # The state as views of a copy of the proposal, laid out as the
+            # eager step returns it: the adaptation's sums over chains read
+            # the position, and on the card their order follows its strides.
+            proposal = carry.proposal.clone()
+            state, info = parts.result(frame, carry._replace(proposal=proposal))
+            ptr = proposal.untyped_storage().data_ptr()
+            return state, TransitionInfo(*(
+                t if t.untyped_storage().data_ptr() == ptr else t.clone() for t in info))
+
+        graphs["result"], (self.state_out, self.info_out) = capture(result, pool)
+        self.graphs = graphs

@@ -2,7 +2,8 @@
 
 Counterpart of ``eight_schools`` in ``mlx_mcmc_tpu/models/hierarchical.py``.
 The centered form is the divergence stress benchmark: tau's scale sets the
-width of theta's posterior, so the geometry is a funnel.
+width of theta's posterior, so the geometry is a funnel. Both densities
+declare ``graph_safe``: CUDA graphs may capture their transitions.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ def eight_schools(centered: bool = False, device=None) -> HierarchicalSpec:
             lp = lp + Normal(theta, sigma).log_prob(y).sum()
             return lp
 
+        log_prob.graph_safe = True  # tensor ops on tensors made above only
         init = {"mu": 0.0, "log_tau": 0.0, "theta": torch.zeros(8, device=dev)}
         return HierarchicalSpec(log_prob=log_prob, initial_params=init, y=y, truth={})
 
@@ -52,5 +54,6 @@ def eight_schools(centered: bool = False, device=None) -> HierarchicalSpec:
         lp = lp + Normal(theta, sigma).log_prob(y).sum()
         return lp
 
+    log_prob.graph_safe = True
     init = {"mu": 0.0, "log_tau": 0.0, "theta_raw": torch.zeros(8, device=dev)}
     return HierarchicalSpec(log_prob=log_prob, initial_params=init, y=y, truth={})

@@ -43,7 +43,7 @@ import math
 
 import torch
 
-from mlx_mcmc_tpu_torch import _build
+from mlx_mcmc_tpu_torch import _build, _capture
 from mlx_mcmc_tpu_torch._device import resolve_device, sm_count
 from mlx_mcmc_tpu_torch.ops.math import row_sum
 
@@ -348,7 +348,9 @@ def _workspace(Xp: torch.Tensor, c: int, d: int, plan: dict = None, XpT=None) ->
     calls (the last few shapes), so the eager loop neither re-allocates nor
     re-encodes them and their pointers stay stable. Reusing them is safe on
     one stream, as the NUTS loop runs. On the f32 path the maps also name
-    ``XpT`` (X^T, the caller's)."""
+    ``XpT`` (X^T, the caller's). A CUDA graph that captured a launch pins
+    its workspace (``_capture.pin``), so an eviction here never frees
+    memory that a graph still reads."""
     key = (Xp.device, Xp.data_ptr(), tuple(Xp.shape), Xp.dtype,
            None if XpT is None else XpT.data_ptr(), c, d,
            None if plan is None else tuple(sorted(plan.items())))
@@ -430,6 +432,7 @@ def _launch(name: str, Xp: torch.Tensor, y, Z: torch.Tensor, plan: dict = None,
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    _capture.pin(ws, Xp, y, XpT)
     return ll, g
 
 
@@ -438,9 +441,10 @@ def fused_logistic_vag_cuda(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor, 
     only; for int8 ``Xp``, ``Z`` is the scaled operand; f32 ``Xp`` needs
     ``XpT`` (:func:`transpose_f32`). Raises on anything the kernel does not
     take. Launches on the current stream and adds one to
-    ``fused_logistic_vag_cuda.launches``."""
+    ``fused_logistic_vag_cuda.launches`` (``_capture.count_launch``: a
+    launch captured into a CUDA graph is added at each replay)."""
     out = _launch("glm_fused_logistic", Xp, y, Z, XpT=XpT)
-    fused_logistic_vag_cuda.launches += 1
+    _capture.count_launch(fused_logistic_vag_cuda)
     return out
 
 
@@ -451,7 +455,7 @@ def fused_linear_vag_cuda(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor, Xp
     if Xp.dtype == torch.int8:
         raise ValueError("the linear kernel takes bf16 or f32 X (no int8, as in the reference)")
     out = _launch("glm_fused_linear", Xp, y, Z, XpT=XpT)
-    fused_linear_vag_cuda.launches += 1
+    _capture.count_launch(fused_linear_vag_cuda)
     return out
 
 
@@ -460,7 +464,7 @@ def fused_hoisted_vag_cuda(Xp: torch.Tensor, Z: torch.Tensor, XpT=None):
     bf16(sigmoid(s)) (C, D))``; it reads no y (f32 ``Xp`` with ``XpT``).
     Adds one to ``fused_hoisted_vag_cuda.launches``."""
     out = _launch("glm_fused_hoisted", Xp, None, Z, XpT=XpT)
-    fused_hoisted_vag_cuda.launches += 1
+    _capture.count_launch(fused_hoisted_vag_cuda)
     return out
 
 
@@ -538,6 +542,7 @@ def make_fused_logistic_vag(prior_scale: float = 1.0):
         log_norm = -0.5 * d * math.log(2.0 * math.pi * prior_scale * prior_scale)
         return ll + (log_norm - 0.5 * inv_var * row_sum(Z * Z)), g - inv_var * Z
 
+    vag.graph_safe = True  # see inference/graphs.py
     return vag
 
 
@@ -560,4 +565,5 @@ def make_fused_linear_vag(prior_scale: float = 1.0, include_prior: bool = True):
         log_norm = -0.5 * d * math.log(2.0 * math.pi * prior_scale * prior_scale)
         return ll + (log_norm - 0.5 * inv_var * row_sum(Z * Z)), g - inv_var * Z
 
+    vag.graph_safe = True
     return vag

@@ -43,7 +43,7 @@ import math
 
 import torch
 
-from mlx_mcmc_tpu_torch import _build
+from mlx_mcmc_tpu_torch import _build, _capture
 from mlx_mcmc_tpu_torch._device import sm_count
 from mlx_mcmc_tpu_torch.ops import glm
 
@@ -212,7 +212,7 @@ def _one_pass_variant(name: str):
         _check(Xp, y, Z)
         out = glm._launch(entry, Xp, y, Z, _plan(Xp, Z.shape[0], rows_per_split),
                           lib="glm_variants")
-        launch.launches += 1
+        _capture.count_launch(launch)
         return out
 
     launch.__name__ = launch.__qualname__ = f"{name}_cuda"
@@ -258,7 +258,7 @@ def mm1_pair_cuda(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor, tile_rows:
                             torch.cuda.current_stream(Xp.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"glm_variant_mm1_pair launch failed with CUDA error {err}")
-    mm1_pair_cuda.launches += 1
+    _capture.count_launch(mm1_pair_cuda)
     return ll, g
 
 
@@ -272,7 +272,7 @@ def current_cuda(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor, rows_per_sp
     ``current_cuda.launches``."""
     glm._check_kernel_args(Xp, y, Z)
     out = glm._launch("glm_fused_logistic", Xp, y, Z, _plan(Xp, Z.shape[0], rows_per_split))
-    current_cuda.launches += 1
+    _capture.count_launch(current_cuda)
     return out
 
 

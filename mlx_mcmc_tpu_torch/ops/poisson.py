@@ -33,7 +33,7 @@ import math
 
 import torch
 
-from mlx_mcmc_tpu_torch import _build
+from mlx_mcmc_tpu_torch import _build, _capture
 from mlx_mcmc_tpu_torch._device import resolve_device, sm_count
 from mlx_mcmc_tpu_torch.ops.math import row_sum
 from mlx_mcmc_tpu_torch.ops.ravel import ravel_params
@@ -148,7 +148,8 @@ def fused_poisson_vag_cuda(X, y, shat, lamhat, theta, beta):
     """Launch the Hopper kernel: ``(ll (C,), r_theta (C, G), g_beta (C, K))``
     as :func:`fused_poisson_vag_reference` gives them. Raises on anything
     the kernel does not take. Launches on the current stream and adds one
-    to ``fused_poisson_vag_cuda.launches``."""
+    to ``fused_poisson_vag_cuda.launches`` (``_capture.count_launch``: a
+    launch captured into a CUDA graph is added at each replay)."""
     _check_kernel_args(X, y, shat, lamhat, theta, beta)
     G, n, K = X.shape
     C = theta.shape[0]
@@ -165,7 +166,8 @@ def fused_poisson_vag_cuda(X, y, shat, lamhat, theta, beta):
     )
     if err != 0:
         raise RuntimeError(f"poisson_fused launch failed with CUDA error {err}")
-    fused_poisson_vag_cuda.launches += 1
+    _capture.pin(X, y, shat, lamhat)
+    _capture.count_launch(fused_poisson_vag_cuda)
     return ll, r_theta, g_beta
 
 
@@ -225,6 +227,7 @@ def make_fused_poisson_vag(prior_mu_scale: float = 5.0, prior_log_tau_scale: flo
         )
         return lp, grad
 
+    vag.graph_safe = True  # see inference/graphs.py
     return vag
 
 

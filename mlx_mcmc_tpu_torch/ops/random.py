@@ -31,7 +31,7 @@ import functools
 
 import torch
 
-from mlx_mcmc_tpu_torch import _build
+from mlx_mcmc_tpu_torch import _build, _capture
 
 STREAM_NORMAL = 0
 STREAM_UNIFORM = 1
@@ -140,7 +140,7 @@ def words_cuda(seed: int, chains: torch.Tensor, step: int, blocks: int, stream: 
     )
     if err != 0:
         raise RuntimeError(f"philox_words launch failed with CUDA error {err}")
-    words_cuda.launches += 1
+    _capture.count_launch(words_cuda)
     return out.to(torch.int64) & _MASK32
 
 
@@ -165,7 +165,7 @@ def step_draws_cuda(seed: int, chains: torch.Tensor, step: int, dim: int, n_slot
     )
     if err != 0:
         raise RuntimeError(f"philox_step_draws launch failed with CUDA error {err}")
-    step_draws_cuda.launches += 1
+    _capture.count_launch(step_draws_cuda)
     return z, u
 
 

@@ -72,7 +72,9 @@ def make_flat_logprob(
     Returns ``(flat_log_prob, initial_flat, unravel)``. A NaN log-density
     becomes ``-inf`` so accept/reject logic never sticks on a NaN state.
     With ``data_aware=True`` the model is ``log_prob_fn(params, data)`` and
-    the wrapper is ``flat_log_prob(z, data)``.
+    the wrapper is ``flat_log_prob(z, data)``. The wrapper carries the
+    model's ``graph_safe`` (False where the model has none): whether CUDA
+    graphs may capture it (``inference/graphs.py``).
     """
     initial_flat, unravel = ravel_params(example_params, device=device)
 
@@ -90,4 +92,5 @@ def make_flat_logprob(
         def flat_log_prob(z: torch.Tensor) -> torch.Tensor:
             return _sanitize(log_prob_fn(unravel(z)))
 
+    flat_log_prob.graph_safe = bool(getattr(log_prob_fn, "graph_safe", False))
     return flat_log_prob, initial_flat, unravel

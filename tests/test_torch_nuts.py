@@ -2,7 +2,8 @@
 
 For 32 chains, the reference's per-chain ``step_fn`` runs under ``vmap``;
 the port's batched ``step_fn`` gets the same momenta and uniform tables
-(computed exactly as nuts.py:187-211 does). Tree depth, leapfrog count and
+(computed exactly as nuts.py:187-211 does), with the dynamic pair loop and
+with ``static_schedule=True`` on both sides. Tree depth, leapfrog count and
 divergence must match exactly; position, log_prob, grad and accept_prob to
 1e-5 relative (float32 arithmetic, reduction order differs).
 """
@@ -70,12 +71,14 @@ def _schools_problem(rng):
     return None, jflp, make_batched_value_and_grad(tflp), z0, 8
 
 
-@pytest.mark.parametrize("problem", [_glm_problem, _schools_problem], ids=["glm", "schools"])
-def test_one_transition_matches_jax(problem):
+def _replay_transition(problem, static_schedule=False):
+    """One transition of the reference (vmapped per chain) and of the port
+    (batched) from the same draws, both with ``static_schedule``."""
     rng = np.random.default_rng(7)
     jvag, jflp, tvag, z0, depth = problem(rng)
     dim = z0.shape[1]
-    j_init, j_step = j_make_nuts_kernel(jflp, max_tree_depth=depth, value_and_grad_fn=jvag)
+    j_init, j_step = j_make_nuts_kernel(jflp, max_tree_depth=depth, value_and_grad_fn=jvag,
+                                        static_schedule=static_schedule)
     inv_mass = (0.5 + rng.random(dim)).astype(np.float32)
     j_tun = JTunables(step_size=jnp.asarray(0.35, jnp.float32), inv_mass_diag=jnp.asarray(inv_mass))
     j_states = jax.vmap(j_init)(jnp.asarray(z0))
@@ -93,7 +96,7 @@ def test_one_transition_matches_jax(problem):
     normals, U = jax.vmap(draws)(keys)
     t_tun = tunables_from_jax(j_tun, device="cpu")
     r0 = sample_momentum(torch.tensor(np.asarray(normals)), t_tun.inv_mass_diag)
-    t_init, t_step = make_nuts_kernel(tvag, max_tree_depth=depth)
+    t_init, t_step = make_nuts_kernel(tvag, max_tree_depth=depth, static_schedule=static_schedule)
     t_states = hmc_state_from_jax(j_states, device="cpu")
     t_new, t_info, syncs = t_step(t_states, t_tun, r0, torch.tensor(np.asarray(U)))
 
@@ -110,12 +113,27 @@ def test_one_transition_matches_jax(problem):
         (t_info.energy, j_info.energy),
     ]:
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=RTOL, atol=RTOL)
-    # A varied tree: several depths across chains, and one sync per pair
-    # iteration of the longest trajectory (root + up to two leaves per
-    # iteration) plus the final check.
+    # A varied tree: several depths across chains.
     assert len(np.unique(t_info.tree_depth.numpy())) > 1
+    return t_info, syncs
+
+
+@pytest.mark.parametrize("problem", [_glm_problem, _schools_problem], ids=["glm", "schools"])
+def test_one_transition_matches_jax(problem):
+    t_info, syncs = _replay_transition(problem)
+    # One sync per pair iteration of the longest trajectory (root + up to
+    # two leaves per iteration) plus the final check.
     longest = int(t_info.num_integration_steps.max())
     assert syncs == -(-(longest - 1) // 2) + 1
+
+
+@pytest.mark.parametrize("problem", [_glm_problem, _schools_problem], ids=["glm", "schools"])
+def test_static_transition_matches_jax(problem):
+    """The port's ``static_schedule=True`` step against the reference's
+    (its fixed-trip ``lax.scan``, nuts.py:408-425), same tolerance; the
+    static step reads nothing on the host."""
+    _, syncs = _replay_transition(problem, static_schedule=True)
+    assert syncs == 0
 
 
 def test_slot_tables_follow_popcount():
