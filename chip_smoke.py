@@ -54,10 +54,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    fixed tunables from the engine's per-chain draws through K1 on bf16 X
    (glm100, 4096 chains; also with ``static_schedule=True``), K1 on int8
    and f32 X, K1 wide (glm1000, 256 chains), K2 (linear, 4096 chains), K3
-   (poisson1000_cov, 512 chains) and the generic autograd value+grad (the
-   funnel, 512 chains; captured because its model declares ``graph_safe``,
-   and reported as eager if it did not). Every output of every step must
-   be bit-identical, twice (capture, then replays of the cached graphs).
+   (poisson1000_cov, 512 chains), the sufficient-statistic vags of
+   hier1000 and poisson1000 (512 chains) and the generic autograd
+   value+grad (the funnel, 512 chains, and glm100's plain GLM over f32 X,
+   4096 chains; captured because their models declare ``graph_safe``, and
+   reported as eager if they did not). Every output of every step must be
+   bit-identical, twice (capture, then replays of the cached graphs).
 4. ``glm100_fused`` at full width through ``sample()`` and K1 (100 params,
    10K obs, bf16 X, 4096 chains, 300 warmup + 2000 draws, depth 6, target
    0.8, bf16 store) on the reference's dataset (its threefry streams):
@@ -74,10 +76,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    0.8, f32 store): accept 0.8 +- 0.05, mean tree depth < 7, divergence
    rate <= 1%, finite draws of shape (256, 400, 1000), the Laplace check at
    D = 1000.
-5. Funnel detail: centered eight schools, 512 chains, 400 + 400, target
-   0.9, depth 10, at the bench's size, through the generic autograd
-   value+grad replayed as CUDA graphs (the model declares ``graph_safe``;
-   run eagerly, the full row took 919 s on the H100 and the smoke cut it).
+5. Funnel detail: centered eight schools at the bench's detail-row settings
+   (``bench.FUNNEL_DETAIL``: 512 chains, 400 + 400, target 0.9, depth 10),
+   through the generic autograd value+grad replayed as CUDA graphs (the
+   model declares ``graph_safe``; run eagerly, the full row took 919 s on
+   the H100 and the smoke cut it).
 6. Linear path through K2: Gaussian linear regression, 100 features, 10K
    obs, bf16 X, 4096 chains, 300 + 2000, depth 6, target 0.8, bf16 store:
    accept 0.8 +- 0.05, depth < 5, divergence rate <= 1%, posterior mean and
@@ -87,16 +90,37 @@ Phases, each fatal on failure (exit code 1, no result line):
    0.9 +- 0.05, mean depth < 7, divergence rate <= 1%, finite draws, beta,
    mu and tau posterior means within 4 posterior sd (+0.02) of the
    generator's truth.
+7b. The reference's other bench configs through ``sample()`` at their full
+   bench settings, each on the reference's dataset and through CUDA graphs:
+   ``hier1000`` (998 groups x 100 observations through the sufficient
+   statistics, 512 chains, 400 + 1000, depth 10, bf16 store),
+   ``hier1000_full`` (every observation through autograd, 128 chains, 400 +
+   400), ``poisson1000`` (1000 groups x 100 counts through the sufficient
+   statistics, 512 chains, 400 + 1000, depth 10, target 0.9), ``glm100``
+   and ``glm1000`` (autograd over f32 X: 4096 chains, 500 + 500, depth 8;
+   16 chains, 400 + 400, depth 8), and the standalone ``funnel8`` at its
+   full width (1024 chains, depth 10, target 0.8), cut to 100 + 100. Each
+   prints its wall, host syncs, graph replays and Philox launches, and
+   fails with no replay or no Philox launch; accept within 0.05 of its
+   target, mean depth below its cap less 1, divergences <= 1% (the funnel
+   exempt, as in phase 5) and finite draws. Posteriors: hier1000's mu and
+   tau = exp(log_tau) within 4 posterior sd (+0.02) of the generator's
+   truth; hier1000 against hier1000_full, mu's and log_tau's means within 4
+   combined Monte Carlo standard errors (sd / sqrt(ESS), ESS on the card);
+   poisson1000's mu and tau against the truth as in phase 7; glm100 and
+   glm1000 against the Laplace approximation on the same f32 X.
 8. Layout invariance: three NUTS steps at fixed tunables, driven by the
    engine's per-chain draws and replayed as the transition's CUDA graphs,
    through a small elementwise model (4 and 8 chains), glm100_fused's K1
    vag on bf16, int8 and f32 X (4 and 4096 chains) and poisson1000_cov's
-   K3 vag (4 and 512 chains): chains 0-3 must be bit-identical.
+   K3 vag (4 and 512 chains) and hier1000's sufficient-statistic vag (4
+   and 512 chains): chains 0-3 must be bit-identical.
 9. The kernels JSON line (K1 one-pass, K1 wide, K1 int8 one-pass and wide,
    K2, K3, K4, Philox, and K1, K2 and K4 on f32 X, K1 also at glm1000; K4,
    int8 wide, K2 and K4 f32 and K1 f32 at glm1000, on no sampling path,
    with their phase-3 launches; K1 f32 with the f32 cut run's; the
-   variants with their launches from phase 3b's entry points), then the
+   variants with their launches from phase 3b's entry points; Philox with
+   its launches on each path of phase 7b beside the main path's), then the
    contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -105,7 +129,8 @@ just after; a path that launched one of its kernels no time fails. Phases
 4-7 sample through ``sample()``, whose transitions replay CUDA graphs
 wherever the value+grad declares that they may (every fused path): each
 prints its wall, host syncs, graph replays and the pair iterations per
-replay, and a fused path that replayed no graph fails. Launches inside a
+replay, and a path whose value+grad declares ``graph_safe`` (every one
+since phase 7b's configs) that replayed no graph fails. Launches inside a
 graph are counted at capture and added at every replay.
 Imports nothing of JAX or of the reference package.
 """
@@ -750,7 +775,7 @@ _STEP_FIELDS = ("position", "log_prob", "grad", "accept_prob", "is_accepted", "i
                 "energy", "info.log_prob", "num_integration_steps", "tree_depth", "step_size")
 
 
-def check_sampler(label, metrics, target, max_depth, need) -> None:
+def check_sampler(label, metrics, target, max_depth, need, divergences: bool = True) -> None:
     for kernel in need:
         if metrics["launches"][kernel] == 0:
             fail(f"{label} launched {kernel} no time")
@@ -758,7 +783,7 @@ def check_sampler(label, metrics, target, max_depth, need) -> None:
         fail(f"{label}: mean accept {metrics['mean_accept']} outside {target} +- 0.05")
     if metrics["mean_tree_depth"] >= max_depth:
         fail(f"{label}: mean tree depth {metrics['mean_tree_depth']} >= {max_depth}")
-    if metrics["divergence_rate"] > 0.01:
+    if divergences and metrics["divergence_rate"] > 0.01:
         fail(f"{label}: divergence rate {metrics['divergence_rate']} > 1%")
 
 
@@ -853,6 +878,98 @@ def layout_invariance(label: str, vag, dim: int, counts: tuple, step_size: float
         f"{counts[1]} chains through CUDA graphs (tree depths {out[counts[0]][2].tolist()})")
 
 
+def mean_mcse(draws):
+    """Mean and Monte Carlo standard error (sd / sqrt(ESS), the ESS on the
+    card) of one parameter's (chains, draws) store."""
+    from mlx_mcmc_tpu_torch.diagnostics.device import device_ess
+
+    mean, sd = draw_moments(draws.reshape(-1, 1))
+    ess = float(device_ess(draws.float()[..., None])[0])
+    return float(mean), float(sd) / math.sqrt(ess), float(sd)
+
+
+def truth_check(label, draws, truth):
+    """A posterior mean within 4 posterior sd (+0.02) of the truth."""
+    mean, sd = draw_moments(draws.reshape(-1, 1))
+    gap = abs(float(mean) - truth)
+    log(f"  {label}: mean {float(mean):.4f} sd {float(sd):.4f} truth {truth:.4f}")
+    if gap > 4 * float(sd) + 0.02:
+        fail(f"{label}: mean {float(mean)} is {gap} from truth {truth}")
+
+
+def plain_laplace(data, beta):
+    """``laplace_check`` on a plain GLM's f32 ``X`` and ``y``."""
+    return laplace_check({"dim": data["X"].shape[1], "Xp": data["X"], "yp": data["y"]}, beta)
+
+
+def other_configs(CONFIGS, h_problem, po_problem, g_problem, t_start) -> dict:
+    """Phase 7b: the reference's other bench configs through ``sample()``
+    (see the module docstring). Returns each path's Philox launches."""
+    from mlx_mcmc_tpu_torch.bench import build_problem
+    from mlx_mcmc_tpu_torch.models import make_hierarchical_normal, make_poisson_event_rates
+
+    philox = {}
+
+    def run(name, cfg, problem=None, funnel=False):
+        metrics, result = drive(name, cfg, problem)
+        launched = metrics["launches"]["philox_step_draws"]
+        log(f"{name}: wall {metrics['wall_seconds']:.2f} s, host syncs {metrics['host_syncs']}, "
+            f"graph replays {metrics['graph_replays']}, Philox launches {launched}; accept "
+            f"{metrics['mean_accept']:.4f}, depth {metrics['mean_tree_depth']:.3f}, divergences "
+            f"{metrics['divergences']}, min-ESS {metrics['min_ess']:.1f}")
+        if metrics["graph_replays"] == 0:
+            fail(f"{name} replayed no graph")
+        # the funnel's divergences are the point of it (as in phase 5)
+        check_sampler(name, metrics, cfg["target_accept"], cfg["max_tree_depth"] - 1,
+                      ["philox_step_draws"], divergences=not funnel)
+        for k, v in result.samples.items():
+            if v.shape[:2] != (cfg["num_chains"], cfg["num_samples"]):
+                fail(f"{name} draws {k} have shape {tuple(v.shape)}")
+            if not bool(torch.isfinite(v).all()):
+                fail(f"{name} draws {k} are not finite")
+        philox[name] = launched
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+        return metrics, result
+
+    hcfg = CONFIGS["hier1000"]
+    _, hres = run("hier1000", hcfg, h_problem)
+    truth = make_hierarchical_normal(hcfg["num_groups"], hcfg["obs_per_group"], seed=0).truth
+    truth_check("hier1000 mu", hres.samples["mu"], truth["mu"])
+    truth_check("hier1000 tau", torch.exp(hres.samples["log_tau"].float()), truth["tau"])
+    suff = {k: mean_mcse(hres.samples[k]) for k in ("mu", "log_tau")}
+    del hres
+    _, fres = run("hier1000_full", CONFIGS["hier1000_full"])
+    for k in ("mu", "log_tau"):
+        m_s, se_s, _ = suff[k]
+        m_f, se_f, _ = mean_mcse(fres.samples[k])
+        log(f"  hier1000 vs hier1000_full {k}: {m_s:.5f} +- {se_s:.5f} against "
+            f"{m_f:.5f} +- {se_f:.5f}")
+        if abs(m_s - m_f) > 4 * math.hypot(se_s, se_f):
+            fail(f"hier1000 and hier1000_full disagree on {k}: {m_s} against {m_f}")
+    del fres
+    po_cfg = CONFIGS["poisson1000"]
+    _, pres = run("poisson1000", po_cfg, po_problem)
+    truth = make_poisson_event_rates(po_cfg["num_groups"], po_cfg["obs_per_group"], seed=0).truth
+    truth_check("poisson1000 mu", pres.samples["mu"], truth["mu"])
+    truth_check("poisson1000 tau", torch.exp(pres.samples["log_tau"].float()), truth["tau"])
+    del pres
+    for name, problem in (("glm100", g_problem), ("glm1000", None)):
+        cfg = CONFIGS[name]
+        problem = problem or build_problem(cfg)
+        _, gres = run(name, cfg, problem)
+        z_gap, sd_lo, sd_hi = plain_laplace(problem[2], gres.samples["beta"])
+        log(f"{name} vs Laplace on the same f32 X: max |mean - MAP| / sd = {z_gap:.4f}, "
+            f"sd ratio in [{sd_lo:.4f}, {sd_hi:.4f}]")
+        if z_gap > 0.25 or not (0.9 <= sd_lo and sd_hi <= 1.1):
+            fail(f"{name}: posterior moments disagree with the Laplace approximation")
+        del gres, problem
+    cut = dict(CONFIGS["funnel8"], num_warmup=100, num_samples=100)
+    log("funnel8 standalone: 1024 chains, depth 10, target 0.8, cut to 100 + 100 (the bench: "
+        "500 + 500)")
+    run("funnel8 (100 + 100)", cut, funnel=True)
+    return philox
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -878,7 +995,7 @@ def main() -> None:
             if any(w in line for w in ("registers", "spill", "Performance", "warning", "Compiling")):
                 log(f"  ptxas {name}: {line.strip()}")
 
-    from mlx_mcmc_tpu_torch.bench import CONFIGS, build_problem
+    from mlx_mcmc_tpu_torch.bench import CONFIGS, FUNNEL_DETAIL, build_problem
     from mlx_mcmc_tpu_torch.models import make_poisson_event_rates
     from mlx_mcmc_tpu_torch.ops.glm import (
         fused_hoisted_vag_cuda,
@@ -1090,6 +1207,9 @@ def main() -> None:
         1 << (cfg["max_tree_depth"] - 1), timed=True,
     )
     check_philox("ragged", torch.arange(1000, 1037, device="cuda"), 7, 128, timed=False)
+    hcfg = CONFIGS["hier1000"]
+    check_philox("hier1000", torch.arange(hcfg["num_chains"], device="cuda"),
+                 hcfg["num_groups"] + 2, 1 << (hcfg["max_tree_depth"] - 1), timed=False)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- the variants of K1's body, through the benchmark entry points -----
@@ -1127,6 +1247,27 @@ def main() -> None:
     f_flp, _, _ = make_flat_logprob(f_spec.log_prob, f_spec.initial_params, device="cuda")
     graph_checks["generic (funnel)"] = graphs_vs_eager(
         "generic (funnel)", make_batched_value_and_grad(f_flp), 10, 512, 0.05, 10, 0.3)
+    # phase 7b's value+grads: the sufficient-statistic vags and the plain
+    # GLM's autograd one over f32 X
+    h_problem = build_problem(hcfg)
+    po_cfg = CONFIGS["poisson1000"]
+    po_problem = build_problem(po_cfg)
+    g_cfg = CONFIGS["glm100"]
+    g_problem = build_problem(g_cfg)
+    h_vag = bind(h_problem[3]["value_and_grad_fn"], h_problem[2])
+    graph_checks["suffstat hier1000"] = graphs_vs_eager(
+        "suffstat hier1000", h_vag, hcfg["num_groups"] + 2, hcfg["num_chains"], 0.005,
+        hcfg["max_tree_depth"], 0.1)
+    graph_checks["suffstat poisson1000"] = graphs_vs_eager(
+        "suffstat poisson1000", bind(po_problem[3]["value_and_grad_fn"], po_problem[2]),
+        po_cfg["num_groups"] + 2, po_cfg["num_chains"], 0.002, po_cfg["max_tree_depth"], 0.1)
+    g_flp, _, _ = make_flat_logprob(g_problem[0], g_problem[1], data_aware=True, device="cuda")
+    graph_checks["generic (glm100 plain)"] = graphs_vs_eager(
+        "generic (glm100 plain)", make_batched_value_and_grad(g_flp, g_problem[2]),
+        g_cfg["num_features"], g_cfg["num_chains"], 0.02, g_cfg["max_tree_depth"], 0.1)
+    for label in ("suffstat hier1000", "suffstat poisson1000", "generic (glm100 plain)"):
+        if not graph_checks[label]["captured"]:
+            fail(f"graphs vs eager ({label}): the value+grad is not graph_safe")
     del q_glm100
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
@@ -1207,8 +1348,8 @@ def main() -> None:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- funnel detail ----------------------------------------------------
-    fcfg = CONFIGS["funnel8"]
-    fmetrics, fresult = drive("funnel8", fcfg)
+    fcfg = FUNNEL_DETAIL
+    fmetrics, fresult = drive("funnel8 detail row", fcfg)
     if fmetrics["launches"]["philox_step_draws"] == 0:
         fail("the funnel launched the Philox kernel no time")
     for k, v in fresult.samples.items():
@@ -1254,6 +1395,10 @@ def main() -> None:
     del presult, s
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
+    # --- the reference's other bench configs -------------------------------
+    philox_by_path = other_configs(CONFIGS, h_problem, po_problem, g_problem, t_start)
+    del h_problem, po_problem, g_problem
+
     # --- layout invariance -------------------------------------------------
     layout_invariance("elementwise", elementwise_vag(), 3, (4, 8), 0.4, 6)
     layout_invariance("glm100_fused through K1", bind(k1_vag, data), d,
@@ -1265,6 +1410,9 @@ def main() -> None:
     layout_invariance("poisson1000_cov through K3", bind(k3_vag, p_data),
                       pcfg["covariate_dim"] + 2 + pcfg["num_groups"], (4, c_p), 0.002,
                       pcfg["max_tree_depth"], init_scale=0.1)
+    layout_invariance("hier1000 through its sufficient statistics", h_vag,
+                      hcfg["num_groups"] + 2, (4, hcfg["num_chains"]), 0.005,
+                      hcfg["max_tree_depth"], init_scale=0.1)
 
     glm_src = "mlx_mcmc_tpu_torch/csrc/glm_fused.cu"
     k1, k2, k4 = ("mlx_mcmc_tpu/ops/pallas/glm.py:49", "mlx_mcmc_tpu/ops/pallas/glm.py:281",
@@ -1307,6 +1455,8 @@ def main() -> None:
             extra["sampling_path"] = False
         if key == "K1_f32":
             extra["phase3_launches"] = f32_launches["K1_f32"]
+        if key == "philox":
+            extra["launches_by_path"] = dict(philox_by_path, glm100_fused=launches[key])
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[key], "max_abs_err": row["max_abs_err"],

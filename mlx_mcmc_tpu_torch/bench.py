@@ -1,33 +1,53 @@
-"""The port's benchmark entries: ``glm100_fused`` and ``glm1000_fused``
-(each with the ``funnel8`` detail) and ``poisson1000_cov``.
+"""The port's benchmark entries: the reference's nine bench configs.
 
-Counterpart of the repository's ``bench.py`` for these configs, with the
-same settings and the same JSON line. Run on the GPU:
+Counterpart of the repository's ``bench.py``, with the same configs, the
+same settings, the same environment overrides and the same JSON line. Run
+on the GPU:
 
-    python -m mlx_mcmc_tpu_torch.bench [glm100_fused | glm1000_fused | poisson1000_cov]
+    python -m mlx_mcmc_tpu_torch.bench [CONFIG]
+        # glm100_fused (default), glm100, glm1000, glm1000_fused, hier1000,
+        # hier1000_full, poisson1000, poisson1000_cov or funnel8; the GLM
+        # configs add the funnel detail row (FUNNEL_DETAIL)
     python -m mlx_mcmc_tpu_torch.bench loop    # costs inside the NUTS loop
     python -m mlx_mcmc_tpu_torch.bench ksweep [CONFIG ...]
         # full runs (warm, then timed) at each pair-iteration count per
         # graph replay, graphs.PAIRS_PER_REPLAY = 1, 2, 4, 8 (default
         # configs glm100_fused, glm1000_fused and poisson1000_cov)
     python -m mlx_mcmc_tpu_torch.bench paired [CONFIG ...] [--against ROOT] [--no-runs]
+            [--no-kernels]
         # the kernels of each config's main path at its shape, then its walls
         # and device busy share, beside ROOT's package in turns (default
         # configs glm100_fused and poisson1000_cov)
 
+As in the reference, ``BENCH_CONFIG`` (or the first argument) names the
+config and ``BENCH_CHAINS``, ``BENCH_SAMPLES``, ``BENCH_WARMUP`` and
+``BENCH_DEPTH`` override its chain count, draws, warmup steps and depth
+cap; ``BENCH_SKIP_FUNNEL`` drops the funnel detail row. The line's value is
+rounded to 2 places and ``vs_baseline`` to 1, the detail's statistics as
+the reference rounds them.
+
 The timed run follows a warm run (kernel build, allocator and library
 start-up are excluded; so is the capture of the transition's CUDA graphs,
 which the runner cache keeps from the warm run). ESS is computed on the
-device. The detail adds every kernel's launch count, the host-sync count
-and the graph replays of the timed run, the pair iterations per replay and
-the seconds ``build_problem`` took to make the data. Every config samples the
-reference's own dataset: ``models/glm.py`` and ``models/poisson.py`` draw
-them from the reference's threefry streams (``models/jax_random.py``), key
-for key, the Poisson counts through ``jax.random.poisson``'s own algorithm.
+device. The detail adds the adapted step size, every kernel's launch count,
+the host-sync count and the graph replays of the timed run, the pair
+iterations per replay and the seconds ``build_problem`` took to make the
+data. Every config samples the
+reference's own dataset: ``models/glm.py``, ``models/hierarchical.py`` and
+``models/poisson.py`` draw them from the reference's threefry streams
+(``models/jax_random.py``), key for key, the Poisson counts through
+``jax.random.poisson``'s own algorithm.
+
+The configs' value+grads: the fused GLM and Poisson-regression kernels
+(``*_fused``, ``poisson1000_cov``), the closed-form sufficient-statistic
+collapse (``hier1000``, ``poisson1000``: ``ops/suffstats.py``), and
+autograd of a data-aware model (``glm100``, ``glm1000``: f32 X;
+``hier1000_full``: the full 998 x 100 observations; ``funnel8``). Every one
+declares ``graph_safe``, so every config samples through CUDA graphs.
 ``build_problem`` also knows the Gaussian linear regression
 (``family="linear"``) that ``chip_smoke.py`` drives through K2; a GLM
 config with ``quantize="int8"`` stores X as the reference's int8 with
-per-column scales, and one with ``x_dtype="float32"`` keeps the
+per-column scales, and a fused one with ``x_dtype="float32"`` keeps the
 reference's X in float32 (the recipe's draws before the bf16 cast); the
 reference's bench has none of these configs, so neither has this one.
 """
@@ -37,6 +57,7 @@ from __future__ import annotations
 import importlib
 import inspect
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -48,9 +69,11 @@ import torch
 
 from mlx_mcmc_tpu_torch import sample
 from mlx_mcmc_tpu_torch.diagnostics.device import device_ess_chunked
+from mlx_mcmc_tpu_torch.distributions import Normal
 from mlx_mcmc_tpu_torch.inference import graphs
 from mlx_mcmc_tpu_torch.models import (
     eight_schools,
+    make_hierarchical_normal,
     make_linear_regression,
     make_logistic_regression,
     make_poisson_event_rates,
@@ -70,6 +93,13 @@ from mlx_mcmc_tpu_torch.ops.poisson import (
     prepare_fused_poisson_data,
 )
 from mlx_mcmc_tpu_torch.ops.random import step_draws_cuda
+from mlx_mcmc_tpu_torch.ops.suffstats import (
+    hier_suffstat_log_prob,
+    make_hier_normal_vag,
+    make_poisson_rates_model,
+    prepare_hier_normal_data,
+    prepare_poisson_rates_data,
+)
 
 # Every kernel wrapper, by the name of its kernel entry (the hoisted GLM
 # kernel is on no sampling path: its count stays 0 in a run).
@@ -90,26 +120,76 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     return {name: wrapper.launches for name, wrapper in KERNELS.items()}
 
+# The reference's configs (bench.py:41-193), setting for setting; labels
+# say "CUDA" where the reference's say "Pallas". ``target_accept`` is the
+# reference's default (0.8) where its config names none.
 CONFIGS = {
+    # Plain autograd over f32 X: the reference's fair comparison for the
+    # fused kernel.
+    "glm100": dict(
+        family="glm", num_features=100, num_obs=10_000, num_chains=4096,
+        num_warmup=500, num_samples=500, max_tree_depth=8, target_accept=0.8,
+        store_dtype=None, baseline_ess_per_sec=0.44, fused=False,
+        label="min-ESS/sec/chip, NUTS 100-param logistic GLM (10K obs, {chains} chains)",
+    ),
     "glm100_fused": dict(
         family="glm", num_features=100, num_obs=10_000, num_chains=4096,
         num_warmup=300, num_samples=2000, max_tree_depth=6,
         target_accept=0.8, store_dtype="bfloat16",
-        baseline_ess_per_sec=0.44,
+        baseline_ess_per_sec=0.44, fused=True,
         label=(
             "min-ESS/sec/chip, NUTS 100-param logistic GLM "
             "(10K obs, {chains} chains, bf16 fused CUDA)"
         ),
     ),
-    # The reference's wide GLM row (bench.py:105-113, run as at 387-415):
+    "glm1000": dict(
+        family="glm", num_features=1000, num_obs=100_000, num_chains=16,
+        num_warmup=400, num_samples=400, max_tree_depth=8, target_accept=0.8,
+        store_dtype=None, baseline_ess_per_sec=0.03, fused=False,
+        label="min-ESS/sec/chip, NUTS 1000-param logistic GLM (100K obs, 16 chains)",
+    ),
     # D = 1000 takes the kernel's two-kernel wide path; f32 draw store.
     "glm1000_fused": dict(
         family="glm", num_features=1000, num_obs=100_000, num_chains=256,
         num_warmup=400, num_samples=400, max_tree_depth=8,
-        target_accept=0.8, store_dtype=None, baseline_ess_per_sec=0.03,
+        target_accept=0.8, store_dtype=None, baseline_ess_per_sec=0.03, fused=True,
         label=(
             "min-ESS/sec/chip, NUTS 1000-param logistic GLM "
             "(100K obs, {chains} chains, bf16 fused CUDA)"
+        ),
+    ),
+    # The 1000-parameter non-centered hierarchical normal (mu, log_tau and
+    # 998 group effects, 99.8K observations): the Gaussian likelihood
+    # collapses exactly to per-group means (ops/suffstats.py), so a leapfrog
+    # is O(chains x G) elementwise work; hier1000_full keeps the full data.
+    # The chain counts are the reference's, sized to a TPU v5e's memory.
+    "hier1000": dict(
+        family="hier", num_groups=998, obs_per_group=100, suffstats=True,
+        num_chains=512, num_warmup=400, num_samples=1000, max_tree_depth=10,
+        target_accept=0.8, store_dtype="bfloat16", baseline_ess_per_sec=0.03, fused=False,
+        label=(
+            "min-ESS/sec/chip, NUTS 1000-param non-centered hierarchical "
+            "(99.8K obs, {chains} chains, sufficient-statistic likelihood)"
+        ),
+    ),
+    "hier1000_full": dict(
+        family="hier", num_groups=998, obs_per_group=100, suffstats=False,
+        num_chains=128, num_warmup=400, num_samples=400, max_tree_depth=10,
+        target_accept=0.8, store_dtype=None, baseline_ess_per_sec=0.03, fused=False,
+        label=(
+            "min-ESS/sec/chip, NUTS 1000-param non-centered hierarchical "
+            "(99.8K obs, {chains} chains, full-data likelihood)"
+        ),
+    ),
+    # Poisson event rates, 1000 groups x 100 counts: the sufficient-statistic
+    # collapse (per-group sums), the Poisson sibling of hier1000.
+    "poisson1000": dict(
+        family="poisson", num_groups=1000, obs_per_group=100,
+        num_chains=512, num_warmup=400, num_samples=1000, max_tree_depth=10,
+        target_accept=0.9, store_dtype="bfloat16", baseline_ess_per_sec=0.03, fused=False,
+        label=(
+            "min-ESS/sec/chip, NUTS 1000-group hierarchical Poisson rates "
+            "(100K obs, {chains} chains, sufficient-statistic likelihood)"
         ),
     ),
     # The non-collapsible Poisson row (bench.py:164-181): per-count
@@ -117,51 +197,122 @@ CONFIGS = {
     "poisson1000_cov": dict(
         family="poisson", num_groups=1000, obs_per_group=100, covariate_dim=4,
         num_chains=512, num_warmup=400, num_samples=400, max_tree_depth=8,
-        target_accept=0.9, store_dtype="bfloat16", baseline_ess_per_sec=0.03,
+        target_accept=0.9, store_dtype="bfloat16", baseline_ess_per_sec=0.03, fused=True,
         label=(
             "min-ESS/sec/chip, NUTS 1000-group hierarchical Poisson "
             "regression (100K obs, {chains} chains, fused CUDA)"
         ),
     ),
-    # The detail row as the reference's bench runs it next to the GLM.
+    # The standalone funnel: centered eight schools, the divergence stress.
     "funnel8": dict(
-        family="funnel", num_chains=512, num_warmup=400, num_samples=400,
-        max_tree_depth=10, target_accept=0.9, store_dtype=None,
-        baseline_ess_per_sec=None,
+        family="funnel", num_chains=1024, num_warmup=500, num_samples=500,
+        max_tree_depth=10, target_accept=0.8, store_dtype=None,
+        baseline_ess_per_sec=None, fused=False,
         label="min-ESS/sec/chip, NUTS centered eight-schools funnel ({chains} chains)",
     ),
 }
 
+# The funnel detail row as the reference builds it next to a GLM config
+# (bench.py:540-546): the standalone funnel at 512 chains, 400 + 400, target
+# 0.9.
+FUNNEL_DETAIL = dict(CONFIGS["funnel8"], num_chains=512, num_warmup=400, num_samples=400,
+                     target_accept=0.9)
 
-def build_problem(cfg):
-    """Return ``(log_prob_fn, initial_params, data, extra_kwargs)``."""
-    x_dtype = torch.float32 if cfg.get("x_dtype") == "float32" else torch.bfloat16
+# Environment overrides of a config's settings, as the reference reads them.
+ENV_OVERRIDES = {
+    "BENCH_CHAINS": "num_chains",
+    "BENCH_SAMPLES": "num_samples",
+    "BENCH_WARMUP": "num_warmup",
+    "BENCH_DEPTH": "max_tree_depth",
+}
+
+
+def config_from_env(name: str, environ=os.environ) -> dict:
+    """``CONFIGS[name]`` with the ``ENV_OVERRIDES`` found in ``environ`` and
+    its label formatted with the chain count."""
+    cfg = dict(CONFIGS[name])
+    for var, key in ENV_OVERRIDES.items():
+        if environ.get(var):
+            cfg[key] = int(environ[var])
+    cfg["label"] = cfg["label"].format(chains=cfg["num_chains"])
+    return cfg
+
+
+def plain_glm_log_prob(params, data):
+    """The plain GLM's data-aware log density (reference ``bench.py:242-
+    248``): the logistic likelihood of ``data["X"]`` (f32) and ``data["y"]``
+    with softplus as ``logaddexp(s, 0)``, and a unit normal prior."""
+    beta = params["beta"]
+    s = data["X"] @ beta
+    ll = (data["y"] * s - torch.logaddexp(s, torch.zeros_like(s))).sum()
+    return ll + Normal(0.0, 1.0).log_prob(beta).sum()
+
+
+plain_glm_log_prob.graph_safe = True
+
+
+def hier_full_log_prob(params, data):
+    """hier1000_full's data-aware log density over every observation
+    ``data["y"] (G, n)`` (reference ``bench.py:273-282``)."""
+    mu, log_tau, theta_raw = params["mu"], params["log_tau"], params["theta_raw"]
+    theta = mu + torch.exp(log_tau) * theta_raw
+    lp = Normal(0.0, 5.0).log_prob(mu)
+    lp = lp + Normal(0.0, 1.0).log_prob(log_tau)
+    lp = lp + Normal(0.0, 1.0).log_prob(theta_raw).sum()
+    return lp + Normal(theta[:, None], 1.0).log_prob(data["y"]).sum()
+
+
+hier_full_log_prob.graph_safe = True
+
+
+def build_problem(cfg, device=None):
+    """Return ``(log_prob_fn, initial_params, data, extra_kwargs)`` on
+    ``device`` (None: the card)."""
+    fused = cfg.get("fused", True)
+    x_dtype = torch.float32 if cfg.get("x_dtype") == "float32" or not fused else torch.bfloat16
     if cfg["family"] == "glm":
         spec = make_logistic_regression(
             num_features=cfg["num_features"], num_obs=cfg["num_obs"], seed=0,
-            data_dtype=x_dtype,
+            data_dtype=x_dtype, device=device,
         )
-        data = prepare_fused_logistic_data(spec.X, spec.y, quantize=cfg.get("quantize"))
+        if not fused:
+            return plain_glm_log_prob, spec.initial_params, {"X": spec.X, "y": spec.y}, {}
+        data = prepare_fused_logistic_data(spec.X, spec.y, quantize=cfg.get("quantize"),
+                                           device=device)
         extra = {"value_and_grad_fn": make_fused_logistic_vag(prior_scale=1.0)}
         return None, spec.initial_params, data, extra
     if cfg["family"] == "linear":
         spec = make_linear_regression(
             num_features=cfg["num_features"], num_obs=cfg["num_obs"], seed=0,
-            data_dtype=x_dtype,
+            data_dtype=x_dtype, device=device,
         )
-        data = prepare_fused_linear_data(spec.X, spec.y)
+        data = prepare_fused_linear_data(spec.X, spec.y, device=device)
         extra = {"value_and_grad_fn": make_fused_linear_vag(prior_scale=1.0)}
         return None, spec.initial_params, data, extra
+    if cfg["family"] == "hier":
+        spec = make_hierarchical_normal(
+            num_groups=cfg["num_groups"], obs_per_group=cfg["obs_per_group"], seed=0,
+            device=device,
+        )
+        if cfg.get("suffstats"):
+            data = prepare_hier_normal_data(spec.y, device=device)
+            extra = {"value_and_grad_fn": make_hier_normal_vag()}
+            return hier_suffstat_log_prob, spec.initial_params, data, extra
+        return hier_full_log_prob, spec.initial_params, {"y": spec.y}, {}
     if cfg["family"] == "poisson":
         spec = make_poisson_event_rates(
             num_groups=cfg["num_groups"], obs_per_group=cfg["obs_per_group"],
-            covariate_dim=cfg["covariate_dim"], seed=0,
+            covariate_dim=cfg.get("covariate_dim", 0), seed=0, device=device,
         )
-        data = prepare_fused_poisson_data(spec.y, spec.X)
-        log_prob, vag = make_fused_poisson_model()
+        if cfg.get("covariate_dim", 0) > 0:
+            data = prepare_fused_poisson_data(spec.y, spec.X, device=device)
+            log_prob, vag = make_fused_poisson_model()
+        else:
+            data = prepare_poisson_rates_data(spec.y, device=device)
+            log_prob, vag = make_poisson_rates_model()
         return log_prob, spec.initial_params, data, {"value_and_grad_fn": vag}
     if cfg["family"] == "funnel":
-        spec = eight_schools(centered=True)
+        spec = eight_schools(centered=True, device=device)
         return spec.log_prob, spec.initial_params, None, {}
     raise ValueError(f"unknown family: {cfg['family']!r}")
 
@@ -203,6 +354,7 @@ def run_config(cfg, seed: int = 1, problem=None):
         "divergence_rate": result.divergences / draws,
         "mean_accept": result.acceptance_rate,
         "mean_tree_depth": float(result.info.tree_depth.float().mean()),
+        "final_step_size": float(result.tunables.step_size),
         "ess_backend": "device",
         "launches": {k: v - launches0[k] for k, v in launch_counts().items()},
         "host_syncs": result.host_syncs,
@@ -230,8 +382,9 @@ _elementwise_vag.graph_safe = True
 
 
 def loop_costs() -> dict:
-    """Host-clock costs inside the NUTS loop, at the funnel's shape (512
-    chains, centered eight schools): one NUTS step's ms per pair iteration
+    """Host-clock costs inside the NUTS loop, at the funnel detail row's
+    shape (``FUNNEL_DETAIL``: 512 chains, depth cap 10, centered eight
+    schools): one NUTS step's ms per pair iteration
     with a trivial value+grad (the loop body alone) and with the generic
     one, eagerly (one host check per iteration) and, where the value+grad
     is captured, through the transition's CUDA graphs (per pair iteration
@@ -243,10 +396,11 @@ def loop_costs() -> dict:
     from mlx_mcmc_tpu_torch.kernels.nuts import make_nuts_kernel
     from mlx_mcmc_tpu_torch.ops.ravel import make_flat_logprob
 
+    chains, depth = FUNNEL_DETAIL["num_chains"], FUNNEL_DETAIL["max_tree_depth"]
     spec = eight_schools(centered=True)
     flp, _, _ = make_flat_logprob(spec.log_prob, spec.initial_params, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    Z = 0.3 * torch.randn(512, 10, generator=gen, device="cuda")
+    Z = 0.3 * torch.randn(chains, 10, generator=gen, device="cuda")
     generic = make_batched_value_and_grad(flp)
     grad_and_value = torch.func.vmap(torch.func.grad_and_value(flp))
     out = {
@@ -254,10 +408,10 @@ def loop_costs() -> dict:
         "vmap_grad_and_value_ms": _ms_per_call(grad_and_value, Z),
     }
     tun = Tunables(torch.tensor(0.05, device="cuda"), torch.ones(10, device="cuda"))
-    r0 = torch.randn(512, 10, generator=gen, device="cuda")
-    U = torch.rand(512, 512, 4, generator=gen, device="cuda")
+    r0 = torch.randn(chains, 10, generator=gen, device="cuda")
+    U = torch.rand(chains, 1 << (depth - 1), 4, generator=gen, device="cuda")
     for name, vag in [("body", _elementwise_vag), ("funnel", generic)]:
-        init_fn, step_fn = make_nuts_kernel(vag, max_tree_depth=10)
+        init_fn, step_fn = make_nuts_kernel(vag, max_tree_depth=depth)
         state = init_fn(Z)
         step_fn(state, tun, r0, U)
         torch.cuda.synchronize()
@@ -268,7 +422,7 @@ def loop_costs() -> dict:
         out[f"{name}_iterations"] = syncs
         out[f"{name}_graph_ms_per_iteration"] = None
         if graphs.captures(vag):
-            transition = graphs.GraphedTransition(vag, max_tree_depth=10)
+            transition = graphs.GraphedTransition(vag, max_tree_depth=depth)
             transition.step(state, tun, r0, U)  # captures
             torch.cuda.synchronize()
             replays0 = transition.graphs["pairs"].replays
@@ -396,7 +550,8 @@ def _bench_from(root: str):
 # The kernels each config's main path runs, timed by ``paired_times`` at the
 # config's shape: (label, wrapper name in this module, family of the data;
 # "glm_int8" is the GLM data stored as int8, the scales folded into Z;
-# "glm_f32" and "linear_f32" the data with X in float32).
+# "glm_f32" and "linear_f32" the data with X in float32). The other configs
+# run no kernel but Philox: ``paired_times`` gives them their runs alone.
 PAIRED_KERNELS = {
     "glm100_fused": [("K1", "fused_logistic_vag_cuda", "glm"),
                      ("K2", "fused_linear_vag_cuda", "linear"),
@@ -442,7 +597,8 @@ def _kernel_call(pkg, wrapper: str, cfg: dict, family: str):
     return lambda: fn(data["Xp"], data["yp"], Z, **xt)
 
 
-def paired_times(names, against: str | None = None, runs: bool = True, emit=None) -> dict:
+def paired_times(names, against: str | None = None, runs: bool = True, emit=None,
+                 kernels: bool = True) -> dict:
     """For each config in ``names``: device ms per call of each kernel its
     main path runs (``PAIRED_KERNELS``) at its shape, with the host's
     enqueue hidden (``kernel_ms``) and per wrapper call (``call_ms``), and
@@ -450,7 +606,7 @@ def paired_times(names, against: str | None = None, runs: bool = True, emit=None
     full run of the config (wall to the device ESS, launches, host syncs,
     min-ESS) and the device's busy share over a 20 + 20 run under the
     profiler (``emit(phase, name, results)`` after each phase, so a run cut
-    short keeps what it measured). With ``against``, the root of another
+    short keeps what it measured); without ``kernels``, the runs alone. With ``against``, the root of another
     checkout, the same for that checkout's package in this process, in
     turns (other, this, this, other), so both are measured on one card in
     one call. The kernels get this package's inputs; each package samples
@@ -467,7 +623,7 @@ def paired_times(names, against: str | None = None, runs: bool = True, emit=None
         cfg = CONFIGS[name]
         res = out[name] = {key: {"kernel_ms": {}, "call_ms": {}, "kernels_ms": {}, "runs": []}
                            for key in packages}
-        for label, wrapper, family in PAIRED_KERNELS[name]:
+        for label, wrapper, family in PAIRED_KERNELS.get(name, []) if kernels else []:
             calls = {key: _kernel_call(pkg, wrapper, cfg, family) for key, pkg in packages.items()}
             for key in order:
                 res[key]["kernel_ms"].setdefault(label, []).append(device_ms(calls[key]))
@@ -477,7 +633,8 @@ def paired_times(names, against: str | None = None, runs: bool = True, emit=None
             for key in packages:
                 res[key]["kernels_ms"][label] = kernels_ms(calls[key])
             del calls
-        emit("kernels", name, res)
+        if kernels:
+            emit("kernels", name, res)
         if not runs:
             continue
         problems = {key: pkg.build_problem(cfg) for key, pkg in packages.items()}
@@ -499,14 +656,47 @@ def paired_times(names, against: str | None = None, runs: bool = True, emit=None
     return out
 
 
+def rounded(metrics: dict, cfg: dict) -> dict:
+    """``run_config``'s metrics rounded as the reference's bench rounds them
+    (``bench.py:485-501``); ``ess_per_sec`` from the unrounded ESS and wall.
+    The port's own fields (launches, host syncs, replays) stay as they are."""
+    draws = cfg["num_chains"] * cfg["num_samples"]
+    return dict(
+        metrics,
+        wall_seconds=round(metrics["wall_seconds"], 2),
+        min_ess=round(metrics["min_ess"], 1),
+        median_ess=round(metrics["median_ess"], 1),
+        ess_per_sec=round(metrics["min_ess"] / metrics["wall_seconds"], 2),
+        divergence_rate=round(metrics["divergences"] / draws, 5),
+        mean_accept=round(metrics["mean_accept"], 3),
+        mean_tree_depth=round(metrics["mean_tree_depth"], 2),
+    )
+
+
+def bench_line(cfg: dict, metrics: dict, **detail) -> dict:
+    """The reference's JSON line for ``cfg``'s timed run: value rounded to
+    2 places, ``vs_baseline`` to 1, the statistics as ``rounded`` gives
+    them, ``detail`` added."""
+    metrics = rounded(metrics, cfg)
+    ess_per_sec = metrics.pop("ess_per_sec")
+    baseline = cfg["baseline_ess_per_sec"]
+    return {
+        "metric": cfg["label"],
+        "value": round(ess_per_sec, 2),
+        "unit": "ess/s",
+        "vs_baseline": round(ess_per_sec / baseline, 1) if baseline else None,
+        "detail": dict(metrics, **detail),
+    }
+
+
 def main() -> None:
-    name = sys.argv[1] if len(sys.argv) > 1 else "glm100_fused"
+    command = sys.argv[1] if len(sys.argv) > 1 else None
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    if name == "loop":
+    if command == "loop":
         print(json.dumps(dict(loop_costs(), device=smi)))
         return
-    if name == "ksweep":
+    if command == "ksweep":
         names = [a for a in sys.argv[2:] if a in CONFIGS] or [
             "glm100_fused", "glm1000_fused", "poisson1000_cov"]
 
@@ -516,38 +706,30 @@ def main() -> None:
 
         k_sweep(names, emit=emit_k)
         return
-    if name == "paired":
+    if command == "paired":
         args = sys.argv[2:]
         against = args[args.index("--against") + 1] if "--against" in args else None
-        runs = "--no-runs" not in args
         names = [a for a in args if a in CONFIGS] or ["glm100_fused", "poisson1000_cov"]
 
         def emit(phase, config, res):
             print(json.dumps({"phase": phase, "config": config, "device": smi, **res}), flush=True)
 
-        paired_times(names, against, runs, emit)
+        paired_times(names, against, "--no-runs" not in args, emit, "--no-kernels" not in args)
         return
-    cfg = dict(CONFIGS[name])
-    cfg["label"] = cfg["label"].format(chains=cfg["num_chains"])
+    cfg = config_from_env(os.environ.get("BENCH_CONFIG") or command or "glm100_fused")
     t0 = time.perf_counter()
     problem = build_problem(cfg)
     data_seconds = time.perf_counter() - t0
     run_config(cfg, seed=0, problem=problem)  # warm run
     metrics, _, _ = run_config(cfg, seed=1, problem=problem)
-    ess_per_sec = metrics.pop("ess_per_sec")
-    detail = dict(metrics, data_seconds=data_seconds, device=torch.cuda.get_device_name(0))
-    if cfg["family"] == "glm":
-        fcfg = CONFIGS["funnel8"]
-        fmetrics, _, _ = run_config(fcfg, seed=1)
-        detail["funnel_eight_schools"] = fmetrics
-    baseline = cfg["baseline_ess_per_sec"]
-    print(json.dumps({
-        "metric": cfg["label"],
-        "value": ess_per_sec,
-        "unit": "ess/s",
-        "vs_baseline": ess_per_sec / baseline if baseline else None,
-        "detail": detail,
-    }))
+    detail = {"data_seconds": data_seconds, "device": torch.cuda.get_device_name(0)}
+    if cfg["family"] == "glm" and not os.environ.get("BENCH_SKIP_FUNNEL"):
+        del problem
+        fproblem = build_problem(FUNNEL_DETAIL)
+        run_config(FUNNEL_DETAIL, seed=0, problem=fproblem)  # warm run
+        fmetrics, _, _ = run_config(FUNNEL_DETAIL, seed=1, problem=fproblem)
+        detail["funnel_eight_schools"] = rounded(fmetrics, FUNNEL_DETAIL)
+    print(json.dumps(bench_line(cfg, metrics, **detail)))
 
 
 if __name__ == "__main__":

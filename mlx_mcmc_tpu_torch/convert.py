@@ -105,6 +105,29 @@ def fused_poisson_data_from_jax(np_dict: Mapping[str, Any], device=None) -> dict
     }
 
 
+def hier_normal_data_from_jax(np_dict: Mapping[str, Any], device=None) -> dict:
+    """The reference's ``prepare_hier_normal_data`` pytree -> port data:
+    ``ybar`` as a float32 tensor, its 0-d ``n_per_group``, ``c0`` and
+    ``inv_noise_var`` as floats (``ops/suffstats.py``)."""
+    dev = resolve_device(device)
+    return {
+        "ybar": to_tensor(np_dict["ybar"], dev).float().contiguous(),
+        **{k: float(np.asarray(np_dict[k])) for k in ("n_per_group", "c0", "inv_noise_var")},
+    }
+
+
+def poisson_rates_data_from_jax(np_dict: Mapping[str, Any], device=None) -> dict:
+    """The reference's ``prepare_poisson_rates_data`` pytree -> port data:
+    the group sums ``S`` as a float32 tensor, ``n_per_group`` and ``c0`` as
+    floats."""
+    dev = resolve_device(device)
+    return {
+        "S": to_tensor(np_dict["S"], dev).float().contiguous(),
+        "n_per_group": float(np.asarray(np_dict["n_per_group"])),
+        "c0": float(np.asarray(np_dict["c0"])),
+    }
+
+
 def params_from_jax(params: Mapping[str, Any], device=None) -> dict:
     """Initial-params dict: every leaf as a float32 tensor."""
     dev = resolve_device(device)

@@ -2,6 +2,7 @@
 
 Counterpart of ``mlx_mcmc_tpu/inference/api.py`` in the subset the main
 path uses: ``data=``, ``num_chains``, ``kernel="nuts"``, ``seed``,
+``step_size``, ``adapt_step_size``, ``adapt_mass_matrix``,
 ``max_tree_depth``, ``target_accept``, ``store_dtype``,
 ``value_and_grad_fn``, ``static_schedule`` and ``device``. Draws stay on
 the device until numpy is asked for.
@@ -28,7 +29,7 @@ from mlx_mcmc_tpu_torch.diagnostics.stats import (
     summary_stats,
 )
 from mlx_mcmc_tpu_torch.inference import graphs
-from mlx_mcmc_tpu_torch.inference.engine import build_sampler, data_key
+from mlx_mcmc_tpu_torch.inference.engine import build_sampler, data_key, resolve_step_size
 from mlx_mcmc_tpu_torch.kernels.base import TransitionInfo, Tunables
 from mlx_mcmc_tpu_torch.ops.ravel import _leaves, make_flat_logprob, ravel_params
 
@@ -150,6 +151,9 @@ def sample(
     num_chains: int = 1,
     kernel: str = "nuts",
     seed: int = 0,
+    step_size="auto",
+    adapt_step_size: bool = True,
+    adapt_mass_matrix: bool = True,
     target_accept: Optional[float] = None,
     data=None,
     store_dtype=None,
@@ -165,8 +169,10 @@ def sample(
     ``data=``) returns a scalar log density. ``value_and_grad_fn(Z, data)``
     replaces autograd with a batched fused implementation; ``log_prob_fn``
     may then be None. Every chain starts at ``initial_params``; the step
-    size starts from a Stan-style probe and adapts with the diagonal mass
-    matrix during warmup.
+    size starts from a Stan-style probe (``step_size='auto'``) or from the
+    float given, and adapts with the diagonal mass matrix during warmup;
+    ``adapt_step_size=False`` keeps ``step_size`` (0.1 for ``'auto'``) and
+    ``adapt_mass_matrix=False`` the unit metric.
     ``store_dtype`` (e.g. ``'bfloat16'``) down-casts only the stored draws.
     ``static_schedule=True`` runs the reference's fixed-trip pair loop (the
     same draws, no host read inside a transition).
@@ -184,12 +190,13 @@ def sample(
     if log_prob_fn is None and value_and_grad_fn is None:
         raise ValueError("pass log_prob_fn or value_and_grad_fn")
     store = _as_dtype(store_dtype)
+    step_size = resolve_step_size(step_size, adapt_step_size)
     dkey = data_key(data)
     cache_key = None if dkey is None else (
         id(log_prob_fn), id(value_and_grad_fn), _param_spec(initial_params), dkey,
-        int(num_chains), kernel, int(num_samples), int(num_warmup), int(thin),
-        target_accept, store, int(max_tree_depth), bool(static_schedule), dev,
-        graphs.PAIRS_PER_REPLAY,
+        int(num_chains), kernel, int(num_samples), int(num_warmup), int(thin), step_size,
+        bool(adapt_step_size), bool(adapt_mass_matrix), target_accept, store,
+        int(max_tree_depth), bool(static_schedule), dev, graphs.PAIRS_PER_REPLAY,
     )
     z0, _ = ravel_params(initial_params, device=dev)
     dim = z0.shape[0]
@@ -206,6 +213,9 @@ def sample(
                 num_warmup=num_warmup,
                 num_samples=num_samples,
                 thin=thin,
+                step_size=step_size,
+                adapt_step_size=adapt_step_size,
+                adapt_mass_matrix=adapt_mass_matrix,
                 target_accept=target_accept,
                 store_dtype=store,
                 max_tree_depth=max_tree_depth,

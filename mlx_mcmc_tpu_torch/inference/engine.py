@@ -133,6 +133,19 @@ def make_batched_value_and_grad(flat_log_prob: Callable, data=None):
     return vag
 
 
+def resolve_step_size(step_size, adapt_step_size: bool):
+    """The public ``step_size`` argument: a float, or ``'auto'`` (the
+    default) for the Stan-style probe; ``'auto'`` with
+    ``adapt_step_size=False`` pins 0.1, as the reference does
+    (``mlx_mcmc_tpu/inference/engine.py:resolve_step_size``)."""
+    if isinstance(step_size, str):
+        if step_size != "auto":
+            raise ValueError(f"step_size must be a float or 'auto', got {step_size!r}")
+        if not adapt_step_size:
+            return 0.1
+    return step_size
+
+
 def build_sampler(
     flat_log_prob: Optional[Callable],
     dim: int,
@@ -141,6 +154,9 @@ def build_sampler(
     num_warmup: int = 1000,
     num_samples: int = 1000,
     thin: int = 1,
+    step_size="auto",
+    adapt_step_size: bool = True,
+    adapt_mass_matrix: bool = True,
     target_accept: Optional[float] = None,
     store_dtype=None,
     max_tree_depth: int = 10,
@@ -149,8 +165,11 @@ def build_sampler(
 ) -> Callable[..., ChainResult]:
     """Build ``run(seed, z0_batch, data=None) -> ChainResult``.
 
-    The step size starts from the Stan-style probe and adapts by dual
-    averaging; the diagonal mass matrix adapts in the windowed schedule.
+    With ``step_size='auto'`` the step size starts from the Stan-style
+    probe, otherwise from ``step_size``; it adapts by dual averaging unless
+    ``adapt_step_size=False``, which keeps ``step_size`` for every step. The
+    diagonal mass matrix adapts in the windowed schedule unless
+    ``adapt_mass_matrix=False``, which keeps the unit metric.
     ``value_and_grad_fn(Z, data) -> (ll (C,), g (C, D))`` replaces autograd
     (the fused GLM path); otherwise ``flat_log_prob`` (``(z)`` or
     ``(z, data)``) is differentiated per chain. ``store_dtype`` down-casts
@@ -169,10 +188,14 @@ def build_sampler(
         raise NotImplementedError("thin != 1 is not ported yet")
     if target_accept is None:
         target_accept = DEFAULT_TARGET_ACCEPT
-    schedule = build_schedule(num_warmup)
+    auto_step_size = isinstance(step_size, str)
+    if auto_step_size and (step_size != "auto" or not adapt_step_size):
+        raise ValueError("step_size='auto' requires adapt_step_size=True")
+    schedule = build_schedule(num_warmup, adapt_mass_matrix=adapt_mass_matrix)
 
     def _tunables(adapt: AdaptationState, log_step) -> Tunables:
-        return Tunables(step_size=torch.exp(log_step), inv_mass_diag=adapt.inv_mass_diag)
+        eps = torch.exp(log_step) if adapt_step_size else torch.full_like(log_step, step_size)
+        return Tunables(step_size=eps, inv_mass_diag=adapt.inv_mass_diag)
 
     last_graphs = {}  # the graphs of the last run, by what they bake in
 
@@ -204,21 +227,24 @@ def build_sampler(
         chains = torch.arange(num_chains, device=device)
         n_slots = 1 << (max_tree_depth - 1)
 
-        # Stan-style initialization: one leapfrog across all chains,
-        # doubling/halving eps until the mean accept crosses 0.5.
-        inv_mass0 = torch.ones((dim,), dtype=torch.float32, device=device)
-        r, _ = step_inputs(seed, chains, _PROBE_STEP, inv_mass0, 0)
-        start = IntegratorState(states.position, r, states.log_prob, states.grad)
-        e0 = total_energy(start, inv_mass0)
+        if auto_step_size:
+            # Stan-style initialization: one leapfrog across all chains,
+            # doubling/halving eps until the mean accept crosses 0.5.
+            inv_mass0 = torch.ones((dim,), dtype=torch.float32, device=device)
+            r, _ = step_inputs(seed, chains, _PROBE_STEP, inv_mass0, 0)
+            start = IntegratorState(states.position, r, states.log_prob, states.grad)
+            e0 = total_energy(start, inv_mass0)
 
-        def accept_prob_fn(eps: float) -> float:
-            eps_t = torch.tensor(eps, dtype=torch.float32, device=device)
-            e1 = total_energy(leapfrog(start, eps_t, inv_mass0, vag), inv_mass0)
-            delta = e0 - e1
-            delta = torch.where(torch.isnan(delta), -float("inf"), delta)
-            return float(torch.exp(torch.clamp(delta, max=0.0)).mean())
+            def accept_prob_fn(eps: float) -> float:
+                eps_t = torch.tensor(eps, dtype=torch.float32, device=device)
+                e1 = total_energy(leapfrog(start, eps_t, inv_mass0, vag), inv_mass0)
+                delta = e0 - e1
+                delta = torch.where(torch.isnan(delta), -float("inf"), delta)
+                return float(torch.exp(torch.clamp(delta, max=0.0)).mean())
 
-        eps_init, host_syncs = find_reasonable_step_size(accept_prob_fn)
+            eps_init, host_syncs = find_reasonable_step_size(accept_prob_fn)
+        else:
+            eps_init, host_syncs = step_size, 0
         adapt = adaptation_init(dim, eps_init, device=device)
 
         def one_step(states, t, tunables):

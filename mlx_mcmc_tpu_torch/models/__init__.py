@@ -1,5 +1,9 @@
 from mlx_mcmc_tpu_torch.models.glm import GLMSpec, make_linear_regression, make_logistic_regression
-from mlx_mcmc_tpu_torch.models.hierarchical import HierarchicalSpec, eight_schools
+from mlx_mcmc_tpu_torch.models.hierarchical import (
+    HierarchicalSpec,
+    eight_schools,
+    make_hierarchical_normal,
+)
 from mlx_mcmc_tpu_torch.models.poisson import PoissonSpec, make_poisson_event_rates
 
 __all__ = [
@@ -7,6 +11,7 @@ __all__ = [
     "HierarchicalSpec",
     "PoissonSpec",
     "eight_schools",
+    "make_hierarchical_normal",
     "make_linear_regression",
     "make_logistic_regression",
     "make_poisson_event_rates",

@@ -17,6 +17,7 @@ names = [m.name for m in pkgutil.walk_packages(mlx_mcmc_tpu_torch.__path__, "mlx
 for name in names:
     importlib.import_module(name)
 for name in ("mlx_mcmc_tpu_torch.ops.glm_variants", "mlx_mcmc_tpu_torch.models.jax_random",
+             "mlx_mcmc_tpu_torch.ops.suffstats",
              "mlx_mcmc_tpu_torch.benchmarks.glm_kernel_variants",
              "mlx_mcmc_tpu_torch.benchmarks.flagship_decomposition"):
     assert name in names, name

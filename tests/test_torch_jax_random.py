@@ -11,7 +11,10 @@ count. The GLM generators' bounds: bf16 X mismatches in at most 1e-5 of its
 elements, true beta within one float32 ulp, and y differing in at most 5
 rows, each one whose uniform lies within 1e-5 of its probability (the
 logits are summed in another order). The Poisson generator's theta, X and
-beta must be the same bits and every count the same.
+beta must be the same bits and every count the same. The hierarchical
+normal generator's group means and observations must be the same bits, also
+at a scale and noise whose products round (where a fused multiply-add
+would differ).
 """
 
 import jax
@@ -21,8 +24,14 @@ import pytest
 import torch
 
 from mlx_mcmc_tpu.models import glm as ref_glm
+from mlx_mcmc_tpu.models import make_hierarchical_normal as ref_hierarchical_normal
 from mlx_mcmc_tpu.models import poisson as ref_poisson
-from mlx_mcmc_tpu_torch.models import glm, jax_random, make_poisson_event_rates
+from mlx_mcmc_tpu_torch.models import (
+    glm,
+    jax_random,
+    make_hierarchical_normal,
+    make_poisson_event_rates,
+)
 
 SEEDS = [0, 1, 42, 123456789, 2**31 - 1]
 
@@ -195,3 +204,28 @@ def test_poisson_rates_dataset_is_the_reference_one():
     got = make_poisson_event_rates(200, 30, seed=4, device="cpu")
     assert got.X is None
     assert np.array_equal(np.asarray(ref.y), got.y.numpy())
+
+
+def _same_bits(ref, got: torch.Tensor) -> bool:
+    return np.array_equal(np.asarray(ref).view(np.uint32), got.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_hier1000_dataset_is_the_reference_one(seed):
+    ref = ref_hierarchical_normal(num_groups=998, obs_per_group=100, seed=seed)
+    got = make_hierarchical_normal(num_groups=998, obs_per_group=100, seed=seed, device="cpu")
+    assert got.y.shape == (998, 100) and got.y.dtype == torch.float32
+    assert _same_bits(ref.y, got.y)  # all 99,800 observations
+    k_theta = jax.random.split(jax.random.PRNGKey(seed))[0]
+    theta = 1.0 + 0.5 * jax.random.normal(k_theta, (998,))
+    assert _same_bits(theta, got.truth["theta"])
+    assert (got.truth["mu"], got.truth["tau"]) == (ref.truth["mu"], ref.truth["tau"])
+
+
+def test_hierarchical_dataset_rounds_as_the_reference():
+    # The reference scales and shifts its draws eagerly, one rounding per op;
+    # at these values an FMA differs in ~30% of the elements.
+    kw = dict(num_groups=37, obs_per_group=50, seed=2, true_mu=1.3, true_tau=0.37, noise_scale=1.7)
+    ref = ref_hierarchical_normal(**kw)
+    got = make_hierarchical_normal(**kw, device="cpu")
+    assert _same_bits(ref.y, got.y)

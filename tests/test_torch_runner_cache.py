@@ -67,6 +67,20 @@ def test_different_settings_get_distinct_entries():
     assert len(api._RUNNER_CACHE) == 6
 
 
+def test_tunable_settings_get_distinct_entries():
+    # the reference's key holds step_size, adapt_step_size and
+    # adapt_mass_matrix (api.py:347-366); "auto" resolves before the key
+    _run()
+    _run(step_size="auto")
+    assert len(api._RUNNER_CACHE) == 1
+    _run(step_size=0.3)
+    _run(step_size=0.3, adapt_step_size=False)
+    _run(adapt_mass_matrix=False)
+    _run(adapt_step_size=False)  # 'auto' pins 0.1
+    _run(step_size=0.1, adapt_step_size=False)  # the same runner as the last
+    assert len(api._RUNNER_CACHE) == 5
+
+
 def test_value_changes_do_not_invalidate():
     r_zero = _run(init={"x": torch.zeros(3)})
     r_ones = _run(init={"x": torch.ones(3)})
