@@ -60,6 +60,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    4096 chains; captured because their models declare ``graph_safe``, and
    reported as eager if they did not). Every output of every step must be
    bit-identical, twice (capture, then replays of the cached graphs).
+3d. HMC (10 leapfrogs) and Metropolis transitions as one CUDA graph each
+   (``graphs.GraphedStep``) against the eager loop: three steps at fixed
+   tunables through K1 on bf16 X (glm100, 4096 chains), every output bit
+   for bit, no host read inside a transition, two replays after the first
+   (eager) step.
 4. ``glm100_fused`` at full width through ``sample()`` and K1 (100 params,
    10K obs, bf16 X, 4096 chains, 300 warmup + 2000 draws, depth 6, target
    0.8, bf16 store) on the reference's dataset (its threefry streams):
@@ -76,6 +81,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    0.8, f32 store): accept 0.8 +- 0.05, mean tree depth < 7, divergence
    rate <= 1%, finite draws of shape (256, 400, 1000), the Laplace check at
    D = 1000.
+4c. HMC at glm100_fused's full width through the ``MCMC`` facade and K1,
+   run right after phase 4:
+   ``MCMC(None).run(method="hmc", num_chains=4096, num_warmup=300,
+   num_samples=2000, num_leapfrog_steps=10)`` with the fused K1 vag, the
+   reference's dataset and a bf16 store. Prints wall, host syncs, graph
+   replays, K1 and Philox launches, mean accept, divergences and min-ESS.
+   K1 launches must be exactly 2300 x 10 + 1 (init) + the probe's (its
+   host syncs: an HMC transition reads nothing on the host), Philox 2300 +
+   1, replays one per transition after the first; mean accept within 0.05
+   of 0.8, divergences <= 1%, the Laplace check, and every posterior mean
+   within 4 combined MCSEs of the NUTS main path's.
 5. Funnel detail: centered eight schools at the bench's detail-row settings
    (``bench.FUNNEL_DETAIL``: 512 chains, 400 + 400, target 0.9, depth 10),
    through the generic autograd value+grad replayed as CUDA graphs (the
@@ -114,13 +130,23 @@ Phases, each fatal on failure (exit code 1, no result line):
    through a small elementwise model (4 and 8 chains), glm100_fused's K1
    vag on bf16, int8 and f32 X (4 and 4096 chains) and poisson1000_cov's
    K3 vag (4 and 512 chains) and hier1000's sufficient-statistic vag (4
-   and 512 chains): chains 0-3 must be bit-identical.
-9. The kernels JSON line (K1 one-pass, K1 wide, K1 int8 one-pass and wide,
+   and 512 chains): chains 0-3 must be bit-identical. The same for three
+   HMC and three Metropolis transitions through one graph each (the
+   elementwise model at 4 and 8 chains; HMC also through K1, 4 and 4096).
+9. The README quick start (``README.md:9-27``'s model over 1,000 N(3, 1.5)
+   draws from numpy's seed 0) through ``MCMC.run`` with 'nuts', 'hmc',
+   'metropolis' and 'hmc' with ``transforms={"sigma": "log"}``, 8 chains,
+   1000 + 1000, eagerly (the model declares no ``graph_safe``):
+   ``print_summary()``, each run's wall, host syncs and Philox launches;
+   mu's and sigma's means within 4 MCSE of the posterior means by
+   quadrature (float64), R-hat < 1.05, every sigma draw positive.
+10. The kernels JSON line (K1 one-pass, K1 wide, K1 int8 one-pass and wide,
    K2, K3, K4, Philox, and K1, K2 and K4 on f32 X, K1 also at glm1000; K4,
    int8 wide, K2 and K4 f32 and K1 f32 at glm1000, on no sampling path,
    with their phase-3 launches; K1 f32 with the f32 cut run's; the
-   variants with their launches from phase 3b's entry points; Philox with
-   its launches on each path of phase 7b beside the main path's), then the
+   variants with their launches from phase 3b's entry points; K1 one-pass
+   with phase 4c's HMC launches and Philox with its launches on each path
+   of phases 4c, 7b and 9 beside the main path's), then the
    contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -970,6 +996,232 @@ def other_configs(CONFIGS, h_problem, po_problem, g_problem, t_start) -> dict:
     return philox
 
 
+def fixed_trip_steps(kernel: str, vag, dim: int, num_chains: int, step_size: float,
+                     init_scale: float, graphed: bool) -> tuple:
+    """Three HMC (10 leapfrogs) or Metropolis (on ``vag``'s value)
+    transitions at fixed tunables from the engine's per-chain draws, eagerly
+    or through ``graphs.GraphedStep``: every output of every step, cloned,
+    and the GraphedStep."""
+    from mlx_mcmc_tpu_torch.inference import graphs
+    from mlx_mcmc_tpu_torch.inference.engine import make_kernel, step_inputs
+    from mlx_mcmc_tpu_torch.kernels.base import Tunables
+    from mlx_mcmc_tpu_torch.ops.random import step_draws
+
+    batched = vag if kernel == "hmc" else (lambda Z: vag(Z)[0])
+    init_fn, step_fn = make_kernel(kernel, batched, num_leapfrog_steps=10)
+    tun = Tunables(torch.tensor(step_size, device="cuda"), torch.ones(dim, device="cuda"))
+    chains = torch.arange(num_chains, device="cuda")
+    state = init_fn(init_scale * step_draws(11, chains, 999, dim, 0)[0])
+    graph = graphs.GraphedStep(step_fn) if graphed else None
+    outs = []
+    for t in range(3):
+        if kernel == "hmc":
+            x, U = step_inputs(11, chains, t, tun.inv_mass_diag, 1)
+        else:
+            x, U = step_draws(11, chains, t, dim, 1)
+        state, info, syncs = (graph.step if graphed else step_fn)(state, tun, x, U)
+        if syncs:
+            fail(f"{kernel}: a transition read the host {syncs} times")
+        outs.append([v.clone() for v in (*state, *info)])
+    return outs, graph
+
+
+def fixed_trip_graphs_vs_eager(label: str, kernel: str, vag, dim: int, num_chains: int,
+                               step_size: float, init_scale: float) -> None:
+    """Phase 3d: three transitions through one graph each equal the eager
+    loop bit for bit (the first step is the capture's eager warm-up, the
+    other two replays)."""
+    ref, _ = fixed_trip_steps(kernel, vag, dim, num_chains, step_size, init_scale, False)
+    got, graph = fixed_trip_steps(kernel, vag, dim, num_chains, step_size, init_scale, True)
+    fields = ("position", "log_prob", "grad")[:len(ref[0]) - 8] + _STEP_FIELDS[3:]
+    for t, (a, b) in enumerate(zip(ref, got)):
+        for field, x, y in zip(fields, a, b):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                fail(f"graphs vs eager ({label}): step {t} {field} differs from the eager loop's")
+    if graph.replays != 2:
+        fail(f"graphs vs eager ({label}): {graph.replays} replays for steps 2 and 3")
+    accepted = float(torch.stack([o[-7] for o in ref]).float().mean())
+    log(f"graphs vs eager ({label}): bit-identical over 3 steps, one graph per transition, "
+        f"{graph.replays} replays, accepted share {accepted:.3f}")
+
+
+def fixed_trip_layout(label: str, kernel: str, vag, dim: int, counts: tuple, step_size: float,
+                      init_scale: float) -> None:
+    """Three HMC or Metropolis transitions through one graph each for a
+    run of each chain count in ``counts``: chains 0-3 bit-identical."""
+    out = {}
+    for c in counts:
+        steps, _ = fixed_trip_steps(kernel, vag, dim, c, step_size, init_scale, True)
+        out[c] = [v[:4] for step in steps for v in step if v.dim() > 0]
+    for a, b in zip(out[counts[0]], out[counts[1]]):
+        if not torch.equal(a, b):
+            fail(f"layout invariance ({label}): chains 0-3 differ between a {counts[0]}-chain "
+                 f"and a {counts[1]}-chain run")
+    log(f"layout invariance ({label}): chains 0-3 bit-identical over 3 steps at {counts[0]} and "
+        f"{counts[1]} chains, one graph per transition")
+
+
+def param_mean_mcse(draws) -> tuple:
+    """Per parameter of a (chains, draws, P) store: mean, Monte Carlo
+    standard error (sd / sqrt(ESS), the ESS on the card) and the ESS."""
+    from mlx_mcmc_tpu_torch.diagnostics.device import device_ess_chunked
+
+    mean, sd = draw_moments(draws)
+    ess = device_ess_chunked(draws).double()
+    return mean, sd / torch.sqrt(ess), ess
+
+
+def hmc_full_width(cfg, init, data, vag, nuts_mean, nuts_se) -> dict:
+    """Phase 4c: HMC at glm100_fused's full width through the ``MCMC``
+    facade and K1 (see the module docstring). Returns the path's launches."""
+    from mlx_mcmc_tpu_torch import MCMC
+    from mlx_mcmc_tpu_torch.bench import launch_counts, reset_launch_counts
+
+    L = 10
+    mcmc = MCMC(None)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mcmc.run(init, num_samples=cfg["num_samples"], num_warmup=cfg["num_warmup"], method="hmc",
+             num_chains=cfg["num_chains"], num_leapfrog_steps=L, value_and_grad_fn=vag, data=data,
+             store_dtype="bfloat16", verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = launch_counts()
+    res = mcmc.result
+    del mcmc  # the facade's numpy copy of the draws
+    transitions = cfg["num_warmup"] + cfg["num_samples"]
+    k1, philox = launched["glm_fused_logistic"], launched["philox_step_draws"]
+    beta = res.samples["beta"]
+    mean, se, ess = param_mean_mcse(beta)
+    accept = float(res.info.accept_prob.float().mean())
+    log(f"glm100_fused HMC (facade, {L} leapfrogs): wall {wall:.2f} s (the facade's numpy copy "
+        f"of the draws included), host syncs {res.host_syncs}, graph replays "
+        f"{res.graph_replays}, K1 launches {k1}, Philox launches {philox}; mean accept "
+        f"{accept:.4f} (accepted share {res.acceptance_rate:.4f}), divergences "
+        f"{res.divergences}, min-ESS {float(ess.min()):.1f}, final step size "
+        f"{float(res.tunables.step_size):.5f}")
+    # init, one per probe (each a host read: HMC's transitions read nothing),
+    # and L per transition
+    want = transitions * L + 1 + res.host_syncs
+    if k1 != want:
+        fail(f"glm100_fused HMC: {k1} K1 launches, want {transitions} x {L} + 1 (init) + "
+             f"{res.host_syncs} (probe) = {want}")
+    if philox != transitions + 1:
+        fail(f"glm100_fused HMC: {philox} Philox launches, want {transitions} + 1 (probe)")
+    if res.graph_replays != transitions - 1:
+        fail(f"glm100_fused HMC: {res.graph_replays} graph replays, want one per transition "
+             f"after the first ({transitions - 1})")
+    if tuple(beta.shape) != (cfg["num_chains"], cfg["num_samples"], cfg["num_features"]) \
+            or beta.dtype != torch.bfloat16 or not bool(torch.isfinite(beta).all()):
+        fail(f"glm100_fused HMC: draws {tuple(beta.shape)} {beta.dtype} or non-finite")
+    if abs(accept - 0.8) > 0.05:
+        fail(f"glm100_fused HMC: mean accept {accept} outside 0.8 +- 0.05")
+    if res.divergences > 0.01 * cfg["num_chains"] * cfg["num_samples"]:
+        fail(f"glm100_fused HMC: {res.divergences} divergences")
+    z_gap, sd_lo, sd_hi = laplace_check(data, beta)
+    log(f"glm100_fused HMC vs Laplace: max |mean - MAP| / sd = {z_gap:.4f}, "
+        f"sd ratio in [{sd_lo:.4f}, {sd_hi:.4f}]")
+    if z_gap > 0.25 or not (0.9 <= sd_lo and sd_hi <= 1.1):
+        fail("glm100_fused HMC: posterior moments disagree with the Laplace approximation")
+    z = (mean - nuts_mean).abs() / torch.hypot(se, nuts_se)
+    log(f"glm100_fused HMC vs NUTS (the main path): max |mean gap| / combined MCSE = "
+        f"{float(z.max()):.3f} over {z.numel()} parameters (HMC MCSE median "
+        f"{float(se.median()):.2e}, NUTS {float(nuts_se.median()):.2e})")
+    if float(z.max()) > 4:
+        fail("glm100_fused HMC: posterior means disagree with NUTS's beyond 4 combined MCSEs")
+    del res, beta
+    from mlx_mcmc_tpu_torch import sample
+    from mlx_mcmc_tpu_torch.bench import _device_busy
+
+    # The device's busy share under the profiler: over 20 + 20 transitions,
+    # as the bench measures every config (the probe, the capture and the
+    # first, eager transition weigh on it), and over 100 + 200.
+    busy = {}
+    for warmup, draws in ((20, 20), (100, 200)):
+        busy[f"{warmup}+{draws}"] = _device_busy(lambda: sample(
+            None, init, data=data, value_and_grad_fn=vag, kernel="hmc",
+            num_chains=cfg["num_chains"], num_warmup=warmup, num_samples=draws,
+            num_leapfrog_steps=L, store_dtype="bfloat16"))
+    log("glm100_fused HMC under the profiler: " + json.dumps(busy))
+    return {"K1": k1, "philox": philox, "wall_seconds": wall, "busy": busy}
+
+
+def readme_exact(y: torch.Tensor) -> dict:
+    """Posterior means of the README model's mu and sigma by quadrature on
+    a 1601 x 1601 grid around the MAP, in float64 on the card: the model's
+    own priors and the normal likelihood of ``y``."""
+    y = y.double()
+    n, ybar = y.numel(), float(y.mean())
+    ss = float(((y - ybar) ** 2).sum())
+    s_hat = math.sqrt(ss / n)
+    u = torch.linspace(-12, 12, 1601, dtype=torch.float64, device="cuda")
+    M = (ybar + u * s_hat / math.sqrt(n))[:, None]
+    S = (s_hat * (1 + u / math.sqrt(2 * n)))[None, :]
+    lp = -M ** 2 / 200 - S ** 2 / 50 - n * torch.log(S) - (ss + n * (ybar - M) ** 2) / (2 * S ** 2)
+    w = torch.exp(lp - lp.max())
+    return {"mu": float((w * M).sum() / w.sum()), "sigma": float((w * S).sum() / w.sum())}
+
+
+def readme_phase() -> dict:
+    """Phase 9: the README quick start on the card (see the module
+    docstring). Returns each run's Philox launches."""
+    import numpy as np  # the data: numpy's normal draws from seed 0
+
+    from mlx_mcmc_tpu_torch import MCMC, HalfNormal, Normal
+    from mlx_mcmc_tpu_torch.bench import launch_counts, reset_launch_counts
+
+    y = np.random.default_rng(0).normal(3.0, 1.5, 1000).astype(np.float32)
+    data = torch.from_numpy(y).cuda()
+
+    def log_prob(params):
+        mu, sigma = params["mu"], params["sigma"]
+        return (Normal(0, 10).log_prob(mu)
+                + HalfNormal(5).log_prob(sigma)
+                + torch.sum(Normal(mu, sigma).log_prob(data)))
+
+    exact = readme_exact(data)
+    log(f"README model: 1000 draws of N(3, 1.5) from numpy's seed 0; posterior means by "
+        f"quadrature (float64): mu {exact['mu']:.5f}, sigma {exact['sigma']:.5f}")
+    philox = {}
+    runs = (("nuts", {}), ("hmc", {}), ("metropolis", {}),
+            ("hmc", {"transforms": {"sigma": "log"}}))
+    for method, kw in runs:
+        label = f"README {method}" + (" with sigma sampled as its log" if kw else "")
+        mcmc = MCMC(log_prob)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mcmc.run({"mu": 0.0, "sigma": 1.0}, num_samples=1000, num_warmup=1000, method=method,
+                 num_chains=8, verbose=False, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = mcmc.result
+        philox[label] = launch_counts()["philox_step_draws"]
+        log(f"{label}: wall {wall:.2f} s, host syncs {res.host_syncs}, graph replays "
+            f"{res.graph_replays} (the model declares no graph_safe: eager), Philox launches "
+            f"{philox[label]}, acceptance {res.acceptance_rate:.4f}, divergences "
+            f"{res.divergences}")
+        mcmc.print_summary()
+        if philox[label] == 0:
+            fail(f"{label}: no Philox launch")
+        diag = mcmc.diagnostics()
+        for k in ("mu", "sigma"):
+            draws = res.samples[k]
+            if tuple(draws.shape) != (8, 1000) or not bool(torch.isfinite(draws).all()):
+                fail(f"{label}: {k} draws {tuple(draws.shape)} or non-finite")
+            mean, mcse, _ = mean_mcse(draws)
+            log(f"  {k}: mean {mean:.5f} +- {mcse:.5f} (MCSE), exact {exact[k]:.5f}, "
+                f"R-hat {diag[k]['r_hat']:.4f}")
+            if abs(mean - exact[k]) > 4 * mcse:
+                fail(f"{label}: {k} mean {mean} is more than 4 MCSE from {exact[k]}")
+            if not diag[k]["r_hat"] < 1.05:
+                fail(f"{label}: {k} R-hat {diag[k]['r_hat']} >= 1.05")
+        if not bool((res.samples["sigma"] > 0).all()):
+            fail(f"{label}: a sigma draw is not positive")
+    return philox
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1269,6 +1521,11 @@ def main() -> None:
         if not graph_checks[label]["captured"]:
             fail(f"graphs vs eager ({label}): the value+grad is not graph_safe")
     del q_glm100
+    # --- HMC and Metropolis: one graph per transition against eager --------
+    fixed_trip_graphs_vs_eager("HMC, K1 bf16 glm100", "hmc", bind(k1_vag, data), d,
+                               cfg["num_chains"], 0.02, 0.1)
+    fixed_trip_graphs_vs_eager("Metropolis, K1 bf16 glm100", "metropolis", bind(k1_vag, data), d,
+                               cfg["num_chains"], 0.02, 0.1)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- glm100_fused: the main path --------------------------------------
@@ -1291,7 +1548,13 @@ def main() -> None:
         f"sd ratio in [{sd_lo:.4f}, {sd_hi:.4f}]")
     if z_gap > 0.25 or not (0.9 <= sd_lo and sd_hi <= 1.1):
         fail("posterior moments disagree with the Laplace approximation")
+    nuts_mean, nuts_se, _ = param_mean_mcse(beta)
+    init = problem[1]
     del result, beta, problem
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # --- glm100_fused through HMC and the MCMC facade ----------------------
+    hmc_path = hmc_full_width(cfg, init, data, k1_vag, nuts_mean, nuts_se)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- glm100_fused on int8 X, cut: the int8 one-pass kernel -------------
@@ -1413,6 +1676,15 @@ def main() -> None:
     layout_invariance("hier1000 through its sufficient statistics", h_vag,
                       hcfg["num_groups"] + 2, (4, hcfg["num_chains"]), 0.005,
                       hcfg["max_tree_depth"], init_scale=0.1)
+    for kernel in ("hmc", "metropolis"):
+        fixed_trip_layout(f"{kernel}, elementwise", kernel, elementwise_vag(), 3, (4, 8), 0.4, 1.0)
+    fixed_trip_layout("hmc, glm100_fused through K1", "hmc", bind(k1_vag, data), d,
+                      (4, cfg["num_chains"]), 0.02, 0.1)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # --- the README quick start ---------------------------------------------
+    readme_philox = readme_phase()
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     glm_src = "mlx_mcmc_tpu_torch/csrc/glm_fused.cu"
     k1, k2, k4 = ("mlx_mcmc_tpu/ops/pallas/glm.py:49", "mlx_mcmc_tpu/ops/pallas/glm.py:281",
@@ -1455,8 +1727,13 @@ def main() -> None:
             extra["sampling_path"] = False
         if key == "K1_f32":
             extra["phase3_launches"] = f32_launches["K1_f32"]
+        if key == "K1":
+            extra["launches_by_path"] = {"glm100_fused": launches[key],
+                                         "glm100_fused hmc (facade)": hmc_path["K1"]}
         if key == "philox":
-            extra["launches_by_path"] = dict(philox_by_path, glm100_fused=launches[key])
+            extra["launches_by_path"] = dict(
+                philox_by_path, glm100_fused=launches[key],
+                **{"glm100_fused hmc (facade)": hmc_path["philox"]}, **readme_philox)
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[key], "max_abs_err": row["max_abs_err"],

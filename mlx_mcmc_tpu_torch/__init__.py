@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of ``mlx_mcmc_tpu``: multi-chain NUTS on one GPU.
+"""PyTorch/CUDA port of ``mlx_mcmc_tpu``: multi-chain MCMC on one GPU.
 
 Chains are the leading batch axis of every tensor (positions are ``(C, D)``).
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
@@ -10,6 +10,46 @@ The package imports ``torch`` only: nothing of JAX and nothing of
 ``mlx_mcmc_tpu``.
 """
 
-from mlx_mcmc_tpu_torch.inference.api import MCMCResult, sample
+from mlx_mcmc_tpu_torch.distributions import (
+    Beta,
+    Categorical,
+    Distribution,
+    Exp,
+    Exponential,
+    Gamma,
+    HalfNormal,
+    Identity,
+    Normal,
+    Sigmoid,
+    Softplus,
+    StickBreaking,
+    Transform,
+    make_transformed_logprob,
+)
+from mlx_mcmc_tpu_torch.inference.api import MCMCResult, clear_runner_cache, sample
+from mlx_mcmc_tpu_torch.inference.mcmc import MCMC
+from mlx_mcmc_tpu_torch.kernels.legacy import hmc, metropolis_hastings, nuts
 
-__all__ = ["MCMCResult", "sample"]
+__all__ = [
+    "MCMC",
+    "MCMCResult",
+    "sample",
+    "clear_runner_cache",
+    "metropolis_hastings",
+    "hmc",
+    "nuts",
+    "Distribution",
+    "Normal",
+    "HalfNormal",
+    "Beta",
+    "Gamma",
+    "Exponential",
+    "Categorical",
+    "Transform",
+    "Identity",
+    "Exp",
+    "Softplus",
+    "Sigmoid",
+    "StickBreaking",
+    "make_transformed_logprob",
+]

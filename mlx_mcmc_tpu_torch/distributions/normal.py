@@ -1,9 +1,7 @@
 """Normal (Gaussian) distribution.
 
 Counterpart of ``mlx_mcmc_tpu/distributions/normal.py``. ``loc`` and
-``scale`` may be Python floats or tensors; a Python-float scale takes its
-log through ``math`` (``torch.log`` refuses floats), with JAX's values at
-the edges: ``-inf`` at 0 and NaN below.
+``scale`` may be Python floats or tensors (``base.log_param``).
 """
 
 from __future__ import annotations
@@ -12,21 +10,9 @@ import math
 
 import torch
 
-from mlx_mcmc_tpu_torch.distributions.base import Distribution
+from mlx_mcmc_tpu_torch.distributions.base import Distribution, log_param, param_shape
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
-
-
-def _log(x):
-    if isinstance(x, (int, float)):
-        if x > 0:
-            return math.log(x)
-        return -math.inf if x == 0 else math.nan
-    return torch.log(x)
-
-
-def _shape(x):
-    return tuple(x.shape) if isinstance(x, torch.Tensor) else ()
 
 
 class Normal(Distribution):
@@ -38,11 +24,11 @@ class Normal(Distribution):
 
     @property
     def batch_shape(self):
-        return tuple(torch.broadcast_shapes(_shape(self.loc), _shape(self.scale)))
+        return tuple(torch.broadcast_shapes(param_shape(self.loc), param_shape(self.scale)))
 
     def log_prob(self, value):
         z = (value - self.loc) / self.scale
-        return -0.5 * z * z - _log(self.scale) - _HALF_LOG_2PI
+        return -0.5 * z * z - log_param(self.scale) - _HALF_LOG_2PI
 
     def sample(self, generator: torch.Generator, shape=()):
         eps = torch.randn(
@@ -65,7 +51,7 @@ class Normal(Distribution):
         return self.mean()
 
     def entropy(self):
-        return _HALF_LOG_2PI + 0.5 + _log(self.scale)
+        return _HALF_LOG_2PI + 0.5 + log_param(self.scale)
 
     def __repr__(self):  # pragma: no cover
         return f"Normal(loc={self.loc}, scale={self.scale})"

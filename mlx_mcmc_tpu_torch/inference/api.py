@@ -1,11 +1,13 @@
 """Functional sampling API: ``sample(...) -> MCMCResult``.
 
-Counterpart of ``mlx_mcmc_tpu/inference/api.py`` in the subset the main
-path uses: ``data=``, ``num_chains``, ``kernel="nuts"``, ``seed``,
-``step_size``, ``adapt_step_size``, ``adapt_mass_matrix``,
-``max_tree_depth``, ``target_accept``, ``store_dtype``,
-``value_and_grad_fn``, ``static_schedule`` and ``device``. Draws stay on
-the device until numpy is asked for.
+Counterpart of ``mlx_mcmc_tpu/inference/api.py:220-424``: the kernels
+'metropolis', 'hmc' and 'nuts', ``data=``, ``num_chains``, ``seed``,
+``jitter``, ``batched_initial``, ``transforms``, the tunables, ``thin``,
+``store_dtype``, the kernel kwargs (``num_leapfrog_steps``,
+``max_tree_depth``, ``static_schedule``, ``value_and_grad_fn``,
+``init_inv_mass_diag``, ``progress_every``, ``progress_callback``) and
+``device``. Not yet: ``config``, ``init_strategy`` and ``draw_chunk``
+(ROADMAP A.5, A.9). Draws stay on the device until numpy is asked for.
 
 The compiled-runner cache (reference ``api.py:63-140, 331-367``) keeps, per
 static configuration, the runner that ``build_sampler`` made and, inside
@@ -29,9 +31,15 @@ from mlx_mcmc_tpu_torch.diagnostics.stats import (
     summary_stats,
 )
 from mlx_mcmc_tpu_torch.inference import graphs
-from mlx_mcmc_tpu_torch.inference.engine import build_sampler, data_key, resolve_step_size
+from mlx_mcmc_tpu_torch.distributions.transforms import make_transformed_logprob
+from mlx_mcmc_tpu_torch.inference.engine import (
+    build_sampler,
+    data_key,
+    jittered_starts,
+    resolve_step_size,
+)
 from mlx_mcmc_tpu_torch.kernels.base import TransitionInfo, Tunables
-from mlx_mcmc_tpu_torch.ops.ravel import _leaves, make_flat_logprob, ravel_params
+from mlx_mcmc_tpu_torch.ops.ravel import _leaves, make_flat_logprob, ravel_batched, ravel_params
 
 # Compiled-runner cache: repeated ``sample()`` calls with the same static
 # configuration reuse the runner and the CUDA graphs it captured, instead
@@ -40,9 +48,11 @@ from mlx_mcmc_tpu_torch.ops.ravel import _leaves, make_flat_logprob, ravel_param
 # eviction is LRU. Unlike the reference, whose ``data`` and chain count are
 # jit arguments, the graphs bake in the data tensors' addresses and the
 # chain count, so both are part of the key (tensors by identity and
-# shape). Mutating a cached ``data`` tensor in place needs
-# ``clear_runner_cache()``, as mutating what a cached closure captures
-# does in the reference.
+# shape). Transform instances are keyed by identity, as the reference keys
+# them (by hash), ``init_inv_mass_diag`` by value; ``jitter`` and the
+# initial values are per-call values, not keys. Mutating a cached ``data``
+# tensor in place needs ``clear_runner_cache()``, as mutating what a cached
+# closure captures does in the reference.
 _RUNNER_CACHE: "OrderedDict[Any, Any]" = OrderedDict()
 _RUNNER_CACHE_MAX = 64
 
@@ -103,12 +113,21 @@ class MCMCResult:
 
     @property
     def acceptance_rate(self) -> float:
-        """Mean Metropolis acceptance statistic (Stan's 'accept_stat')."""
-        return float(self.info.accept_prob.float().mean())
+        """Fraction of accepted proposals (metropolis, hmc); for NUTS, whose
+        trajectory always moves, the mean Metropolis acceptance statistic
+        (Stan's 'accept_stat'), as the reference reports them."""
+        if self.kernel == "nuts":
+            return float(self.info.accept_prob.float().mean())
+        return float(self.info.is_accepted.float().mean())
 
     @property
     def divergences(self) -> int:
         return int(self.info.is_divergent.sum())
+
+    def flat_samples(self) -> Dict[str, np.ndarray]:
+        """(chains*draws, *event) numpy arrays: the reference's output shape
+        for single-chain runs."""
+        return {k: v.reshape(-1, *v.shape[2:]) for k, v in self.to_numpy().items()}
 
     def diagnostics(self) -> Dict[str, Dict[str, float]]:
         """Per-parameter split R-hat (max) and effective sample size (min)."""
@@ -142,6 +161,14 @@ def _as_dtype(store_dtype):
     return dtype
 
 
+def _first(params):
+    """The first entry of every leaf: one chain's parameters of a
+    ``batched_initial`` dict."""
+    if isinstance(params, dict):
+        return {k: _first(v) for k, v in params.items()}
+    return torch.as_tensor(params)[0]
+
+
 def sample(
     log_prob_fn: Optional[Callable[..., torch.Tensor]],
     initial_params: Any,
@@ -155,60 +182,97 @@ def sample(
     adapt_step_size: bool = True,
     adapt_mass_matrix: bool = True,
     target_accept: Optional[float] = None,
+    jitter: float = 0.0,
+    batched_initial: bool = False,
+    transforms: Optional[dict] = None,
     data=None,
     store_dtype=None,
     max_tree_depth: int = 10,
+    num_leapfrog_steps: int = 10,
     value_and_grad_fn: Optional[Callable] = None,
     thin: int = 1,
     static_schedule: bool = False,
+    init_inv_mass_diag=None,
+    progress_every: Optional[int] = None,
+    progress_callback: Optional[Callable] = None,
     device=None,
 ) -> MCMCResult:
-    """Run multi-chain NUTS against a dict-of-params model.
+    """Run multi-chain MCMC against a dict-of-params model.
 
-    ``log_prob_fn(params)`` (or ``log_prob_fn(params, data)`` with
-    ``data=``) returns a scalar log density. ``value_and_grad_fn(Z, data)``
-    replaces autograd with a batched fused implementation; ``log_prob_fn``
-    may then be None. Every chain starts at ``initial_params``; the step
-    size starts from a Stan-style probe (``step_size='auto'``) or from the
-    float given, and adapts with the diagonal mass matrix during warmup;
-    ``adapt_step_size=False`` keeps ``step_size`` (0.1 for ``'auto'``) and
-    ``adapt_mass_matrix=False`` the unit metric.
-    ``store_dtype`` (e.g. ``'bfloat16'``) down-casts only the stored draws.
-    ``static_schedule=True`` runs the reference's fixed-trip pair loop (the
-    same draws, no host read inside a transition).
-    ``device=None`` means CUDA and raises without a GPU; pass ``'cpu'`` to
-    run on the CPU.
+    ``kernel`` is 'metropolis', 'hmc' or 'nuts'. ``log_prob_fn(params)``
+    (or ``log_prob_fn(params, data)`` with ``data=``) returns a scalar log
+    density. ``value_and_grad_fn(Z, data)`` replaces autograd with a
+    batched fused implementation; ``log_prob_fn`` may then be None. Every
+    chain starts at ``initial_params`` (plus ``jitter`` times a standard
+    normal of its own, ``engine.jittered_starts``), or, with
+    ``batched_initial=True``, at its own entry of the leaves' leading
+    ``num_chains`` axis. ``transforms`` maps parameter names to
+    unconstraining transforms (names like 'log'/'logit'/'simplex' or
+    ``Transform`` instances): those parameters are sampled in
+    unconstrained space with the Jacobian added, and the draws come back
+    constrained.
+
+    The step size of a gradient kernel starts from a Stan-style probe
+    (``step_size='auto'``) or from the float given (Metropolis: 0.1 for
+    'auto'), and adapts with the diagonal mass matrix during warmup toward
+    ``target_accept`` (the kernel's default);
+    ``adapt_step_size=False`` keeps ``step_size`` and
+    ``adapt_mass_matrix=False`` the metric ``init_inv_mass_diag`` (ones).
+    ``num_leapfrog_steps`` (hmc), ``max_tree_depth`` and
+    ``static_schedule`` (nuts: the reference's fixed-trip pair loop, the
+    same draws, no host read inside a transition), ``thin`` and
+    ``progress_every``/``progress_callback``: see
+    ``engine.build_sampler``. ``store_dtype`` (e.g. ``'bfloat16'``)
+    down-casts only the stored draws. ``device=None`` means CUDA and raises
+    without a GPU; pass ``'cpu'`` to run on the CPU.
 
     Runners are cached (``_RUNNER_CACHE``, see ``clear_runner_cache``): a
     call with the same functions, parameter structure, settings, chain
     count, device and ``data`` tensors replays the graphs of the last one;
-    a new seed or new initial values reuse them.
+    a new seed, new initial values or another ``jitter`` reuse them.
     """
     dev = resolve_device(device)
     if not isinstance(seed, (int, np.integer)):
         raise TypeError(f"seed must be an int, got {type(seed).__name__}")
     if log_prob_fn is None and value_and_grad_fn is None:
         raise ValueError("pass log_prob_fn or value_and_grad_fn")
+    if transforms and log_prob_fn is None:
+        raise ValueError("transforms rewrite log_prob_fn; pass one")
     store = _as_dtype(store_dtype)
-    step_size = resolve_step_size(step_size, adapt_step_size)
+    step_size = resolve_step_size(step_size, kernel, adapt_step_size)
     dkey = data_key(data)
+    tkey = None if transforms is None else tuple(sorted(transforms.items(), key=lambda kv: kv[0]))
+    mkey = (None if init_inv_mass_diag is None
+            else tuple(torch.as_tensor(init_inv_mass_diag).flatten().tolist()))
     cache_key = None if dkey is None else (
         id(log_prob_fn), id(value_and_grad_fn), _param_spec(initial_params), dkey,
         int(num_chains), kernel, int(num_samples), int(num_warmup), int(thin), step_size,
         bool(adapt_step_size), bool(adapt_mass_matrix), target_accept, store,
         int(max_tree_depth), bool(static_schedule), dev, graphs.PAIRS_PER_REPLAY,
+        int(num_leapfrog_steps), bool(batched_initial), tkey, mkey, progress_every,
+        id(progress_callback),
     )
-    z0, _ = ravel_params(initial_params, device=dev)
-    dim = z0.shape[0]
     entry = None if cache_key is None else _lru_get(_RUNNER_CACHE, cache_key)
+    if entry is not None:
+        lp_fn, to_constrained, to_unconstrained = None, entry["to_constrained"], entry[
+            "to_unconstrained"]
+    elif transforms:
+        lp_fn, to_constrained, to_unconstrained = make_transformed_logprob(
+            log_prob_fn, transforms, data_aware=data is not None)
+    else:
+        lp_fn, to_constrained, to_unconstrained = log_prob_fn, None, None
+    # Per-call values: the initial positions, in the sampled space.
+    if to_unconstrained is not None:
+        initial_params = to_unconstrained(initial_params)
+    example = _first(initial_params) if batched_initial else initial_params
     if entry is None:
-        flat_log_prob, _, unravel = make_flat_logprob(
-            log_prob_fn, initial_params, data_aware=data is not None, device=dev
+        flat_log_prob, z_example, unravel = make_flat_logprob(
+            lp_fn, example, data_aware=data is not None, device=dev
         )
         entry = {
             "run": build_sampler(
                 flat_log_prob if log_prob_fn is not None else None,
-                dim,
+                z_example.shape[0],
                 kernel=kernel,
                 num_warmup=num_warmup,
                 num_samples=num_samples,
@@ -219,20 +283,39 @@ def sample(
                 target_accept=target_accept,
                 store_dtype=store,
                 max_tree_depth=max_tree_depth,
+                num_leapfrog_steps=num_leapfrog_steps,
                 value_and_grad_fn=value_and_grad_fn,
                 static_schedule=static_schedule,
+                init_inv_mass_diag=init_inv_mass_diag,
+                progress_every=progress_every,
+                progress_callback=progress_callback,
             ),
             "unravel": unravel,
+            "to_constrained": to_constrained,
+            "to_unconstrained": to_unconstrained,
             # pin what the key names by id, so no id is recycled while cached
-            "pin": (log_prob_fn, value_and_grad_fn, data),
+            "pin": (log_prob_fn, value_and_grad_fn, data, tkey, progress_callback),
         }
         if cache_key is not None:
             _lru_put(_RUNNER_CACHE, cache_key, entry, _RUNNER_CACHE_MAX)
     run, unravel = entry["run"], entry["unravel"]
-    z0_batch = z0.expand(num_chains, dim).contiguous()
+    if batched_initial:
+        z0_batch = ravel_batched(initial_params, device=dev)
+        if z0_batch.shape[0] != num_chains:
+            raise ValueError(
+                f"batched_initial leaves have leading axis {z0_batch.shape[0]}, "
+                f"expected num_chains={num_chains}")
+    else:
+        z0, _ = ravel_params(initial_params, device=dev)
+        z0_batch = z0.expand(num_chains, z0.shape[0]).contiguous()
+        if jitter > 0.0:
+            z0_batch = jittered_starts(int(seed), z0_batch, jitter)
     result = run(int(seed), z0_batch, data)
+    samples = unravel(result.positions)
+    if to_constrained is not None:
+        samples = to_constrained(samples)
     return MCMCResult(
-        samples=unravel(result.positions),
+        samples=samples,
         info=result.info,
         tunables=result.final_tunables,
         num_chains=num_chains,

@@ -46,12 +46,22 @@ from mlx_mcmc_tpu_torch.kernels.integrators import (
     total_energy,
 )
 from mlx_mcmc_tpu_torch.inference import graphs
-from mlx_mcmc_tpu_torch.kernels.hmc import HMCState
+from mlx_mcmc_tpu_torch.kernels.hmc import make_hmc_kernel
+from mlx_mcmc_tpu_torch.kernels.metropolis import make_metropolis_kernel
 from mlx_mcmc_tpu_torch.kernels.nuts import make_nuts_kernel
 from mlx_mcmc_tpu_torch.ops.random import step_draws
 
-DEFAULT_TARGET_ACCEPT = 0.65  # the reference's NUTS default
+_DEFAULT_TARGET_ACCEPT = {"metropolis": 0.234, "hmc": 0.8, "nuts": 0.65}
 _PROBE_STEP = 0x7FFFFFFF
+# Reserved step index of the chains' jittered starts (``jittered_starts``):
+# neither a sampling step nor the probe's.
+JITTER_STEP = 0x7FFFFFFE
+# The reference's other kernels and the ROADMAP items that port them.
+_NOT_PORTED = {"chees": "A.7", "mala": "A.7"}
+
+
+def default_target_accept(kernel: str) -> float:
+    return _DEFAULT_TARGET_ACCEPT[kernel]
 
 
 class ChainResult(NamedTuple):
@@ -133,17 +143,75 @@ def make_batched_value_and_grad(flat_log_prob: Callable, data=None):
     return vag
 
 
-def resolve_step_size(step_size, adapt_step_size: bool):
+def make_batched_value(flat_log_prob: Callable, data=None):
+    """Batched log density ``value(Z (C, D)) -> (C,)`` for Metropolis: the
+    per-chain model under ``torch.func.vmap``, no gradient. Graph-safe
+    where the model declared it, as :func:`make_batched_value_and_grad`."""
+    if data is None:
+        batched = torch.func.vmap(flat_log_prob)
+    else:
+        batched = torch.func.vmap(lambda z: flat_log_prob(z, data))
+
+    def value(Z):
+        with torch.no_grad():
+            return batched(Z)
+
+    value.graph_safe = bool(getattr(flat_log_prob, "graph_safe", False))
+    return value
+
+
+def _check_kernel(kernel: str) -> None:
+    if kernel in _NOT_PORTED:
+        raise NotImplementedError(
+            f"kernel={kernel!r} is not ported yet (ROADMAP {_NOT_PORTED[kernel]})")
+    if kernel not in _DEFAULT_TARGET_ACCEPT:
+        raise ValueError(f"Unknown kernel: {kernel!r}")
+
+
+def make_kernel(kernel: str, batched: Callable, *, num_leapfrog_steps: int = 10,
+                max_tree_depth: int = 10, static_schedule: bool = False):
+    """Kernel factory by name, as the reference's ``make_kernel``:
+    ``(init_fn, step_fn)`` over ``batched``, a batched value
+    (Metropolis) or value+grad (HMC, NUTS). ``step_fn(state, tunables, x,
+    U) -> (state, info, host_syncs)``, with ``x`` the step's momenta (HMC,
+    NUTS) or standard normals (Metropolis)."""
+    _check_kernel(kernel)
+    if kernel == "metropolis":
+        return make_metropolis_kernel(batched)
+    if kernel == "hmc":
+        return make_hmc_kernel(batched, num_leapfrog_steps=num_leapfrog_steps)
+    return make_nuts_kernel(batched, max_tree_depth=max_tree_depth,
+                            pairs_per_check=graphs.PAIRS_PER_REPLAY,
+                            static_schedule=static_schedule)
+
+
+def resolve_step_size(step_size, kernel: str, adapt_step_size: bool):
     """The public ``step_size`` argument: a float, or ``'auto'`` (the
-    default) for the Stan-style probe; ``'auto'`` with
-    ``adapt_step_size=False`` pins 0.1, as the reference does
+    default) for the Stan-style probe of the gradient kernels; ``'auto'``
+    pins 0.1 for Metropolis (no gradient) and with
+    ``adapt_step_size=False``, as the reference does
     (``mlx_mcmc_tpu/inference/engine.py:resolve_step_size``)."""
     if isinstance(step_size, str):
         if step_size != "auto":
             raise ValueError(f"step_size must be a float or 'auto', got {step_size!r}")
-        if not adapt_step_size:
+        if kernel == "metropolis" or not adapt_step_size:
             return 0.1
     return step_size
+
+
+def jittered_starts(seed: int, z0_batch: torch.Tensor, jitter: float) -> torch.Tensor:
+    """``z0_batch + jitter * N(0, 1)``, chain ``i``'s normals from Philox at
+    ``(seed, i, JITTER_STEP)``: a chain's start does not depend on how many
+    chains run (the reference draws one joint ``(C, D)`` normal, which
+    does)."""
+    chains = torch.arange(z0_batch.shape[0], device=z0_batch.device)
+    normals, _ = step_draws(seed, chains, JITTER_STEP, z0_batch.shape[1], 0)
+    return z0_batch + jitter * normals
+
+
+def _default_progress(phase, t, accept, eps):
+    print(f"  [{phase}] step {int(t):6d}  mean accept {float(accept):.3f}"
+          f"  step size {float(eps):.4f}", flush=True)
 
 
 def build_sampler(
@@ -160,38 +228,59 @@ def build_sampler(
     target_accept: Optional[float] = None,
     store_dtype=None,
     max_tree_depth: int = 10,
+    num_leapfrog_steps: int = 10,
     value_and_grad_fn: Optional[Callable] = None,
     static_schedule: bool = False,
+    init_inv_mass_diag=None,
+    progress_every: Optional[int] = None,
+    progress_callback: Optional[Callable] = None,
 ) -> Callable[..., ChainResult]:
     """Build ``run(seed, z0_batch, data=None) -> ChainResult``.
 
-    With ``step_size='auto'`` the step size starts from the Stan-style
-    probe, otherwise from ``step_size``; it adapts by dual averaging unless
-    ``adapt_step_size=False``, which keeps ``step_size`` for every step. The
-    diagonal mass matrix adapts in the windowed schedule unless
-    ``adapt_mass_matrix=False``, which keeps the unit metric.
+    ``kernel`` is 'metropolis', 'hmc' (``num_leapfrog_steps`` leapfrogs) or
+    'nuts' (``max_tree_depth``, ``static_schedule``). With
+    ``step_size='auto'`` the step size of a gradient kernel starts from the
+    Stan-style probe, otherwise from ``step_size``; it adapts by dual
+    averaging toward ``target_accept`` (the kernel's default: 0.234, 0.8,
+    0.65) unless ``adapt_step_size=False``, which keeps ``step_size`` for
+    every step. The diagonal inverse mass matrix starts at
+    ``init_inv_mass_diag`` (ones by default; the probe uses it too) and
+    adapts in the windowed schedule unless ``adapt_mass_matrix=False``.
     ``value_and_grad_fn(Z, data) -> (ll (C,), g (C, D))`` replaces autograd
-    (the fused GLM path); otherwise ``flat_log_prob`` (``(z)`` or
-    ``(z, data)``) is differentiated per chain. ``store_dtype`` down-casts
-    only the stored draws; every step's arithmetic stays float32.
-    ``static_schedule=True`` runs the reference's fixed-trip pair loop: the
-    same draws, no host read inside a transition.
+    (the fused GLM path; Metropolis takes its value); otherwise
+    ``flat_log_prob`` (``(z)`` or ``(z, data)``) is evaluated per chain.
+    ``store_dtype`` down-casts only the stored draws; every step's
+    arithmetic stays float32. ``static_schedule=True`` runs NUTS's
+    fixed-trip pair loop: the same draws, no host read inside a transition.
 
-    On the card, a ``value_and_grad_fn`` with ``graph_safe = True`` runs
-    through :class:`graphs.GraphedTransition`; ``run`` keeps the graphs of
-    its last call and replays them in the next call with the same device,
-    chain count and ``data`` (by identity: :func:`data_key`).
+    ``thin`` keeps every ``thin``-th draw: stored draw ``j`` is the last of
+    the steps ``num_warmup + j*thin + i`` (``i < thin``), with
+    ``is_divergent`` the block's any and ``num_integration_steps`` its sum.
+    ``progress_every=n`` calls ``progress_callback(phase, t, mean accept,
+    step size)`` (default: a printed line) after every step ``t`` with
+    ``(t + 1) % n == 0`` (a thinned block reports at its first step's
+    index, as the reference does); each report is one host read, counted
+    in ``host_syncs``.
+
+    On the card, a value (+grad) with ``graph_safe = True`` runs through
+    :class:`graphs.GraphedTransition` (NUTS) or :class:`graphs.GraphedStep`;
+    ``run`` keeps the graphs of its last call and replays them in the next
+    call with the same device, chain count and ``data`` (by identity:
+    :func:`data_key`).
     """
-    if kernel != "nuts":
-        raise NotImplementedError(f"kernel={kernel!r} is not ported yet (nuts only)")
-    if thin != 1:
-        raise NotImplementedError("thin != 1 is not ported yet")
+    _check_kernel(kernel)
     if target_accept is None:
-        target_accept = DEFAULT_TARGET_ACCEPT
+        target_accept = default_target_accept(kernel)
+    if thin < 1:
+        raise ValueError(f"thin must be >= 1, got {thin}")
     auto_step_size = isinstance(step_size, str)
-    if auto_step_size and (step_size != "auto" or not adapt_step_size):
-        raise ValueError("step_size='auto' requires adapt_step_size=True")
+    if auto_step_size and (step_size != "auto" or kernel == "metropolis"
+                           or not adapt_step_size):
+        raise ValueError("step_size='auto' requires a gradient kernel (hmc/nuts) "
+                         "with adapt_step_size=True")
     schedule = build_schedule(num_warmup, adapt_mass_matrix=adapt_mass_matrix)
+    report = progress_callback or _default_progress
+    n_slots = 1 << (max_tree_depth - 1) if kernel == "nuts" else 1
 
     def _tunables(adapt: AdaptationState, log_step) -> Tunables:
         eps = torch.exp(log_step) if adapt_step_size else torch.full_like(log_step, step_size)
@@ -203,34 +292,47 @@ def build_sampler(
         device = z0_batch.device
         num_chains = z0_batch.shape[0]
         if value_and_grad_fn is not None:
-            source = value_and_grad_fn
-            vag = (lambda Z: value_and_grad_fn(Z, data)) if data is not None else value_and_grad_fn
+            def vag(Z):
+                return value_and_grad_fn(Z) if data is None else value_and_grad_fn(Z, data)
+
+            vag.graph_safe = graphs.captures(value_and_grad_fn)
+        elif kernel != "metropolis":
+            vag = make_batched_value_and_grad(flat_log_prob, data)
+        if kernel != "metropolis":
+            batched = vag
+        elif flat_log_prob is not None:
+            batched = make_batched_value(flat_log_prob, data)
         else:
-            source = vag = make_batched_value_and_grad(flat_log_prob, data)
+            def batched(Z):
+                return vag(Z)[0]
+
+            batched.graph_safe = vag.graph_safe
+        init_fn, step_fn = make_kernel(kernel, batched, num_leapfrog_steps=num_leapfrog_steps,
+                                       max_tree_depth=max_tree_depth,
+                                       static_schedule=static_schedule)
         transition = None
-        if device.type == "cuda" and graphs.captures(source):
+        if device.type == "cuda" and graphs.captures(batched):
             key = (device, num_chains, data_key(data), graphs.PAIRS_PER_REPLAY)
             transition = last_graphs.get(key)
             if transition is None:
                 last_graphs.clear()
-                transition = graphs.GraphedTransition(vag, max_tree_depth, static_schedule)
+                if kernel == "nuts":
+                    transition = graphs.GraphedTransition(vag, max_tree_depth, static_schedule)
+                else:
+                    transition = graphs.GraphedStep(step_fn)
                 if key[2] is not None:
                     last_graphs[key] = transition
             step_fn = transition.step
             replays0 = transition.replays
-        else:
-            _, step_fn = make_nuts_kernel(
-                vag, max_tree_depth=max_tree_depth, pairs_per_check=graphs.PAIRS_PER_REPLAY,
-                static_schedule=static_schedule)
-        log_prob0, grad0 = vag(z0_batch)
-        states = HMCState(position=z0_batch, log_prob=log_prob0, grad=grad0)
+        states = init_fn(z0_batch)
         chains = torch.arange(num_chains, device=device)
-        n_slots = 1 << (max_tree_depth - 1)
+        inv_mass0 = (torch.ones((dim,), dtype=torch.float32, device=device)
+                     if init_inv_mass_diag is None else
+                     torch.as_tensor(init_inv_mass_diag, dtype=torch.float32, device=device))
 
         if auto_step_size:
             # Stan-style initialization: one leapfrog across all chains,
             # doubling/halving eps until the mean accept crosses 0.5.
-            inv_mass0 = torch.ones((dim,), dtype=torch.float32, device=device)
             r, _ = step_inputs(seed, chains, _PROBE_STEP, inv_mass0, 0)
             start = IntegratorState(states.position, r, states.log_prob, states.grad)
             e0 = total_energy(start, inv_mass0)
@@ -245,11 +347,21 @@ def build_sampler(
             eps_init, host_syncs = find_reasonable_step_size(accept_prob_fn)
         else:
             eps_init, host_syncs = step_size, 0
-        adapt = adaptation_init(dim, eps_init, device=device)
+        adapt = adaptation_init(dim, eps_init, inv_mass0, device=device)
 
         def one_step(states, t, tunables):
-            r0, U = step_inputs(seed, chains, t, tunables.inv_mass_diag, n_slots)
-            return step_fn(states, tunables, r0, U)
+            if kernel == "metropolis":
+                x, U = step_draws(seed, chains, t, dim, n_slots)
+            else:
+                x, U = step_inputs(seed, chains, t, tunables.inv_mass_diag, n_slots)
+            return step_fn(states, tunables, x, U)
+
+        def maybe_report(phase, t, infos, tunables) -> int:
+            if not progress_every or (t + 1) % progress_every:
+                return 0
+            accept, eps = torch.stack([infos.accept_prob.mean(), tunables.step_size]).tolist()
+            report(phase, t, accept, eps)
+            return 1
 
         for t in range(num_warmup):
             tunables = _tunables(adapt, adapt.da.log_step)
@@ -263,6 +375,7 @@ def build_sampler(
                 bool(schedule.window_end[t]),
                 target_accept,
             )
+            host_syncs += maybe_report("warmup", t, infos, tunables)
 
         tunables = _tunables(adapt, adapt.da.log_step_avg)
         store = torch.empty(
@@ -270,8 +383,18 @@ def build_sampler(
         )
         info_store = None
         for j in range(num_samples):
-            states, infos, syncs = one_step(states, num_warmup + j, tunables)
-            host_syncs += syncs
+            t0 = num_warmup + j * thin
+            for i in range(thin):
+                states, infos, syncs = one_step(states, t0 + i, tunables)
+                host_syncs += syncs
+                if thin > 1 and i == 0:
+                    divergent = infos.is_divergent.clone()
+                    steps = infos.num_integration_steps.clone()
+                elif thin > 1:
+                    divergent |= infos.is_divergent
+                    steps += infos.num_integration_steps
+            if thin > 1:
+                infos = infos._replace(is_divergent=divergent, num_integration_steps=steps)
             store[j] = states.position
             if info_store is None:
                 info_store = TransitionInfo(
@@ -280,6 +403,7 @@ def build_sampler(
                 )
             for buf, x in zip(info_store, infos):
                 buf[j] = x
+            host_syncs += maybe_report("sample", t0, infos, tunables)
 
         if info_store is None:  # num_samples == 0
             info_store = TransitionInfo(
@@ -290,7 +414,7 @@ def build_sampler(
             info=TransitionInfo(*(x.transpose(0, 1) for x in info_store)),
             final_tunables=tunables,
             # a graph's outputs are overwritten by its next replay
-            final_state=HMCState(*(t.clone() for t in states)),
+            final_state=type(states)(*(t.clone() for t in states)),
             final_adapt=adapt,
             host_syncs=host_syncs,
             graph_replays=0 if transition is None else transition.replays - replays0,

@@ -1,4 +1,4 @@
-"""The NUTS transition as captured CUDA graphs: the port's ``jax.jit``.
+"""Transitions as captured CUDA graphs: the port's ``jax.jit``.
 
 The reference compiles a whole transition into one program: its pair loop
 is a ``lax.while_loop`` (``mlx_mcmc_tpu/kernels/nuts.py:427``) or, with
@@ -24,6 +24,11 @@ The same kernels run on the same inputs in the same order as in the eager
 loop, so the draws are bit-identical to it: surplus pair iterations change
 nothing (the masked freeze). The Philox draws, the adaptation update and
 the draw store stay outside the graphs, as eager launches.
+
+A fixed-trip transition (HMC's leapfrogs, a Metropolis proposal) has no
+loop to check: :class:`GraphedStep` captures it whole as one graph, from
+the step's inputs in static buffers to its ``TransitionInfo``, with no
+host read inside.
 
 A value+grad is captured only if it says it can be with ``graph_safe =
 True``: the fused GLM and Poisson ones do. Any other runs eagerly; the
@@ -203,3 +208,56 @@ class GraphedTransition:
 
         graphs["result"], (self.state_out, self.info_out) = capture(result, pool)
         self.graphs = graphs
+
+
+class GraphedStep:
+    """A fixed-trip transition ``step_fn(state, tunables, x, U) -> (state,
+    info, 0)`` (``kernels/hmc.py``, ``kernels/metropolis.py``) as one CUDA
+    graph: the state, the random inputs ``x`` and ``U`` and the tunables
+    are copied into static buffers, then the graph replays the whole step.
+
+    The first step runs eagerly on a side stream, as the warm-up that a
+    capture needs, and its outputs are that step's result; the graph is
+    captured after it, launching nothing, and every later step is one
+    replay. So each transition launches its kernels once and ``replays``
+    is the step count less one. A later step with other shapes raises. The
+    returned state and info are the graph's static outputs, which the next
+    step overwrites.
+    """
+
+    def __init__(self, step_fn: Callable):
+        self.step_fn = step_fn
+        self.graph = None
+
+    @property
+    def replays(self) -> int:
+        return self.graph.replays if self.graph is not None else 0
+
+    def _run(self, state_type, values):
+        n = len(state_type._fields)
+        x, U, step_size, inv_mass_diag = values[n:]
+        state, info, _ = self.step_fn(state_type(*values[:n]), Tunables(step_size, inv_mass_diag),
+                                      x, U)
+        return state, info
+
+    def step(self, state, tunables: Tunables, x: torch.Tensor, U: torch.Tensor):
+        values = (*state, x, U, tunables.step_size, tunables.inv_mass_diag)
+        if self.graph is None:
+            return self._capture(type(state), values)
+        for buf, value in zip(self.inputs, values):
+            if (buf.shape != value.shape or buf.dtype != value.dtype
+                    or buf.device != value.device):
+                raise ValueError(
+                    f"the graph was captured for {buf.dtype} {tuple(buf.shape)} on "
+                    f"{buf.device}, got {value.dtype} {tuple(value.shape)} on {value.device}")
+            buf.copy_(value)
+        self.graph.replay()
+        return self.state_out, self.info_out, 0
+
+    def _capture(self, state_type, values):
+        self.inputs = tuple(v.clone(memory_format=torch.contiguous_format) for v in values)
+        with side_stream(self.inputs[0].device):
+            first = self._run(state_type, self.inputs)
+        self.graph, (self.state_out, self.info_out) = capture(
+            lambda: self._run(state_type, self.inputs), torch.cuda.graph_pool_handle())
+        return (*first, 0)

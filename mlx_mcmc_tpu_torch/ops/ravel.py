@@ -61,6 +61,14 @@ def ravel_params(
     return flat, unravel
 
 
+def ravel_batched(params: Any, device=None) -> torch.Tensor:
+    """Flatten a dict whose leaves share a leading batch axis ``B`` into one
+    ``(B, D)`` float32 tensor, each row laid out as :func:`ravel_params`
+    lays out one entry."""
+    leaves = [torch.as_tensor(v, dtype=torch.float32, device=device) for _, v in _leaves(params)]
+    return torch.cat([t.reshape(t.shape[0], -1) for t in leaves], dim=1).contiguous()
+
+
 def make_flat_logprob(
     log_prob_fn: Callable[..., torch.Tensor],
     example_params: Any,

@@ -1,4 +1,4 @@
-"""The NUTS transition in the parts that CUDA graphs capture, on the CPU.
+"""The transitions that CUDA graphs capture, on the CPU.
 
 ``pairs(frame, carry, k)`` runs k masked pair iterations without a host
 read; surplus iterations change nothing, so a transition must give the same
@@ -14,7 +14,9 @@ of the eight-schools funnel, and compares every output bit for bit.
 its outputs into the first run's tensors, as a replay writes into the
 addresses it captured. That holds ``GraphedTransition`` (static inputs,
 carry buffers updated in place, host checks, the result buffers) to the
-eager loop bit for bit. The replay launch-count arithmetic is checked with a stub graph.
+eager loop bit for bit, and ``GraphedStep`` (HMC and Metropolis, one
+graph per transition) the same way. The replay launch-count arithmetic is
+checked with a stub graph.
 The ``cuda`` tests hold real graphs against the eager loop on the card and
 skip here; this file imports no JAX, so they run where JAX is absent:
 
@@ -31,7 +33,8 @@ from mlx_mcmc_tpu_torch import _capture
 from mlx_mcmc_tpu_torch.inference import graphs
 from mlx_mcmc_tpu_torch.inference.engine import make_batched_value_and_grad, step_inputs
 from mlx_mcmc_tpu_torch.kernels.base import Tunables
-from mlx_mcmc_tpu_torch.kernels.hmc import HMCState
+from mlx_mcmc_tpu_torch.kernels.hmc import HMCState, make_hmc_kernel
+from mlx_mcmc_tpu_torch.kernels.metropolis import make_metropolis_kernel
 from mlx_mcmc_tpu_torch.kernels.nuts import make_nuts_kernel
 from mlx_mcmc_tpu_torch.models import eight_schools
 from mlx_mcmc_tpu_torch.ops.glm import (
@@ -41,6 +44,7 @@ from mlx_mcmc_tpu_torch.ops.glm import (
     prepare_fused_logistic_data,
 )
 from mlx_mcmc_tpu_torch.ops.poisson import make_fused_poisson_vag, prepare_fused_poisson_data
+from mlx_mcmc_tpu_torch.ops.random import step_draws
 from mlx_mcmc_tpu_torch.ops.ravel import make_flat_logprob
 
 STEPS = 3
@@ -266,6 +270,76 @@ def test_vags_declare_whether_graphs_capture_them():
     assert not graphs.captures(lambda Z: (Z.sum(-1), Z))
 
 
+def _fixed_trip(kernel, vag):
+    """``(init_fn, step_fn, draws)`` of HMC (8 leapfrogs) or Metropolis
+    (on ``vag``'s value) over ``vag``, with the engine's per-step inputs."""
+    if kernel == "hmc":
+        init_fn, step_fn = make_hmc_kernel(vag, num_leapfrog_steps=8)
+        return init_fn, step_fn, lambda chains, t, tun: step_inputs(
+            SEED, chains, t, tun.inv_mass_diag, 1)
+
+    def value(Z):
+        return vag(Z)[0]
+
+    init_fn, step_fn = make_metropolis_kernel(value)
+    return init_fn, step_fn, lambda chains, t, tun: step_draws(
+        SEED, chains, t, tun.inv_mass_diag.shape[0], 1)
+
+
+# HMC's step and Metropolis's proposal scale as multiples of each model's
+# NUTS step size: each takes some proposals and rejects others.
+_STEP_SCALE = {("hmc", "K2"): 1.0, ("hmc", None): 2.0, ("metropolis", None): 4.0}
+
+
+def _fixed_trip_steps(kernel, model, device, graphed):
+    """Three transitions of ``kernel`` on ``MODELS[model]`` at fixed
+    tunables, eager or through :class:`graphs.GraphedStep`: every output,
+    cloned."""
+    vag, dim, c, eps, _, scale = MODELS[model](device)
+    eps *= _STEP_SCALE.get((kernel, model), _STEP_SCALE[(kernel, None)])
+    init_fn, step_fn, draws = _fixed_trip(kernel, vag)
+    chains = torch.arange(c, device=device)
+    tun = Tunables(torch.tensor(eps, device=device),
+                   torch.ones(dim, device=device))
+    state = init_fn(scale * step_inputs(SEED, chains, 999, tun.inv_mass_diag, 0)[0])
+    graph = graphs.GraphedStep(step_fn) if graphed else None
+    outs = []
+    for t in range(STEPS):
+        x, U = draws(chains, t, tun)
+        state, info, syncs = (graph.step if graphed else step_fn)(state, tun, x, U)
+        assert syncs == 0
+        outs.append([v.clone() for v in (*state, *info)])
+    return outs, graph
+
+
+@pytest.mark.parametrize("kernel", ["hmc", "metropolis"])
+@pytest.mark.parametrize("model", list(MODELS))
+def test_graphed_step_gives_the_eager_bits(kernel, model, emulated_capture):
+    ref, _ = _fixed_trip_steps(kernel, model, "cpu", graphed=False)
+    out, graph = _fixed_trip_steps(kernel, model, "cpu", graphed=True)
+    _assert_same_bits(ref, out)
+    # the first step runs eagerly as the capture's warm-up; one replay per later step
+    assert graph.replays == STEPS - 1
+    accepted = torch.stack([o[-7] for o in ref])  # TransitionInfo.is_accepted
+    assert accepted.any() and not accepted.all()
+
+
+def test_graphed_step_refuses_other_shapes(emulated_capture):
+    vag = _elementwise("cpu")[0]
+    _, step_fn = make_hmc_kernel(vag, num_leapfrog_steps=2)
+    graph = graphs.GraphedStep(step_fn)
+    tun = Tunables(torch.tensor(0.3), torch.ones(3))
+    for c in (4, 4, 5):
+        z = torch.zeros(c, 3)
+        state = HMCState(z, *vag(z))
+        x, U = step_inputs(SEED, torch.arange(c), 0, tun.inv_mass_diag, 1)
+        if c == 5:
+            with pytest.raises(ValueError, match="captured for"):
+                graph.step(state, tun, x, U)
+        else:
+            graph.step(state, tun, x, U)
+
+
 def _need_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
@@ -284,3 +358,14 @@ def test_graphs_give_the_eager_bits_on_the_card(model, static_schedule):
     assert transition.replays > 0
     if static_schedule:
         assert syncs == [0] * STEPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["hmc", "metropolis"])
+@pytest.mark.parametrize("model", list(MODELS))
+def test_graphed_step_gives_the_eager_bits_on_the_card(kernel, model):
+    _need_gpu()
+    ref, _ = _fixed_trip_steps(kernel, model, "cuda", graphed=False)
+    out, graph = _fixed_trip_steps(kernel, model, "cuda", graphed=True)
+    _assert_same_bits(ref, out)
+    assert graph.replays == STEPS - 1

@@ -17,10 +17,16 @@ names = [m.name for m in pkgutil.walk_packages(mlx_mcmc_tpu_torch.__path__, "mlx
 for name in names:
     importlib.import_module(name)
 for name in ("mlx_mcmc_tpu_torch.ops.glm_variants", "mlx_mcmc_tpu_torch.models.jax_random",
-             "mlx_mcmc_tpu_torch.ops.suffstats",
+             "mlx_mcmc_tpu_torch.ops.suffstats", "mlx_mcmc_tpu_torch.inference.mcmc",
+             "mlx_mcmc_tpu_torch.kernels.metropolis", "mlx_mcmc_tpu_torch.kernels.legacy",
+             "mlx_mcmc_tpu_torch.distributions.transforms",
+             "mlx_mcmc_tpu_torch.distributions.categorical",
+             "mlx_mcmc_tpu_torch.distributions.beta", "mlx_mcmc_tpu_torch.distributions.gamma",
              "mlx_mcmc_tpu_torch.benchmarks.glm_kernel_variants",
              "mlx_mcmc_tpu_torch.benchmarks.flagship_decomposition"):
     assert name in names, name
+from mlx_mcmc_tpu_torch import (MCMC, sample, metropolis_hastings, hmc, nuts, Normal, HalfNormal,
+                                Beta, Gamma, Exponential, Categorical, make_transformed_logprob)
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mlx_mcmc_tpu"))
@@ -35,7 +41,7 @@ def test_port_imports_no_jax_and_no_reference():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     count = int(out.stdout.split()[0])
-    assert count >= 15  # every module of the slice was imported
+    assert count >= 25  # every module of the slice was imported
 
 
 def test_sample_defaults_to_cuda_and_raises_without_it():
@@ -48,6 +54,13 @@ def test_sample_defaults_to_cuda_and_raises_without_it():
         sample(lambda p: -(p["x"] ** 2).sum(), {"x": [0.0]}, num_samples=2, num_warmup=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prepare_fused_logistic_data([[1.0]], [1.0])
+    from mlx_mcmc_tpu_torch import MCMC, metropolis_hastings
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MCMC(lambda p: -(p["x"] ** 2).sum()).run({"x": [0.0]}, num_samples=2, num_warmup=2,
+                                                  method="hmc", verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        metropolis_hastings(lambda p: -(p["x"] ** 2).sum(), {"x": [0.0]}, num_samples=2)
 
 
 _JAX_RANDOM_PROBE = """

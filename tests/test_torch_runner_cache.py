@@ -4,7 +4,10 @@ configuration reuse its runner (on the card, with the CUDA graphs of its
 transition) and give the same bits as a fresh build.
 
 Unlike the reference, the chain count and the ``data`` tensors (by
-identity) are part of the key, because the graphs bake them in.
+identity) are part of the key, because the graphs bake them in. As in the
+reference, the key holds the kernel and its kwargs, ``batched_initial``
+and the transforms (names by value, ``Transform`` instances by identity);
+``jitter`` is a per-call value, not a key.
 """
 
 import numpy as np
@@ -12,7 +15,7 @@ import pytest
 import torch
 
 from mlx_mcmc_tpu_torch import sample
-from mlx_mcmc_tpu_torch.distributions import Normal
+from mlx_mcmc_tpu_torch.distributions import Exp, Normal
 from mlx_mcmc_tpu_torch.inference import api
 
 
@@ -140,3 +143,42 @@ def test_eviction_is_least_recently_used(monkeypatch):
     _run(num_chains=3)  # evicts num_chains=2
     chains = sorted(key[4] for key in api._RUNNER_CACHE)
     assert chains == [1, 3]
+
+
+def test_kernel_and_its_kwargs_get_distinct_entries():
+    _run()
+    _run(kernel="hmc")
+    _run(kernel="hmc", num_leapfrog_steps=4)
+    _run(kernel="metropolis")
+    _run(thin=2)
+    _run(progress_every=10, progress_callback=lambda *a: None)
+    _run(init_inv_mass_diag=torch.full((3,), 2.0))
+    assert len(api._RUNNER_CACHE) == 7
+    _run(init_inv_mass_diag=[2.0, 2.0, 2.0])  # keyed by value
+    _run(kernel="hmc", num_leapfrog_steps=4)
+    assert len(api._RUNNER_CACHE) == 7
+
+
+def test_transforms_keyed_by_name_and_instance_identity():
+    _run(transforms={"x": "log"}, init={"x": torch.ones(3)})
+    _run(transforms={"x": "log"}, init={"x": torch.ones(3)})
+    assert len(api._RUNNER_CACHE) == 1
+    tf = Exp()
+    _run(transforms={"x": tf}, init={"x": torch.ones(3)})
+    _run(transforms={"x": tf}, init={"x": torch.ones(3)})
+    assert len(api._RUNNER_CACHE) == 2
+    _run(transforms={"x": Exp()}, init={"x": torch.ones(3)})  # another instance
+    assert len(api._RUNNER_CACHE) == 3
+
+
+def test_batched_initial_is_a_key_and_jitter_is_not():
+    r0 = _run(seed=2)
+    r1 = _run(seed=2, jitter=0.5)
+    assert len(api._RUNNER_CACHE) == 1
+    assert not torch.equal(r0.samples["x"], r1.samples["x"])
+    start = {"x": torch.arange(12.0).reshape(4, 3)}
+    rb = _run(seed=2, init=start, batched_initial=True)
+    assert len(api._RUNNER_CACHE) == 2
+    rb2 = _run(seed=2, init={"x": -start["x"]}, batched_initial=True)
+    assert len(api._RUNNER_CACHE) == 2  # new starting values, the same runner
+    assert not torch.equal(rb.samples["x"], rb2.samples["x"])
