@@ -60,11 +60,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    4096 chains; captured because their models declare ``graph_safe``, and
    reported as eager if they did not). Every output of every step must be
    bit-identical, twice (capture, then replays of the cached graphs).
-3d. HMC (10 leapfrogs) and Metropolis transitions as one CUDA graph each
-   (``graphs.GraphedStep``) against the eager loop: three steps at fixed
-   tunables through K1 on bf16 X (glm100, 4096 chains), every output bit
-   for bit, no host read inside a transition, two replays after the first
-   (eager) step.
+3d. HMC (10 leapfrogs), Metropolis and MALA transitions as one CUDA graph
+   each (``graphs.GraphedStep``) against the eager loop: three steps at
+   fixed tunables through K1 on bf16 X (glm100, 4096 chains), every output
+   bit for bit, no host read inside a transition, two replays after the
+   first (eager) step; and three ChEES transitions of 3, 1 and 5 leapfrogs
+   through ``graphs.GraphedTrajectory`` (a start graph, a one-leapfrog
+   graph replayed n times, an end graph) the same way, the endpoint fields
+   too.
 4. ``glm100_fused`` at full width through ``sample()`` and K1 (100 params,
    10K obs, bf16 X, 4096 chains, 300 warmup + 2000 draws, depth 6, target
    0.8, bf16 store) on the reference's dataset (its threefry streams):
@@ -92,6 +95,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    1, replays one per transition after the first; mean accept within 0.05
    of 0.8, divergences <= 1%, the Laplace check, and every posterior mean
    within 4 combined MCSEs of the NUTS main path's.
+4d. ChEES and MALA at glm100_fused's full width through K1 (the same data,
+   chains, 300 + 2000 and bf16 store), run right after phase 4c:
+   ``MCMC(None).run(method="chees")`` through the facade, ``sample(kernel=
+   "mala")``, and MALA again with ``draw_chunk=500``. Each prints wall, host
+   syncs, graph replays, K1 and Philox launches, mean accept, divergences
+   and (the first two) min-ESS and min-ESS per wall second. Launches must be
+   exact, against the probe's evaluations as the run reports them
+   (``probe_evals``): Philox 2300 + 1 on each path; ChEES K1 1 (init) + the
+   probe's + the sum of the 2,300 transitions' leapfrog counts, its host
+   syncs the probe's + 300 + 1 (a count read per warmup step, one for the
+   draws); MALA K1 2300 + 1 + the probe's, host syncs the probe's, 2,299
+   replays; chunked MALA K1 3 more (each continuation evaluates its start),
+   the same host syncs and replays (one capture serves every chunk).
+   ChEES's counts must be equal across chains in every draw and equal to
+   those read, its final trajectory length finite and above its step size.
+   Mean accept in ``ACCEPT_BAND`` (below), divergences <= 1%, finite bf16 draws, the Laplace check and every
+   posterior mean within 4 combined MCSEs of phase 4's NUTS; the chunked
+   run's draws and every info field equal the unchunked run's bit for bit.
 5. Funnel detail: centered eight schools at the bench's detail-row settings
    (``bench.FUNNEL_DETAIL``: 512 chains, 400 + 400, target 0.9, depth 10),
    through the generic autograd value+grad replayed as CUDA graphs (the
@@ -145,8 +166,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    int8 wide, K2 and K4 f32 and K1 f32 at glm1000, on no sampling path,
    with their phase-3 launches; K1 f32 with the f32 cut run's; the
    variants with their launches from phase 3b's entry points; K1 one-pass
-   with phase 4c's HMC launches and Philox with its launches on each path
-   of phases 4c, 7b and 9 beside the main path's), then the
+   with phase 4c's HMC and phase 4d's ChEES, MALA and chunked MALA
+   launches and Philox with its launches on each path of phases 4c, 4d, 7b
+   and 9 beside the main path's), then the
    contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -169,6 +191,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): dense bf16 tensor cores,
@@ -235,6 +258,18 @@ NORMAL_TOL = 2e-6
 VAR_LL_TOL_ABS, VAR_LL_TOL_REL = 1e-3, 1e-5
 VAR_G_TOL_REL, VAR_G_TOL_ABS = 1e-4, 1e-5
 PAIR_LL_TOL_REL, PAIR_BOUNDARY_SHARE, PAIR_FLIP_SHARE = 1e-4, 1e-3, 5e-3
+
+
+# ChEES's and MALA's mean accept at glm100_fused over 300 + 2000: at least
+# the target less 0.05 (ChEES 0.651, MALA 0.574); at most 0.05 above the
+# highest that either package gave there over seeds and chain counts
+# (tools/glm100_chees_mala_accept.py: both packages on the CPU at 64, 256
+# and 512 chains, the port on the H100 at 4096). Dual averaging's averaged
+# step size, which the draws use, lands conservative of the target in the
+# reference as here: ChEES 0.672-0.771 (two modes of the adapted
+# trajectory, near 3 and near 5.5), MALA 0.718-0.746. A step size adapted
+# too large shows below the band, one collapsed toward 0 above it.
+ACCEPT_BAND = {"chees": (0.651 - 0.05, 0.82), "mala": (0.574 - 0.05, 0.80)}
 
 
 def fail(msg: str) -> None:
@@ -998,7 +1033,7 @@ def other_configs(CONFIGS, h_problem, po_problem, g_problem, t_start) -> dict:
 
 def fixed_trip_steps(kernel: str, vag, dim: int, num_chains: int, step_size: float,
                      init_scale: float, graphed: bool) -> tuple:
-    """Three HMC (10 leapfrogs) or Metropolis (on ``vag``'s value)
+    """Three HMC (10 leapfrogs), MALA or Metropolis (on ``vag``'s value)
     transitions at fixed tunables from the engine's per-chain draws, eagerly
     or through ``graphs.GraphedStep``: every output of every step, cloned,
     and the GraphedStep."""
@@ -1007,7 +1042,7 @@ def fixed_trip_steps(kernel: str, vag, dim: int, num_chains: int, step_size: flo
     from mlx_mcmc_tpu_torch.kernels.base import Tunables
     from mlx_mcmc_tpu_torch.ops.random import step_draws
 
-    batched = vag if kernel == "hmc" else (lambda Z: vag(Z)[0])
+    batched = vag if kernel in ("hmc", "mala") else (lambda Z: vag(Z)[0])
     init_fn, step_fn = make_kernel(kernel, batched, num_leapfrog_steps=10)
     tun = Tunables(torch.tensor(step_size, device="cuda"), torch.ones(dim, device="cuda"))
     chains = torch.arange(num_chains, device="cuda")
@@ -1042,6 +1077,52 @@ def fixed_trip_graphs_vs_eager(label: str, kernel: str, vag, dim: int, num_chain
         fail(f"graphs vs eager ({label}): {graph.replays} replays for steps 2 and 3")
     accepted = float(torch.stack([o[-7] for o in ref]).float().mean())
     log(f"graphs vs eager ({label}): bit-identical over 3 steps, one graph per transition, "
+        f"{graph.replays} replays, accepted share {accepted:.3f}")
+
+
+def chees_graphs_vs_eager(label: str, vag, dim: int, num_chains: int, step_size: float,
+                          init_scale: float, counts: tuple = (3, 1, 5)) -> None:
+    """Phase 3d: three ChEES transitions at fixed tunables, with the
+    leapfrog counts ``counts``, from the engine's per-chain draws, eagerly
+    and through ``graphs.GraphedTrajectory``: every output bit for bit, and
+    after the first (eager) transition the start graph, n leapfrog graphs
+    and the end graph replayed per transition."""
+    from mlx_mcmc_tpu_torch.inference import graphs
+    from mlx_mcmc_tpu_torch.inference.engine import step_inputs
+    from mlx_mcmc_tpu_torch.kernels.base import Tunables
+    from mlx_mcmc_tpu_torch.kernels.chees import make_chees_kernel, make_chees_parts
+    from mlx_mcmc_tpu_torch.ops.random import step_draws
+
+    tun = Tunables(torch.tensor(step_size, device="cuda"), torch.ones(dim, device="cuda"))
+    chains = torch.arange(num_chains, device="cuda")
+
+    def three(graphed):
+        init_fn, step_fn = make_chees_kernel(vag)
+        state = init_fn(init_scale * step_draws(11, chains, 999, dim, 0)[0])
+        graph = graphs.GraphedTrajectory(make_chees_parts(vag)) if graphed else None
+        outs = []
+        for t, n in enumerate(counts):
+            r0, U = step_inputs(11, chains, t, tun.inv_mass_diag, 1)
+            state, info, syncs = (graph.step if graphed else step_fn)(state, tun, r0, U, n)
+            if syncs:
+                fail(f"ChEES: a transition read the host {syncs} times")
+            outs.append([v.clone() for v in (*state, *info)])
+        return outs, graph
+
+    ref, _ = three(False)
+    got, graph = three(True)
+    fields = ("position", "log_prob", "grad") + _STEP_FIELDS[3:] + (
+        "proposal_position", "end_velocity")
+    for t, (a, b) in enumerate(zip(ref, got)):
+        for field, x, y in zip(fields, a, b):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                fail(f"graphs vs eager ({label}): step {t} {field} differs from the eager loop's")
+    want = sum(n + 2 for n in counts[1:])
+    if graph.replays != want:
+        fail(f"graphs vs eager ({label}): {graph.replays} replays, want {want} (start, "
+             f"{counts[1:]} leapfrogs and end for steps 2 and 3)")
+    accepted = float(torch.stack([o[4] for o in ref]).float().mean())
+    log(f"graphs vs eager ({label}): bit-identical over 3 steps of {counts} leapfrogs, "
         f"{graph.replays} replays, accepted share {accepted:.3f}")
 
 
@@ -1101,12 +1182,15 @@ def hmc_full_width(cfg, init, data, vag, nuts_mean, nuts_se) -> dict:
         f"{accept:.4f} (accepted share {res.acceptance_rate:.4f}), divergences "
         f"{res.divergences}, min-ESS {float(ess.min()):.1f}, final step size "
         f"{float(res.tunables.step_size):.5f}")
-    # init, one per probe (each a host read: HMC's transitions read nothing),
-    # and L per transition
-    want = transitions * L + 1 + res.host_syncs
+    # init, one per probe evaluation and L per transition; the probe's
+    # evaluations are the only host reads (HMC's transitions read nothing)
+    probes = res.probe_evals
+    want = transitions * L + 1 + probes
     if k1 != want:
         fail(f"glm100_fused HMC: {k1} K1 launches, want {transitions} x {L} + 1 (init) + "
-             f"{res.host_syncs} (probe) = {want}")
+             f"{probes} (probe) = {want}")
+    if res.host_syncs != probes or probes < 1:
+        fail(f"glm100_fused HMC: {res.host_syncs} host syncs, want {probes} (the probe's)")
     if philox != transitions + 1:
         fail(f"glm100_fused HMC: {philox} Philox launches, want {transitions} + 1 (probe)")
     if res.graph_replays != transitions - 1:
@@ -1147,6 +1231,148 @@ def hmc_full_width(cfg, init, data, vag, nuts_mean, nuts_se) -> dict:
     return {"K1": k1, "philox": philox, "wall_seconds": wall, "busy": busy}
 
 
+def posterior_checks(label: str, cfg, data, beta, nuts_mean, nuts_se) -> dict:
+    """A glm100_fused path's draws: shape, bf16, finite; the Laplace check;
+    every posterior mean within 4 combined MCSEs of NUTS's (the main path).
+    Returns the min-ESS."""
+    if tuple(beta.shape) != (cfg["num_chains"], cfg["num_samples"], cfg["num_features"]) \
+            or beta.dtype != torch.bfloat16 or not bool(torch.isfinite(beta).all()):
+        fail(f"{label}: draws {tuple(beta.shape)} {beta.dtype} or non-finite")
+    z_gap, sd_lo, sd_hi = laplace_check(data, beta)
+    log(f"{label} vs Laplace: max |mean - MAP| / sd = {z_gap:.4f}, "
+        f"sd ratio in [{sd_lo:.4f}, {sd_hi:.4f}]")
+    if z_gap > 0.25 or not (0.9 <= sd_lo and sd_hi <= 1.1):
+        fail(f"{label}: posterior moments disagree with the Laplace approximation")
+    mean, se, ess = param_mean_mcse(beta)
+    z = (mean - nuts_mean).abs() / torch.hypot(se, nuts_se)
+    log(f"{label} vs NUTS (the main path): max |mean gap| / combined MCSE = "
+        f"{float(z.max()):.3f} over {z.numel()} parameters ({label} MCSE median "
+        f"{float(se.median()):.2e}, NUTS {float(nuts_se.median()):.2e})")
+    if float(z.max()) > 4:
+        fail(f"{label}: posterior means disagree with NUTS's beyond 4 combined MCSEs")
+    return float(ess.min())
+
+
+def chees_mala_full_width(cfg, init, data, vag, nuts_mean, nuts_se) -> dict:
+    """Phase 4d: ChEES through the ``MCMC`` facade, MALA through
+    ``sample()`` and MALA with ``draw_chunk=500`` at glm100_fused's full
+    width through K1 (see the module docstring). Returns each path's K1 and
+    Philox launches."""
+    from mlx_mcmc_tpu_torch import MCMC, sample
+    from mlx_mcmc_tpu_torch.bench import launch_counts, reset_launch_counts
+
+    transitions = cfg["num_warmup"] + cfg["num_samples"]
+    chains, draws = cfg["num_chains"], cfg["num_samples"]
+    run_kw = dict(num_chains=chains, num_warmup=cfg["num_warmup"], num_samples=draws,
+                  value_and_grad_fn=vag, data=data, store_dtype="bfloat16")
+    out = {}
+
+    def drive_path(label, run):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = launch_counts()
+        k1, philox = launched["glm_fused_logistic"], launched["philox_step_draws"]
+        out[label] = {"K1": k1, "philox": philox, "wall_seconds": wall}
+        accept = float(np.mean(res.info.accept_prob, dtype=np.float32)) if isinstance(
+            res.info.accept_prob, np.ndarray) else float(res.info.accept_prob.float().mean())
+        log(f"{label}: wall {wall:.2f} s, host syncs {res.host_syncs}, graph replays "
+            f"{res.graph_replays}, K1 launches {k1}, Philox launches {philox}; mean accept "
+            f"{accept:.4f} (accepted share {res.acceptance_rate:.4f}), divergences "
+            f"{res.divergences}, final step size {float(res.tunables.step_size):.5f}")
+        if philox != transitions + 1:
+            fail(f"{label}: {philox} Philox launches, want {transitions} + 1 (probe)")
+        if res.divergences > 0.01 * chains * draws:
+            fail(f"{label}: {res.divergences} divergences")
+        return res, accept, k1, wall
+
+    def check_accept(label, accept, kernel):
+        lo, hi = ACCEPT_BAND[kernel]
+        if not lo <= accept <= hi:
+            fail(f"{label}: mean accept {accept} outside [{lo}, {hi}]")
+
+    # ChEES through the facade: K1 once at init, once per probe and once
+    # per leapfrog; the host reads each warmup step's count and the draws'
+    # counts once.
+    label = "glm100_fused ChEES (facade)"
+    mcmc = MCMC(None)
+    res, accept, k1, wall = drive_path(label, lambda: (mcmc.run(
+        init, method="chees", verbose=False, **run_kw), mcmc.result)[1])
+    del mcmc  # the facade's numpy copy of the draws
+    counts = res.leapfrog_counts
+    steps = res.info.num_integration_steps
+    probes = res.probe_evals
+    traj, eps = float(res.tunables.trajectory_length), float(res.tunables.step_size)
+    log(f"{label}: trajectory length {traj:.5f} ({traj / eps:.2f} step sizes), leapfrogs per "
+        f"transition mean {sum(counts) / len(counts):.3f}, warmup {sum(counts[:cfg['num_warmup']])}"
+        f", draws {sum(counts[cfg['num_warmup']:])}; probe evaluations {probes}")
+    if len(counts) != transitions or probes < 1:
+        fail(f"{label}: {len(counts)} counts read, {probes} probe evaluations")
+    if res.host_syncs != probes + cfg["num_warmup"] + 1:
+        fail(f"{label}: {res.host_syncs} host syncs, want {probes} (probe) + "
+             f"{cfg['num_warmup']} (warmup counts) + 1 (the draws' counts)")
+    if k1 != 1 + probes + sum(counts):
+        fail(f"{label}: {k1} K1 launches, want 1 (init) + {probes} (probe) + {sum(counts)} "
+             "(the leapfrogs)")
+    if not bool((steps == steps[:1]).all()) or steps[0].tolist() != list(counts[cfg["num_warmup"]:]):
+        fail(f"{label}: the chains' leapfrog counts differ within a draw, or from those read")
+    if not (math.isfinite(traj) and traj > eps):
+        fail(f"{label}: final trajectory length {traj} is not finite or not above the step "
+             f"size {eps}")
+    check_accept(label, accept, "chees")
+    ess = posterior_checks(label, cfg, data, res.samples["beta"], nuts_mean, nuts_se)
+    out[label].update(min_ess=ess, min_ess_per_second=ess / wall, accept=accept,
+                      host_syncs=res.host_syncs, replays=res.graph_replays, trajectory_length=traj)
+    log(f"{label}: min-ESS {ess:.1f}, {ess / wall:.1f} per wall second")
+    del res, steps
+
+    # MALA through sample(): one K1 per transition, no host read in it.
+    label = "glm100_fused MALA"
+    res, accept, k1, wall = drive_path(label, lambda: sample(None, init, kernel="mala", **run_kw))
+    probes = res.probe_evals
+    if k1 != transitions + 1 + probes:
+        fail(f"{label}: {k1} K1 launches, want {transitions} + 1 (init) + {probes} (probe)")
+    if res.host_syncs != probes or probes < 1:
+        fail(f"{label}: {res.host_syncs} host syncs, want {probes} (the probe's)")
+    if res.graph_replays != transitions - 1:
+        fail(f"{label}: {res.graph_replays} graph replays, want {transitions - 1}")
+    check_accept(label, accept, "mala")
+    ess = posterior_checks(label, cfg, data, res.samples["beta"], nuts_mean, nuts_se)
+    out[label].update(min_ess=ess, min_ess_per_second=ess / wall, accept=accept,
+                      host_syncs=res.host_syncs, replays=res.graph_replays)
+    log(f"{label}: min-ESS {ess:.1f}, {ess / wall:.1f} per wall second")
+
+    # The same with draw_chunk=500: three continuations, each evaluating
+    # its start once more and replaying the first run's graphs; every draw
+    # and info field the unchunked run's.
+    label = "glm100_fused MALA draw_chunk"
+    chunk = 500
+    chunked, _, k1, _ = drive_path(label, lambda: sample(None, init, kernel="mala",
+                                                         draw_chunk=chunk, **run_kw))
+    continuations = -(-draws // chunk) - 1
+    probes = chunked.probe_evals
+    if k1 != transitions + 1 + probes + continuations:
+        fail(f"{label}: {k1} K1 launches, want {transitions} + 1 (init) + "
+             f"{probes} (probe) + {continuations} (continuations)")
+    if chunked.host_syncs != probes or probes < 1:
+        fail(f"{label}: {chunked.host_syncs} host syncs, want {probes} (the probe's)")
+    if chunked.graph_replays != transitions - 1:
+        fail(f"{label}: {chunked.graph_replays} graph replays, want {transitions - 1} (one "
+             "capture for all the chunks)")
+    if not np.array_equal(chunked.samples["beta"], res.samples["beta"].float().cpu().numpy()):
+        fail(f"{label}: the draws differ from the unchunked run's")
+    for field, a, b in zip(type(res.info)._fields, chunked.info, res.info):
+        if not np.array_equal(a, b.cpu().numpy()):
+            fail(f"{label}: info {field} differs from the unchunked run's")
+    out[label].update(host_syncs=chunked.host_syncs, replays=chunked.graph_replays)
+    log(f"{label}: {continuations} continuations, draws and every info field bit-identical to "
+        "the unchunked run's")
+    return out
+
+
 def readme_exact(y: torch.Tensor) -> dict:
     """Posterior means of the README model's mu and sigma by quadrature on
     a 1601 x 1601 grid around the MAP, in float64 on the card: the model's
@@ -1166,8 +1392,6 @@ def readme_exact(y: torch.Tensor) -> dict:
 def readme_phase() -> dict:
     """Phase 9: the README quick start on the card (see the module
     docstring). Returns each run's Philox launches."""
-    import numpy as np  # the data: numpy's normal draws from seed 0
-
     from mlx_mcmc_tpu_torch import MCMC, HalfNormal, Normal
     from mlx_mcmc_tpu_torch.bench import launch_counts, reset_launch_counts
 
@@ -1526,6 +1750,10 @@ def main() -> None:
                                cfg["num_chains"], 0.02, 0.1)
     fixed_trip_graphs_vs_eager("Metropolis, K1 bf16 glm100", "metropolis", bind(k1_vag, data), d,
                                cfg["num_chains"], 0.02, 0.1)
+    fixed_trip_graphs_vs_eager("MALA, K1 bf16 glm100", "mala", bind(k1_vag, data), d,
+                               cfg["num_chains"], 0.02, 0.1)
+    chees_graphs_vs_eager("ChEES, K1 bf16 glm100", bind(k1_vag, data), d, cfg["num_chains"],
+                          0.02, 0.1)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- glm100_fused: the main path --------------------------------------
@@ -1555,6 +1783,11 @@ def main() -> None:
 
     # --- glm100_fused through HMC and the MCMC facade ----------------------
     hmc_path = hmc_full_width(cfg, init, data, k1_vag, nuts_mean, nuts_se)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # --- glm100_fused through ChEES (facade), MALA and MALA in chunks ------
+    cm_paths = chees_mala_full_width(cfg, init, data, k1_vag, nuts_mean, nuts_se)
+    log("glm100_fused ChEES and MALA paths: " + json.dumps(cm_paths))
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- glm100_fused on int8 X, cut: the int8 one-pass kernel -------------
@@ -1727,13 +1960,18 @@ def main() -> None:
             extra["sampling_path"] = False
         if key == "K1_f32":
             extra["phase3_launches"] = f32_launches["K1_f32"]
+        cm_names = {"glm100_fused chees (facade)": "glm100_fused ChEES (facade)",
+                    "glm100_fused mala": "glm100_fused MALA",
+                    "glm100_fused mala draw_chunk": "glm100_fused MALA draw_chunk"}
         if key == "K1":
             extra["launches_by_path"] = {"glm100_fused": launches[key],
-                                         "glm100_fused hmc (facade)": hmc_path["K1"]}
+                                         "glm100_fused hmc (facade)": hmc_path["K1"],
+                                         **{k: cm_paths[v]["K1"] for k, v in cm_names.items()}}
         if key == "philox":
             extra["launches_by_path"] = dict(
                 philox_by_path, glm100_fused=launches[key],
-                **{"glm100_fused hmc (facade)": hmc_path["philox"]}, **readme_philox)
+                **{"glm100_fused hmc (facade)": hmc_path["philox"]},
+                **{k: cm_paths[v]["philox"] for k, v in cm_names.items()}, **readme_philox)
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[key], "max_abs_err": row["max_abs_err"],

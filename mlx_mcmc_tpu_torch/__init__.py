@@ -11,19 +11,30 @@ The package imports ``torch`` only: nothing of JAX and nothing of
 """
 
 from mlx_mcmc_tpu_torch.distributions import (
+    Bernoulli,
     Beta,
+    Binomial,
     Categorical,
+    Cauchy,
+    Dirichlet,
     Distribution,
     Exp,
     Exponential,
     Gamma,
     HalfNormal,
     Identity,
+    Laplace,
+    LogNormal,
+    MultivariateNormal,
+    NegativeBinomial,
     Normal,
+    Poisson,
     Sigmoid,
     Softplus,
     StickBreaking,
+    StudentT,
     Transform,
+    Uniform,
     make_transformed_logprob,
 )
 from mlx_mcmc_tpu_torch.inference.api import MCMCResult, clear_runner_cache, sample
@@ -45,6 +56,17 @@ __all__ = [
     "Gamma",
     "Exponential",
     "Categorical",
+    "Bernoulli",
+    "Binomial",
+    "NegativeBinomial",
+    "Laplace",
+    "Cauchy",
+    "Uniform",
+    "LogNormal",
+    "StudentT",
+    "Poisson",
+    "Dirichlet",
+    "MultivariateNormal",
     "Transform",
     "Identity",
     "Exp",

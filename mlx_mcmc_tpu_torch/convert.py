@@ -16,7 +16,9 @@ import torch
 from mlx_mcmc_tpu_torch._device import resolve_device
 from mlx_mcmc_tpu_torch.kernels.adaptation import AdaptationState, DualAveragingState
 from mlx_mcmc_tpu_torch.kernels.base import Tunables
+from mlx_mcmc_tpu_torch.kernels.chees import ChEESInfo, TrajectoryAdaptState
 from mlx_mcmc_tpu_torch.kernels.hmc import HMCState
+from mlx_mcmc_tpu_torch.kernels.mala import MALAState
 from mlx_mcmc_tpu_torch.ops.glm import transpose_f32
 from mlx_mcmc_tpu_torch.ops.math import WelfordState
 
@@ -159,3 +161,22 @@ def hmc_state_from_jax(state, device=None) -> HMCState:
     """A chain-batched ``HMCState`` (leading axis = chains)."""
     dev = resolve_device(device)
     return HMCState(*(to_tensor(x, dev).float() for x in state))
+
+
+def mala_state_from_jax(state, device=None) -> MALAState:
+    """A chain-batched ``MALAState`` (leading axis = chains)."""
+    dev = resolve_device(device)
+    return MALAState(*(to_tensor(x, dev).float() for x in state))
+
+
+def trajectory_state_from_jax(state, device=None) -> TrajectoryAdaptState:
+    """ChEES's trajectory adaptation state: four 0-d float32 tensors."""
+    dev = resolve_device(device)
+    return TrajectoryAdaptState(*(to_tensor(x, dev).float() for x in state))
+
+
+def chees_info_from_jax(info, device=None) -> ChEESInfo:
+    """A chain-batched ``ChEESInfo``, each field in its own dtype (flags as
+    bool, counts as int32)."""
+    dev = resolve_device(device)
+    return ChEESInfo(*(to_tensor(x, dev) for x in info))

@@ -2,6 +2,19 @@ from mlx_mcmc_tpu_torch.distributions.base import Distribution
 from mlx_mcmc_tpu_torch.distributions.beta import Beta
 from mlx_mcmc_tpu_torch.distributions.categorical import Categorical
 from mlx_mcmc_tpu_torch.distributions.exponential import Exponential
+from mlx_mcmc_tpu_torch.distributions.extras import (
+    Bernoulli,
+    Binomial,
+    Cauchy,
+    Dirichlet,
+    Laplace,
+    LogNormal,
+    MultivariateNormal,
+    NegativeBinomial,
+    Poisson,
+    StudentT,
+    Uniform,
+)
 from mlx_mcmc_tpu_torch.distributions.gamma import Gamma
 from mlx_mcmc_tpu_torch.distributions.halfnormal import HalfNormal
 from mlx_mcmc_tpu_torch.distributions.normal import Normal
@@ -24,6 +37,17 @@ __all__ = [
     "Gamma",
     "Exponential",
     "Categorical",
+    "Bernoulli",
+    "Binomial",
+    "NegativeBinomial",
+    "Laplace",
+    "Cauchy",
+    "Uniform",
+    "LogNormal",
+    "StudentT",
+    "Poisson",
+    "Dirichlet",
+    "MultivariateNormal",
     "Transform",
     "Identity",
     "Exp",

@@ -1,7 +1,8 @@
 """Multi-chain sampling engine: init -> step-size probe -> warmup -> draws.
 
 Counterpart of ``build_sampler`` in ``mlx_mcmc_tpu/inference/engine.py``
-(the NUTS subset). The reference's two ``lax.scan`` loops become Python
+(every kernel: Metropolis, HMC, NUTS, ChEES, MALA; warmup segments and
+draw offsets). The reference's two ``lax.scan`` loops become Python
 loops over batched ``(C, D)`` tensor steps. On the card each transition
 replays CUDA graphs (``inference/graphs.py``) when its value+grad declares
 that they may capture it (``graph_safe``); elsewhere, and on the CPU, the
@@ -18,11 +19,20 @@ chain's draws depend only on its global index, never on how many chains run
 beside it, and any step's draws can be regenerated. The step-size probe uses
 step index ``0x7FFFFFFF``, as the reference does.
 
-Host syncs: each transition reads ``active.any()`` after its root and after
-each pairs replay (none with ``static_schedule=True``), and each probe of
-the step-size search reads the pooled accept rate; ``ChainResult`` reports
-their count and the graph replays. The draw store and all per-draw
-diagnostics stay on the device.
+Host syncs: each NUTS transition reads ``active.any()`` after its root and
+after each pairs replay (none with ``static_schedule=True``), each probe of
+the step-size search reads the pooled accept rate, and ChEES reads its
+leapfrog count once per warmup step and once for all the steps of a
+sampling phase (``kernels/chees.py``); ``ChainResult`` reports their count
+and the graph replays. The draw store and all per-draw diagnostics stay on
+the device.
+
+Segments: ``warmup_start``/``warmup_stop`` run a slice ``[start, stop)`` of
+the warmup schedule, continuing from ``resume_state=(adapt, traj)``, and
+``run``'s ``sample_start`` offsets the draws' global steps. Every random
+input and every schedule flag is a function of the global step index, so a
+run cut into segments gives the uninterrupted run's bits (``sample()``'s
+``draw_chunk``; checkpoint and resume).
 """
 
 from __future__ import annotations
@@ -39,6 +49,17 @@ from mlx_mcmc_tpu_torch.kernels.adaptation import (
     find_reasonable_step_size,
 )
 from mlx_mcmc_tpu_torch.kernels.base import TransitionInfo, Tunables
+from mlx_mcmc_tpu_torch.kernels.chees import (
+    ChEESInfo,
+    chees_gradient,
+    halton_device,
+    halton_sequence,
+    make_chees_kernel,
+    make_chees_parts,
+    num_leapfrogs,
+    trajectory_init,
+    trajectory_update,
+)
 from mlx_mcmc_tpu_torch.kernels.integrators import (
     IntegratorState,
     leapfrog,
@@ -47,17 +68,25 @@ from mlx_mcmc_tpu_torch.kernels.integrators import (
 )
 from mlx_mcmc_tpu_torch.inference import graphs
 from mlx_mcmc_tpu_torch.kernels.hmc import make_hmc_kernel
+from mlx_mcmc_tpu_torch.kernels.mala import make_mala_kernel
 from mlx_mcmc_tpu_torch.kernels.metropolis import make_metropolis_kernel
 from mlx_mcmc_tpu_torch.kernels.nuts import make_nuts_kernel
 from mlx_mcmc_tpu_torch.ops.random import step_draws
 
-_DEFAULT_TARGET_ACCEPT = {"metropolis": 0.234, "hmc": 0.8, "nuts": 0.65}
+_DEFAULT_TARGET_ACCEPT = {
+    "metropolis": 0.234,
+    "hmc": 0.8,
+    "nuts": 0.65,
+    "chees": 0.651,  # the ChEES paper's harmonic-mean acceptance target
+    "mala": 0.574,  # optimal scaling of Langevin proposals
+}
 _PROBE_STEP = 0x7FFFFFFF
 # Reserved step index of the chains' jittered starts (``jittered_starts``):
 # neither a sampling step nor the probe's.
 JITTER_STEP = 0x7FFFFFFE
-# The reference's other kernels and the ROADMAP items that port them.
-_NOT_PORTED = {"chees": "A.7", "mala": "A.7"}
+# Kernels that take raw standard normals (a proposal's noise), not momenta.
+_NOISE_KERNELS = ("metropolis", "mala")
+_ENDPOINT_FIELDS = ("proposal_position", "end_velocity")
 
 
 def default_target_accept(kernel: str) -> float:
@@ -68,10 +97,17 @@ class ChainResult(NamedTuple):
     """Raw engine output, on the device.
 
     ``positions``: (chains, draws, D) in the store dtype. ``info``:
-    TransitionInfo with (chains, draws) fields. ``host_syncs``: device-to-host
-    syncs the run made (probe reads plus one per NUTS pair-loop check).
-    ``graph_replays``: replays of the transition's CUDA graphs (0 when the
-    transitions ran eagerly).
+    TransitionInfo (ChEES: ``ChEESInfo`` with its endpoint fields stripped
+    to width 0) with (chains, draws) fields. ``final_adapt`` and
+    ``final_traj`` (ChEES's ``TrajectoryAdaptState``, ``()`` for the other
+    kernels): the adaptation state at the end of the run's warmup segment,
+    what a continuation takes as ``resume_state``. ``host_syncs``:
+    device-to-host syncs the run made (probe reads, NUTS pair-loop checks,
+    ChEES count reads). ``graph_replays``: replays of the transition's CUDA
+    graphs (0 when the transitions ran eagerly). ``leapfrog_counts``
+    (ChEES): the leapfrog count of every transition run, warmup first, as
+    the host read them. ``probe_evals``: the step-size probe's one-leapfrog
+    evaluations (each one value+grad and one host read; 0 without a probe).
     """
 
     positions: torch.Tensor
@@ -81,6 +117,9 @@ class ChainResult(NamedTuple):
     final_adapt: AdaptationState
     host_syncs: int
     graph_replays: int = 0
+    final_traj: Any = ()
+    leapfrog_counts: tuple = ()
+    probe_evals: int = 0
 
 
 def step_inputs(seed: int, chains: torch.Tensor, t: int, inv_mass_diag: torch.Tensor, n_slots: int):
@@ -161,28 +200,39 @@ def make_batched_value(flat_log_prob: Callable, data=None):
 
 
 def _check_kernel(kernel: str) -> None:
-    if kernel in _NOT_PORTED:
-        raise NotImplementedError(
-            f"kernel={kernel!r} is not ported yet (ROADMAP {_NOT_PORTED[kernel]})")
     if kernel not in _DEFAULT_TARGET_ACCEPT:
         raise ValueError(f"Unknown kernel: {kernel!r}")
 
 
 def make_kernel(kernel: str, batched: Callable, *, num_leapfrog_steps: int = 10,
-                max_tree_depth: int = 10, static_schedule: bool = False):
+                max_tree_depth: int = 10, static_schedule: bool = False,
+                max_leapfrog_steps: int = 1000):
     """Kernel factory by name, as the reference's ``make_kernel``:
     ``(init_fn, step_fn)`` over ``batched``, a batched value
-    (Metropolis) or value+grad (HMC, NUTS). ``step_fn(state, tunables, x,
-    U) -> (state, info, host_syncs)``, with ``x`` the step's momenta (HMC,
-    NUTS) or standard normals (Metropolis)."""
+    (Metropolis) or value+grad (HMC, NUTS, ChEES, MALA). ``step_fn(state,
+    tunables, x, U) -> (state, info, host_syncs)``, with ``x`` the step's
+    momenta (HMC, NUTS, ChEES) or standard normals (Metropolis, MALA);
+    ChEES's takes the step's leapfrog count as a fifth argument, at most
+    ``max_leapfrog_steps``."""
     _check_kernel(kernel)
     if kernel == "metropolis":
         return make_metropolis_kernel(batched)
     if kernel == "hmc":
         return make_hmc_kernel(batched, num_leapfrog_steps=num_leapfrog_steps)
+    if kernel == "mala":
+        return make_mala_kernel(batched)
+    if kernel == "chees":
+        return make_chees_kernel(batched, max_leapfrog_steps=max_leapfrog_steps)
     return make_nuts_kernel(batched, max_tree_depth=max_tree_depth,
                             pairs_per_check=graphs.PAIRS_PER_REPLAY,
                             static_schedule=static_schedule)
+
+
+def strip_endpoints(info):
+    """ChEES's info with its endpoint fields cut to width 0: the draws do
+    not store them (the reference's ``engine.py:437-446``; at 4096 chains,
+    D = 100 and 2,000 draws they would add 6.6 GB)."""
+    return info._replace(**{k: getattr(info, k)[..., :0] for k in _ENDPOINT_FIELDS})
 
 
 def resolve_step_size(step_size, kernel: str, adapt_step_size: bool):
@@ -229,23 +279,32 @@ def build_sampler(
     store_dtype=None,
     max_tree_depth: int = 10,
     num_leapfrog_steps: int = 10,
+    max_leapfrog_steps: int = 1000,
     value_and_grad_fn: Optional[Callable] = None,
     static_schedule: bool = False,
     init_inv_mass_diag=None,
     progress_every: Optional[int] = None,
     progress_callback: Optional[Callable] = None,
+    warmup_start: int = 0,
+    warmup_stop: Optional[int] = None,
 ) -> Callable[..., ChainResult]:
-    """Build ``run(seed, z0_batch, data=None) -> ChainResult``.
+    """Build ``run(seed, z0_batch, data=None, resume_state=None,
+    sample_start=0, *, num_samples, warmup_start, warmup_stop) ->
+    ChainResult``; the last three default to the values given here.
 
-    ``kernel`` is 'metropolis', 'hmc' (``num_leapfrog_steps`` leapfrogs) or
-    'nuts' (``max_tree_depth``, ``static_schedule``). With
+    ``kernel`` is 'metropolis', 'hmc' (``num_leapfrog_steps`` leapfrogs),
+    'nuts' (``max_tree_depth``, ``static_schedule``), 'chees' (at most
+    ``max_leapfrog_steps`` leapfrogs a transition) or 'mala'. With
     ``step_size='auto'`` the step size of a gradient kernel starts from the
     Stan-style probe, otherwise from ``step_size``; it adapts by dual
     averaging toward ``target_accept`` (the kernel's default: 0.234, 0.8,
-    0.65) unless ``adapt_step_size=False``, which keeps ``step_size`` for
-    every step. The diagonal inverse mass matrix starts at
+    0.65, 0.651, 0.574) unless ``adapt_step_size=False``, which keeps
+    ``step_size`` for every step. The diagonal inverse mass matrix starts at
     ``init_inv_mass_diag`` (ones by default; the probe uses it too) and
     adapts in the windowed schedule unless ``adapt_mass_matrix=False``.
+    ChEES's trajectory length starts at the initial step size and adapts in
+    every warmup step (Adam on the ChEES criterion); its stored draws carry
+    no endpoint fields (:func:`strip_endpoints`).
     ``value_and_grad_fn(Z, data) -> (ll (C,), g (C, D))`` replaces autograd
     (the fused GLM path; Metropolis takes its value); otherwise
     ``flat_log_prob`` (``(z)`` or ``(z, data)``) is evaluated per chain.
@@ -254,19 +313,29 @@ def build_sampler(
     fixed-trip pair loop: the same draws, no host read inside a transition.
 
     ``thin`` keeps every ``thin``-th draw: stored draw ``j`` is the last of
-    the steps ``num_warmup + j*thin + i`` (``i < thin``), with
-    ``is_divergent`` the block's any and ``num_integration_steps`` its sum.
-    ``progress_every=n`` calls ``progress_callback(phase, t, mean accept,
-    step size)`` (default: a printed line) after every step ``t`` with
-    ``(t + 1) % n == 0`` (a thinned block reports at its first step's
+    the steps ``num_warmup + (sample_start + j)*thin + i`` (``i < thin``),
+    with ``is_divergent`` the block's any and ``num_integration_steps`` its
+    sum. ``progress_every=n`` calls ``progress_callback(phase, t, mean
+    accept, step size)`` (default: a printed line) after every step ``t``
+    with ``(t + 1) % n == 0`` (a thinned block reports at its first step's
     index, as the reference does); each report is one host read, counted
     in ``host_syncs``.
 
+    ``warmup_start``/``warmup_stop`` select the segment ``[start, stop)`` of
+    the ``num_warmup``-step schedule; a run that starts past 0 continues
+    from ``resume_state=(adapt, traj)`` (an earlier run's ``final_adapt``
+    and ``final_traj``), which also skips the probe. ``num_samples=0``
+    stops after the warmup segment, and ``sample_start`` offsets the
+    draws, so the segments of a run give its uninterrupted bits. A call may
+    run another segment or draw count than the build's (``sample()``'s
+    ``draw_chunk`` continuations: no warmup, one chunk of draws) and
+    replays the same graphs.
+
     On the card, a value (+grad) with ``graph_safe = True`` runs through
-    :class:`graphs.GraphedTransition` (NUTS) or :class:`graphs.GraphedStep`;
-    ``run`` keeps the graphs of its last call and replays them in the next
-    call with the same device, chain count and ``data`` (by identity:
-    :func:`data_key`).
+    :class:`graphs.GraphedTransition` (NUTS), :class:`graphs.GraphedTrajectory`
+    (ChEES) or :class:`graphs.GraphedStep`; ``run`` keeps the graphs of its
+    last call and replays them in the next call with the same device, chain
+    count and ``data`` (by identity: :func:`data_key`).
     """
     _check_kernel(kernel)
     if target_accept is None:
@@ -276,8 +345,12 @@ def build_sampler(
     auto_step_size = isinstance(step_size, str)
     if auto_step_size and (step_size != "auto" or kernel == "metropolis"
                            or not adapt_step_size):
-        raise ValueError("step_size='auto' requires a gradient kernel (hmc/nuts) "
+        raise ValueError("step_size='auto' requires a gradient kernel (hmc/nuts/chees/mala) "
                          "with adapt_step_size=True")
+    if warmup_stop is None:
+        warmup_stop = num_warmup
+    _check_segment(warmup_start, warmup_stop, num_warmup)
+    is_chees = kernel == "chees"
     schedule = build_schedule(num_warmup, adapt_mass_matrix=adapt_mass_matrix)
     report = progress_callback or _default_progress
     n_slots = 1 << (max_tree_depth - 1) if kernel == "nuts" else 1
@@ -288,9 +361,15 @@ def build_sampler(
 
     last_graphs = {}  # the graphs of the last run, by what they bake in
 
-    def run(seed: int, z0_batch: torch.Tensor, data=None) -> ChainResult:
+    def run(seed: int, z0_batch: torch.Tensor, data=None, resume_state=None,
+            sample_start: int = 0, *, num_samples: int = num_samples,
+            warmup_start: int = warmup_start, warmup_stop: int = warmup_stop) -> ChainResult:
+        _check_segment(warmup_start, warmup_stop, num_warmup)
         device = z0_batch.device
         num_chains = z0_batch.shape[0]
+        if resume_state is None and warmup_start > 0:
+            raise ValueError("warmup_start > 0 requires resume_state=(adapt, traj) from the "
+                             "prior segment's ChainResult")
         if value_and_grad_fn is not None:
             def vag(Z):
                 return value_and_grad_fn(Z) if data is None else value_and_grad_fn(Z, data)
@@ -309,7 +388,8 @@ def build_sampler(
             batched.graph_safe = vag.graph_safe
         init_fn, step_fn = make_kernel(kernel, batched, num_leapfrog_steps=num_leapfrog_steps,
                                        max_tree_depth=max_tree_depth,
-                                       static_schedule=static_schedule)
+                                       static_schedule=static_schedule,
+                                       max_leapfrog_steps=max_leapfrog_steps)
         transition = None
         if device.type == "cuda" and graphs.captures(batched):
             key = (device, num_chains, data_key(data), graphs.PAIRS_PER_REPLAY)
@@ -318,6 +398,8 @@ def build_sampler(
                 last_graphs.clear()
                 if kernel == "nuts":
                     transition = graphs.GraphedTransition(vag, max_tree_depth, static_schedule)
+                elif is_chees:
+                    transition = graphs.GraphedTrajectory(make_chees_parts(vag))
                 else:
                     transition = graphs.GraphedStep(step_fn)
                 if key[2] is not None:
@@ -326,34 +408,48 @@ def build_sampler(
             replays0 = transition.replays
         states = init_fn(z0_batch)
         chains = torch.arange(num_chains, device=device)
-        inv_mass0 = (torch.ones((dim,), dtype=torch.float32, device=device)
-                     if init_inv_mass_diag is None else
-                     torch.as_tensor(init_inv_mass_diag, dtype=torch.float32, device=device))
+        host_syncs = probe_evals = 0
 
-        if auto_step_size:
-            # Stan-style initialization: one leapfrog across all chains,
-            # doubling/halving eps until the mean accept crosses 0.5.
-            r, _ = step_inputs(seed, chains, _PROBE_STEP, inv_mass0, 0)
-            start = IntegratorState(states.position, r, states.log_prob, states.grad)
-            e0 = total_energy(start, inv_mass0)
-
-            def accept_prob_fn(eps: float) -> float:
-                eps_t = torch.tensor(eps, dtype=torch.float32, device=device)
-                e1 = total_energy(leapfrog(start, eps_t, inv_mass0, vag), inv_mass0)
-                delta = e0 - e1
-                delta = torch.where(torch.isnan(delta), -float("inf"), delta)
-                return float(torch.exp(torch.clamp(delta, max=0.0)).mean())
-
-            eps_init, host_syncs = find_reasonable_step_size(accept_prob_fn)
+        if resume_state is not None:
+            # Continue an earlier segment: its adaptation state replaces the
+            # probe and adaptation_init.
+            adapt, traj = resume_state
+            if not is_chees:
+                traj = ()
         else:
-            eps_init, host_syncs = step_size, 0
-        adapt = adaptation_init(dim, eps_init, inv_mass0, device=device)
+            inv_mass0 = (torch.ones((dim,), dtype=torch.float32, device=device)
+                         if init_inv_mass_diag is None else
+                         torch.as_tensor(init_inv_mass_diag, dtype=torch.float32, device=device))
+            if auto_step_size:
+                # Stan-style initialization: one leapfrog across all chains,
+                # doubling/halving eps until the mean accept crosses 0.5.
+                r, _ = step_inputs(seed, chains, _PROBE_STEP, inv_mass0, 0)
+                start = IntegratorState(states.position, r, states.log_prob, states.grad)
+                e0 = total_energy(start, inv_mass0)
 
-        def one_step(states, t, tunables):
-            if kernel == "metropolis":
+                def accept_prob_fn(eps: float) -> float:
+                    eps_t = torch.tensor(eps, dtype=torch.float32, device=device)
+                    e1 = total_energy(leapfrog(start, eps_t, inv_mass0, vag), inv_mass0)
+                    delta = e0 - e1
+                    delta = torch.where(torch.isnan(delta), -float("inf"), delta)
+                    return float(torch.exp(torch.clamp(delta, max=0.0)).mean())
+
+                eps_init, probe_evals = find_reasonable_step_size(accept_prob_fn)
+                host_syncs = probe_evals
+            else:
+                eps_init = step_size
+            adapt = adaptation_init(dim, eps_init, inv_mass0, device=device)
+            traj = trajectory_init(eps_init, device=device) if is_chees else ()
+        counts = []  # ChEES: each transition's leapfrog count, as read
+
+        def one_step(states, t, tunables, num_steps=None):
+            if kernel in _NOISE_KERNELS:
                 x, U = step_draws(seed, chains, t, dim, n_slots)
             else:
                 x, U = step_inputs(seed, chains, t, tunables.inv_mass_diag, n_slots)
+            if is_chees:
+                counts.append(num_steps)
+                return step_fn(states, tunables, x, U, num_steps)
             return step_fn(states, tunables, x, U)
 
         def maybe_report(phase, t, infos, tunables) -> int:
@@ -363,9 +459,20 @@ def build_sampler(
             report(phase, t, accept, eps)
             return 1
 
-        for t in range(num_warmup):
+        for t in range(warmup_start, warmup_stop):
             tunables = _tunables(adapt, adapt.da.log_step)
-            states, infos, syncs = one_step(states, t, tunables)
+            num_steps = None
+            if is_chees:
+                # This step's jittered trajectory: Halton of the global step,
+                # the same for every chain; its count read on the host.
+                u = halton_sequence(t)
+                tunables = tunables._replace(trajectory_length=u * torch.exp(traj.log_tau))
+                num_steps = int(num_leapfrogs(tunables.trajectory_length, tunables.step_size,
+                                              max_leapfrog_steps))
+                host_syncs += 1
+                # a graph's outputs are overwritten by its next replay
+                prev_positions = states.position.clone()
+            states, infos, syncs = one_step(states, t, tunables, num_steps)
             host_syncs += syncs
             adapt = adaptation_update(
                 adapt,
@@ -375,18 +482,36 @@ def build_sampler(
                 bool(schedule.window_end[t]),
                 target_accept,
             )
+            if is_chees:
+                grad = chees_gradient(prev_positions, infos, u)
+                traj = trajectory_update(traj, grad, tunables.step_size,
+                                         max_leapfrog_steps=max_leapfrog_steps)
             host_syncs += maybe_report("warmup", t, infos, tunables)
 
         tunables = _tunables(adapt, adapt.da.log_step_avg)
+        first_step = num_warmup + sample_start * thin
+        if is_chees:
+            # the adapted trajectory length, before the jitter
+            tunables = tunables._replace(trajectory_length=torch.exp(traj.log_tau))
+            if num_samples:
+                # tau and eps are frozen: every step's count in one read
+                steps = torch.arange(first_step, first_step + num_samples * thin, device=device)
+                lengths = halton_device(steps) * torch.exp(traj.log_tau)
+                sample_counts = num_leapfrogs(lengths, tunables.step_size,
+                                              max_leapfrog_steps).tolist()
+                host_syncs += 1
         store = torch.empty(
             (num_samples, num_chains, dim), dtype=store_dtype or torch.float32, device=device
         )
         info_store = None
         for j in range(num_samples):
-            t0 = num_warmup + j * thin
+            t0 = first_step + j * thin
             for i in range(thin):
-                states, infos, syncs = one_step(states, t0 + i, tunables)
+                num_steps = sample_counts[j * thin + i] if is_chees else None
+                states, infos, syncs = one_step(states, t0 + i, tunables, num_steps)
                 host_syncs += syncs
+                if is_chees:
+                    infos = strip_endpoints(infos)
                 if thin > 1 and i == 0:
                     divergent = infos.is_divergent.clone()
                     steps = infos.num_integration_steps.clone()
@@ -397,7 +522,7 @@ def build_sampler(
                 infos = infos._replace(is_divergent=divergent, num_integration_steps=steps)
             store[j] = states.position
             if info_store is None:
-                info_store = TransitionInfo(
+                info_store = type(infos)(
                     *(torch.empty((num_samples,) + x.shape, dtype=x.dtype, device=device)
                       for x in infos)
                 )
@@ -406,18 +531,29 @@ def build_sampler(
             host_syncs += maybe_report("sample", t0, infos, tunables)
 
         if info_store is None:  # num_samples == 0
-            info_store = TransitionInfo(
-                *(torch.empty((0, num_chains), device=device) for _ in TransitionInfo._fields)
-            )
+            info_type = ChEESInfo if is_chees else TransitionInfo
+            info_store = info_type(*(
+                torch.empty((0, num_chains) + ((0,) if f in _ENDPOINT_FIELDS else ()),
+                            device=device)
+                for f in info_type._fields))
         return ChainResult(
             positions=store.transpose(0, 1),
-            info=TransitionInfo(*(x.transpose(0, 1) for x in info_store)),
+            info=type(info_store)(*(x.transpose(0, 1) for x in info_store)),
             final_tunables=tunables,
             # a graph's outputs are overwritten by its next replay
             final_state=type(states)(*(t.clone() for t in states)),
             final_adapt=adapt,
             host_syncs=host_syncs,
             graph_replays=0 if transition is None else transition.replays - replays0,
+            final_traj=traj,
+            leapfrog_counts=tuple(counts),
+            probe_evals=probe_evals,
         )
 
     return run
+
+
+def _check_segment(start: int, stop: int, num_warmup: int) -> None:
+    if not 0 <= start <= stop <= num_warmup:
+        raise ValueError(f"invalid warmup segment [{start}, {stop}) for "
+                         f"num_warmup={num_warmup}")

@@ -25,10 +25,13 @@ loop, so the draws are bit-identical to it: surplus pair iterations change
 nothing (the masked freeze). The Philox draws, the adaptation update and
 the draw store stay outside the graphs, as eager launches.
 
-A fixed-trip transition (HMC's leapfrogs, a Metropolis proposal) has no
-loop to check: :class:`GraphedStep` captures it whole as one graph, from
-the step's inputs in static buffers to its ``TransitionInfo``, with no
-host read inside.
+A fixed-trip transition (HMC's leapfrogs, a Metropolis or MALA proposal)
+has no loop to check: :class:`GraphedStep` captures it whole as one graph,
+from the step's inputs in static buffers to its ``TransitionInfo``, with no
+host read inside. A ChEES transition's leapfrog count is the same for every
+chain but changes from step to step, and a graph's trip count is fixed:
+:class:`GraphedTrajectory` captures its start, one leapfrog and its end,
+and replays the leapfrog graph as often as the count the caller read.
 
 A value+grad is captured only if it says it can be with ``graph_safe =
 True``: the fused GLM and Poisson ones do. Any other runs eagerly; the
@@ -54,6 +57,7 @@ import torch
 
 from mlx_mcmc_tpu_torch import _capture
 from mlx_mcmc_tpu_torch.kernels.base import TransitionInfo, Tunables
+from mlx_mcmc_tpu_torch.kernels.chees import ChEESCarry, ChEESParts
 from mlx_mcmc_tpu_torch.kernels.hmc import HMCState
 from mlx_mcmc_tpu_torch.kernels.nuts import NutsInputs, _NutsCarry, make_nuts_parts
 
@@ -244,13 +248,7 @@ class GraphedStep:
         values = (*state, x, U, tunables.step_size, tunables.inv_mass_diag)
         if self.graph is None:
             return self._capture(type(state), values)
-        for buf, value in zip(self.inputs, values):
-            if (buf.shape != value.shape or buf.dtype != value.dtype
-                    or buf.device != value.device):
-                raise ValueError(
-                    f"the graph was captured for {buf.dtype} {tuple(buf.shape)} on "
-                    f"{buf.device}, got {value.dtype} {tuple(value.shape)} on {value.device}")
-            buf.copy_(value)
+        _check_inputs(self.inputs, values)
         self.graph.replay()
         return self.state_out, self.info_out, 0
 
@@ -260,4 +258,85 @@ class GraphedStep:
             first = self._run(state_type, self.inputs)
         self.graph, (self.state_out, self.info_out) = capture(
             lambda: self._run(state_type, self.inputs), torch.cuda.graph_pool_handle())
+        return (*first, 0)
+
+
+def _check_inputs(bufs, values) -> None:
+    for buf, value in zip(bufs, values):
+        if buf.shape != value.shape or buf.dtype != value.dtype or buf.device != value.device:
+            raise ValueError(
+                f"the graphs were captured for {buf.dtype} {tuple(buf.shape)} on "
+                f"{buf.device}, got {value.dtype} {tuple(value.shape)} on {value.device}")
+        buf.copy_(value)
+
+
+class GraphedTrajectory:
+    """A ChEES transition (``kernels/chees.py``) as three CUDA graphs:
+    ``start`` (from the state, momenta, uniforms and tunables, copied into
+    static buffers, to the integration carry), ``leapfrog`` (one leapfrog
+    on the carry buffers in place) and ``end`` (the new state and
+    ``ChEESInfo`` into static output buffers).
+
+    ``step(state, tunables, r0, U, num_steps) -> (state, info, 0)`` replays
+    ``start``, ``num_steps`` times ``leapfrog`` and ``end``: the kernels
+    of the eager ``step_fn`` in the same order on the same inputs, so the
+    same bits. The first step runs eagerly on a side stream, as the
+    warm-up that a capture needs, and its outputs are that step's result;
+    the graphs are captured after it, launching nothing. A later step with
+    other shapes raises. The returned state and info are static outputs,
+    which the next step overwrites.
+    """
+
+    def __init__(self, parts: ChEESParts):
+        self.parts = parts
+        self.graphs = None
+
+    @property
+    def replays(self) -> int:
+        return sum(g.replays for g in self.graphs.values()) if self.graphs else 0
+
+    def step(self, state: HMCState, tunables: Tunables, r0: torch.Tensor, U: torch.Tensor,
+             num_steps: int):
+        values = (*state, r0, U, tunables.step_size, tunables.inv_mass_diag)
+        if self.graphs is None:
+            return self._capture(values, num_steps)
+        _check_inputs(self.inputs, values)
+        self.graphs["start"].replay()
+        for _ in range(num_steps):
+            self.graphs["leapfrog"].replay()
+        self.graphs["end"].replay()
+        return self.state_out, self.info_out, 0
+
+    def _capture(self, values, num_steps: int):
+        self.inputs = tuple(v.clone(memory_format=torch.contiguous_format) for v in values)
+        parts, inputs = self.parts, self.inputs
+        tun = Tunables(*inputs[-2:])
+        state = HMCState(*inputs[:3])
+        r0, U = inputs[3:5]
+        with side_stream(inputs[0].device):
+            frame, carry = parts.start(state, tun, r0)
+            for _ in range(num_steps):
+                carry = parts.leapfrog(carry, tun)
+            first = parts.end(frame, carry, tun, U)
+        del frame, carry
+
+        def start():
+            frame, carry = parts.start(state, tun, r0)
+            # carry buffers of their own: ``leapfrog`` updates them in place,
+            # and ``end`` reads the unchanged inputs for rejected chains
+            return frame, ChEESCarry(*(t.clone() for t in carry))
+
+        pool = torch.cuda.graph_pool_handle()
+        graphs = {}
+        graphs["start"], (frame, carry) = capture(start, pool)
+
+        def one_leapfrog():
+            for buf, value in zip(carry, parts.leapfrog(carry, tun)):
+                buf.copy_(value)
+            return carry
+
+        graphs["leapfrog"], _ = capture(one_leapfrog, pool)
+        graphs["end"], (self.state_out, self.info_out) = capture(
+            lambda: parts.end(frame, carry, tun, U), pool)
+        self.graphs = graphs
         return (*first, 0)

@@ -11,10 +11,9 @@ at ``random_seed + 1``, the same ``summary`` keys
 :func:`~mlx_mcmc_tpu_torch.inference.api.sample` for every method,
 ``device`` included (the reference's Metropolis ignores them).
 
-The reference's methods 'chees', 'mala' and 'ensemble' and
-``chain_method='sharded'`` are not ported yet: they raise
-``NotImplementedError`` naming their ROADMAP item, and nothing falls back
-to another method.
+The reference's method 'ensemble' and ``chain_method='sharded'`` are not
+ported yet: they raise ``NotImplementedError`` naming their ROADMAP item,
+and nothing falls back to another method.
 """
 
 from __future__ import annotations
@@ -25,8 +24,8 @@ import numpy as np
 
 from mlx_mcmc_tpu_torch.inference.api import MCMCResult, sample
 
-_METHODS = ("metropolis", "hmc", "nuts")
-_NOT_PORTED = {"chees": "A.7", "mala": "A.7", "ensemble": "A.9"}
+_METHODS = ("metropolis", "hmc", "nuts", "chees", "mala")
+_NOT_PORTED = {"ensemble": "A.9"}
 
 
 class MCMC:
@@ -61,10 +60,11 @@ class MCMC:
         """Run MCMC sampling; returns {name: np.ndarray of draws}, each
         ``(num_chains * num_samples, *event_shape)``.
 
-        ``method``: 'metropolis' | 'hmc' | 'nuts'. Extra kwargs go to
-        ``sample()``: ``step_size``, ``num_leapfrog_steps``,
+        ``method``: 'metropolis' | 'hmc' | 'nuts' | 'chees' | 'mala'. Extra
+        kwargs go to ``sample()``: ``step_size``, ``num_leapfrog_steps``,
         ``adapt_step_size``, ``target_accept`` (hmc); ``step_size``,
         ``max_tree_depth``, ``adapt_step_size``, ``target_accept`` (nuts);
+        ``max_leapfrog_steps`` (chees);
         and ``transforms``, ``data``, ``value_and_grad_fn``,
         ``store_dtype``, ``device`` and the rest for any method.
         Metropolis runs ``num_warmup`` draws at the fixed ``proposal_scale``

@@ -15,11 +15,13 @@ import torch
 
 class Tunables(NamedTuple):
     """Adaptation-controlled sampler knobs: the leapfrog ``step_size`` (0-d
-    tensor) and the inverse mass diagonal ``inv_mass_diag`` (``(D,)``). The
-    reference's ``trajectory_length`` (ChEES) comes with that kernel."""
+    tensor), the inverse mass diagonal ``inv_mass_diag`` (``(D,)``) and
+    ``trajectory_length``, ChEES's integration length (a 0-d tensor; the
+    other kernels ignore it, and it defaults to the reference's 1.0)."""
 
     step_size: torch.Tensor
     inv_mass_diag: torch.Tensor
+    trajectory_length: torch.Tensor = 1.0
 
 
 class TransitionInfo(NamedTuple):

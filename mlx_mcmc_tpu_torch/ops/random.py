@@ -16,10 +16,18 @@ et al., "Parallel random numbers: as easy as 1, 2, 3" (SC'11):
 ``u1 = ((x0 >> 8) + 1) * 2^-24`` in (0, 1], ``u2 = (x1 >> 8) * 2^-24``,
 ``sqrt(-2 log u1) * (cos, sin)(2 pi u2)``.
 
-The functions here are plain PyTorch on int64 tensors, on any device: torch
-has no unsigned 64-bit arithmetic, so the 32x32 -> 64-bit products split
-one factor into 16-bit halves and never overflow a signed int64.
-``step_draws`` is what the engine calls once per NUTS step: on a CUDA tensor
+The plain generator has two forms that give the same words.
+:func:`philox4x32` is PyTorch on int64 tensors: torch has no unsigned
+64-bit arithmetic, so the 32x32 -> 64-bit products split one factor into
+16-bit halves and never overflow a signed int64. It is the plain version
+on a CUDA tensor, where it must stay torch: the kernel's check and its
+plain time compare it with ``csrc/philox.cu`` on the card's own tensors,
+and numpy cannot run there. On a CPU tensor the words come from
+:func:`_philox4x32_numpy`, whose uint64 products need no split: a CPU run
+makes one call per transition at small shapes, where numpy takes a fifth
+of torch's per-operation time. ``tests/test_torch_rng.py`` holds the two to
+the same words.
+``step_draws`` is what the engine calls once per step: on a CUDA tensor
 it launches the kernel ``csrc/philox.cu`` (one launch fills the step's
 normals and uniform table); on a CPU tensor it takes the plain functions.
 """
@@ -29,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from mlx_mcmc_tpu_torch import _build, _capture
@@ -69,37 +78,80 @@ def philox4x32(counter, key):
     return c0, c1, c2, c3
 
 
-def words(seed: int, chains: torch.Tensor, step: int, blocks: int, stream: int) -> torch.Tensor:
-    """``(len(chains), blocks, 4)`` int64 words of ``stream`` at ``step``."""
+def _philox4x32_numpy(counter, key):
+    """:func:`philox4x32` on uint64 numpy arrays: the same words, with the
+    64-bit products taken whole (no 16-bit split) at numpy's per-call cost."""
+    c0, c1, c2, c3 = (np.asarray(c, dtype=np.uint64) for c in counter)
+    k0, k1 = key
+    m0, m1, mask = np.uint64(_M0), np.uint64(_M1), np.uint64(_MASK32)
+    for r in range(10):
+        if r:
+            k0 = (k0 + _W0) & _MASK32
+            k1 = (k1 + _W1) & _MASK32
+        p0, p1 = m0 * c0, m1 * c2
+        c0, c1, c2, c3 = ((p1 >> np.uint64(32)) ^ c1 ^ np.uint64(k0), p1 & mask,
+                          (p0 >> np.uint64(32)) ^ c3 ^ np.uint64(k1), p0 & mask)
+    return c0, c1, c2, c3
+
+
+def _words(seed: int, chains: torch.Tensor, step: int, blocks: int, streams) -> torch.Tensor:
+    """``(len(streams), len(chains), blocks, 4)`` int64 words of each stream
+    at ``step``, all in one pass of the generator (on CPU tensors through
+    numpy, which takes a tenth of torch's per-op time at the tests' sizes)."""
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     key = (seed & _MASK32, seed >> 32)
-    c0 = (chains.to(torch.int64) & _MASK32)[:, None]
-    c2 = torch.arange(blocks, dtype=torch.int64, device=chains.device)[None, :]
-    out = philox4x32((c0, int(step) & _MASK32, c2, int(stream) & _MASK32), key)
-    return torch.stack([torch.broadcast_to(w, (c0.shape[0], blocks)) for w in out], dim=-1)
+    if chains.device.type == "cpu":
+        counter = ((chains.numpy().astype(np.int64) & _MASK32)[None, :, None],
+                   int(step) & _MASK32, np.arange(blocks)[None, None, :],
+                   np.array([int(s) & _MASK32 for s in streams])[:, None, None])
+        shape = (len(streams), chains.shape[0], blocks)
+        out = np.stack([np.broadcast_to(w, shape) for w in _philox4x32_numpy(counter, key)], -1)
+        return torch.from_numpy(out.astype(np.int64))
+    c0 = (chains.to(torch.int64) & _MASK32)[None, :, None]
+    c2 = torch.arange(blocks, dtype=torch.int64, device=chains.device)[None, None, :]
+    c3 = torch.tensor([int(s) & _MASK32 for s in streams], dtype=torch.int64,
+                      device=chains.device)[:, None, None]
+    out = philox4x32((c0, int(step) & _MASK32, c2, c3), key)
+    shape = (len(streams), c0.shape[1], blocks)
+    return torch.stack([torch.broadcast_to(w, shape) for w in out], dim=-1)
 
 
-def uniform(seed: int, chains: torch.Tensor, step: int, n: int) -> torch.Tensor:
-    """``(len(chains), n)`` float32 uniforms in [0, 1)."""
-    w = words(seed, chains, step, -(-n // 4), STREAM_UNIFORM).reshape(chains.shape[0], -1)[:, :n]
+def words(seed: int, chains: torch.Tensor, step: int, blocks: int, stream: int) -> torch.Tensor:
+    """``(len(chains), blocks, 4)`` int64 words of ``stream`` at ``step``."""
+    return _words(seed, chains, step, blocks, (stream,))[0]
+
+
+def _uniform_of(w: torch.Tensor, n: int) -> torch.Tensor:
+    w = w.reshape(w.shape[0], -1)[:, :n]
     return (w >> 8).to(torch.float32) * _INV_2_24
 
 
-def normal(seed: int, chains: torch.Tensor, step: int, n: int) -> torch.Tensor:
-    """``(len(chains), n)`` float32 standard normals by Box-Muller."""
-    w = words(seed, chains, step, -(-n // 4), STREAM_NORMAL)  # (C, B, 4)
+def _normal_of(w: torch.Tensor, n: int) -> torch.Tensor:
     u1 = ((w[..., 0::2] >> 8) + 1).to(torch.float32) * _INV_2_24  # (C, B, 2)
     u2 = (w[..., 1::2] >> 8).to(torch.float32) * _INV_2_24
     radius = torch.sqrt(-2.0 * torch.log(u1))
     angle = u2 * _TWO_PI
     z = torch.stack([radius * torch.cos(angle), radius * torch.sin(angle)], dim=-1)
-    return z.reshape(chains.shape[0], -1)[:, :n]
+    return z.reshape(w.shape[0], -1)[:, :n]
+
+
+def uniform(seed: int, chains: torch.Tensor, step: int, n: int) -> torch.Tensor:
+    """``(len(chains), n)`` float32 uniforms in [0, 1)."""
+    return _uniform_of(words(seed, chains, step, -(-n // 4), STREAM_UNIFORM), n)
+
+
+def normal(seed: int, chains: torch.Tensor, step: int, n: int) -> torch.Tensor:
+    """``(len(chains), n)`` float32 standard normals by Box-Muller."""
+    return _normal_of(words(seed, chains, step, -(-n // 4), STREAM_NORMAL), n)
 
 
 def step_draws_reference(seed: int, chains: torch.Tensor, step: int, dim: int, n_slots: int):
-    """Plain version of the kernel: ``(normals (C, dim), U (C, n_slots, 4))``."""
-    z = normal(seed, chains, step, dim)
-    u = uniform(seed, chains, step, 4 * n_slots).reshape(chains.shape[0], n_slots, 4)
+    """Plain version of the kernel: ``(normals (C, dim), U (C, n_slots, 4))``,
+    both streams from one pass of the generator."""
+    normal_blocks = -(-dim // 4)
+    w = _words(seed, chains, step, max(normal_blocks, n_slots), (STREAM_NORMAL, STREAM_UNIFORM))
+    z = _normal_of(w[0, :, :normal_blocks], dim)
+    u = _uniform_of(w[1, :, :n_slots], 4 * n_slots).reshape(chains.shape[0], n_slots, 4)
     return z, u
 
 

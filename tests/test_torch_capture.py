@@ -14,8 +14,9 @@ of the eight-schools funnel, and compares every output bit for bit.
 its outputs into the first run's tensors, as a replay writes into the
 addresses it captured. That holds ``GraphedTransition`` (static inputs,
 carry buffers updated in place, host checks, the result buffers) to the
-eager loop bit for bit, and ``GraphedStep`` (HMC and Metropolis, one
-graph per transition) the same way. The replay launch-count arithmetic is
+eager loop bit for bit, ``GraphedStep`` (HMC, Metropolis and MALA, one
+graph per transition) and ``GraphedTrajectory`` (ChEES: start, one
+leapfrog replayed n times, end) the same way. The replay launch-count arithmetic is
 checked with a stub graph.
 The ``cuda`` tests hold real graphs against the eager loop on the card and
 skip here; this file imports no JAX, so they run where JAX is absent:
@@ -33,7 +34,9 @@ from mlx_mcmc_tpu_torch import _capture
 from mlx_mcmc_tpu_torch.inference import graphs
 from mlx_mcmc_tpu_torch.inference.engine import make_batched_value_and_grad, step_inputs
 from mlx_mcmc_tpu_torch.kernels.base import Tunables
+from mlx_mcmc_tpu_torch.kernels.chees import make_chees_kernel, make_chees_parts
 from mlx_mcmc_tpu_torch.kernels.hmc import HMCState, make_hmc_kernel
+from mlx_mcmc_tpu_torch.kernels.mala import make_mala_kernel
 from mlx_mcmc_tpu_torch.kernels.metropolis import make_metropolis_kernel
 from mlx_mcmc_tpu_torch.kernels.nuts import make_nuts_kernel
 from mlx_mcmc_tpu_torch.models import eight_schools
@@ -271,12 +274,16 @@ def test_vags_declare_whether_graphs_capture_them():
 
 
 def _fixed_trip(kernel, vag):
-    """``(init_fn, step_fn, draws)`` of HMC (8 leapfrogs) or Metropolis
+    """``(init_fn, step_fn, draws)`` of HMC (8 leapfrogs), MALA or Metropolis
     (on ``vag``'s value) over ``vag``, with the engine's per-step inputs."""
     if kernel == "hmc":
         init_fn, step_fn = make_hmc_kernel(vag, num_leapfrog_steps=8)
         return init_fn, step_fn, lambda chains, t, tun: step_inputs(
             SEED, chains, t, tun.inv_mass_diag, 1)
+    if kernel == "mala":
+        init_fn, step_fn = make_mala_kernel(vag)
+        return init_fn, step_fn, lambda chains, t, tun: step_draws(
+            SEED, chains, t, tun.inv_mass_diag.shape[0], 1)
 
     def value(Z):
         return vag(Z)[0]
@@ -286,9 +293,11 @@ def _fixed_trip(kernel, vag):
         SEED, chains, t, tun.inv_mass_diag.shape[0], 1)
 
 
-# HMC's step and Metropolis's proposal scale as multiples of each model's
-# NUTS step size: each takes some proposals and rejects others.
-_STEP_SCALE = {("hmc", "K2"): 1.0, ("hmc", None): 2.0, ("metropolis", None): 4.0}
+# HMC's step and the Metropolis and MALA proposal scales as multiples of
+# each model's NUTS step size: each takes some proposals and rejects others.
+_STEP_SCALE = {("hmc", "K2"): 1.0, ("hmc", None): 2.0, ("metropolis", None): 4.0,
+               ("mala", None): 2.0, ("mala", "K2"): 8.0, ("mala", "K3"): 8.0,
+               ("mala", "generic"): 8.0}
 
 
 def _fixed_trip_steps(kernel, model, device, graphed):
@@ -312,7 +321,7 @@ def _fixed_trip_steps(kernel, model, device, graphed):
     return outs, graph
 
 
-@pytest.mark.parametrize("kernel", ["hmc", "metropolis"])
+@pytest.mark.parametrize("kernel", ["hmc", "metropolis", "mala"])
 @pytest.mark.parametrize("model", list(MODELS))
 def test_graphed_step_gives_the_eager_bits(kernel, model, emulated_capture):
     ref, _ = _fixed_trip_steps(kernel, model, "cpu", graphed=False)
@@ -340,6 +349,41 @@ def test_graphed_step_refuses_other_shapes(emulated_capture):
             graph.step(state, tun, x, U)
 
 
+# ChEES's counts for the three steps: the leapfrog graph replays 1, 4 and 2
+# times, so a replay count baked into a graph would show.
+_CHEES_COUNTS = (1, 4, 2)
+
+
+def _chees_steps(model, device, graphed):
+    """Three ChEES transitions on ``MODELS[model]`` at fixed tunables and
+    the counts above, eager or through :class:`graphs.GraphedTrajectory`."""
+    vag, dim, c, eps, _, scale = MODELS[model](device)
+    init_fn, step_fn = make_chees_kernel(vag)
+    chains = torch.arange(c, device=device)
+    tun = Tunables(torch.tensor(eps, device=device), torch.ones(dim, device=device))
+    state = init_fn(scale * step_inputs(SEED, chains, 999, tun.inv_mass_diag, 0)[0])
+    graph = graphs.GraphedTrajectory(make_chees_parts(vag)) if graphed else None
+    outs = []
+    for t, n in enumerate(_CHEES_COUNTS):
+        r0, U = step_inputs(SEED, chains, t, tun.inv_mass_diag, 1)
+        state, info, syncs = (graph.step if graphed else step_fn)(state, tun, r0, U, n)
+        assert syncs == 0
+        outs.append([v.clone() for v in (*state, *info)])
+    return outs, graph
+
+
+@pytest.mark.parametrize("model", list(MODELS))
+def test_graphed_trajectory_gives_the_eager_bits(model, emulated_capture):
+    ref, _ = _chees_steps(model, "cpu", graphed=False)
+    out, graph = _chees_steps(model, "cpu", graphed=True)
+    _assert_same_bits(ref, out)
+    # the first step runs eagerly; then start, n leapfrogs and end per step
+    assert graph.graphs["leapfrog"].replays == sum(_CHEES_COUNTS[1:])
+    assert graph.replays == sum(n + 2 for n in _CHEES_COUNTS[1:])
+    steps = torch.stack([o[8] for o in out])  # ChEESInfo.num_integration_steps
+    assert steps.tolist() == [[n] * steps.shape[1] for n in _CHEES_COUNTS]
+
+
 def _need_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
@@ -361,7 +405,17 @@ def test_graphs_give_the_eager_bits_on_the_card(model, static_schedule):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["hmc", "metropolis"])
+@pytest.mark.parametrize("model", list(MODELS))
+def test_graphed_trajectory_gives_the_eager_bits_on_the_card(model):
+    _need_gpu()
+    ref, _ = _chees_steps(model, "cuda", graphed=False)
+    out, graph = _chees_steps(model, "cuda", graphed=True)
+    _assert_same_bits(ref, out)
+    assert graph.replays == sum(n + 2 for n in _CHEES_COUNTS[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["hmc", "metropolis", "mala"])
 @pytest.mark.parametrize("model", list(MODELS))
 def test_graphed_step_gives_the_eager_bits_on_the_card(kernel, model):
     _need_gpu()

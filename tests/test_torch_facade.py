@@ -106,13 +106,10 @@ def test_errors():
         MCMC(log_prob).summary()
     with pytest.raises(ValueError, match="chain_method"):
         MCMC(log_prob).run({"mu": 0.0}, chain_method="pmap", verbose=False)
-    for method, item in (("chees", "A.7"), ("mala", "A.7"), ("ensemble", "A.9")):
-        with pytest.raises(NotImplementedError, match=item):
-            MCMC(log_prob).run(INIT, method=method, **CPU)
+    with pytest.raises(NotImplementedError, match="A.9"):
+        MCMC(log_prob).run(INIT, method="ensemble", **CPU)
     with pytest.raises(NotImplementedError, match="A.10"):
         MCMC(log_prob).run(INIT, method="nuts", chain_method="sharded", **CPU)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        sample(log_prob, INIT, kernel="mala", num_samples=2, num_warmup=2, device="cpu")
 
 
 def test_progress_callback_fires_at_reporting_steps():

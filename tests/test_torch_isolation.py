@@ -23,10 +23,16 @@ for name in ("mlx_mcmc_tpu_torch.ops.glm_variants", "mlx_mcmc_tpu_torch.models.j
              "mlx_mcmc_tpu_torch.distributions.categorical",
              "mlx_mcmc_tpu_torch.distributions.beta", "mlx_mcmc_tpu_torch.distributions.gamma",
              "mlx_mcmc_tpu_torch.benchmarks.glm_kernel_variants",
-             "mlx_mcmc_tpu_torch.benchmarks.flagship_decomposition"):
+             "mlx_mcmc_tpu_torch.benchmarks.flagship_decomposition",
+             "mlx_mcmc_tpu_torch.kernels.chees", "mlx_mcmc_tpu_torch.kernels.mala",
+             "mlx_mcmc_tpu_torch.inference.init_strategies",
+             "mlx_mcmc_tpu_torch.distributions.extras", "mlx_mcmc_tpu_torch.utils.config"):
     assert name in names, name
 from mlx_mcmc_tpu_torch import (MCMC, sample, metropolis_hastings, hmc, nuts, Normal, HalfNormal,
-                                Beta, Gamma, Exponential, Categorical, make_transformed_logprob)
+                                Beta, Gamma, Exponential, Categorical, make_transformed_logprob,
+                                Bernoulli, Binomial, NegativeBinomial, Laplace, Cauchy, Uniform,
+                                LogNormal, StudentT, Poisson, Dirichlet, MultivariateNormal)
+from mlx_mcmc_tpu_torch.utils import SamplerConfig, AdaptationConfig, MeshConfig
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mlx_mcmc_tpu"))

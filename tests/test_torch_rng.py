@@ -74,6 +74,35 @@ def test_words_follow_the_counter_layout():
     assert u[0, 5].item() == (want[1] >> 8) * 2.0**-24
 
 
+def test_cpu_words_equal_the_torch_generator():
+    """CPU tensors take the generator through numpy's uint64 products; the
+    plain torch generator (``philox4x32``, what CUDA tensors' plain version
+    runs) gives the same words, and the step draws are its transforms."""
+    _check_cpu_words(0x0123456789ABCDEF, 0x7FFFFFFE)
+
+
+@pytest.mark.parametrize("seed, step", [(0, 0), (2**64 - 1, 0x7FFFFFFF), (17, 2299)])
+def test_cpu_words_equal_the_torch_generator_at_the_edges(seed, step):
+    """The same at the smallest and largest seed, the probe's step and a
+    sampling step."""
+    _check_cpu_words(seed, step)
+
+
+def _check_cpu_words(seed, step):
+    chains = torch.tensor([0, 5, 4095, 2**31 + 7])
+    got = prng._words(seed, chains, step, 9, (prng.STREAM_NORMAL, prng.STREAM_UNIFORM))
+    key = (seed & 0xFFFFFFFF, seed >> 32)
+    for s, stream in enumerate((prng.STREAM_NORMAL, prng.STREAM_UNIFORM)):
+        c0 = chains[:, None]
+        c2 = torch.arange(9)[None, :]
+        want = prng.philox4x32((c0, step, c2, stream), key)
+        want = torch.stack([torch.broadcast_to(w, (4, 9)) for w in want], dim=-1)
+        assert torch.equal(got[s], want)
+    z, u = prng.step_draws(seed, chains, 3, 30, 9)
+    assert torch.equal(z, prng.normal(seed, chains, 3, 30))
+    assert torch.equal(u.reshape(4, -1), prng.uniform(seed, chains, 3, 36))
+
+
 @pytest.mark.parametrize("fn", [prng.uniform, prng.normal], ids=["uniform", "normal"])
 def test_a_chains_numbers_do_not_depend_on_the_batch(fn):
     all8 = fn(123, torch.arange(8), 5, 37)

@@ -182,3 +182,15 @@ def test_batched_initial_is_a_key_and_jitter_is_not():
     rb2 = _run(seed=2, init={"x": -start["x"]}, batched_initial=True)
     assert len(api._RUNNER_CACHE) == 2  # new starting values, the same runner
     assert not torch.equal(rb.samples["x"], rb2.samples["x"])
+
+
+def test_chees_mala_and_their_kwargs_get_distinct_entries():
+    _run(kernel="chees")
+    _run(kernel="chees", max_leapfrog_steps=8)
+    _run(kernel="mala")
+    _run(kernel="mala", draw_chunk=3)
+    assert len(api._RUNNER_CACHE) == 4
+    _run(kernel="chees", max_leapfrog_steps=8)
+    _run(kernel="mala", draw_chunk=3, seed=5)
+    _run(kernel="mala", init_strategy="map")  # a per-call start, not a key
+    assert len(api._RUNNER_CACHE) == 4
