@@ -74,6 +74,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    accept 0.8 +- 0.05, mean tree depth < 5, divergence rate <= 1%, finite
    draws, posterior moments against a Laplace approximation; the
    statistics are printed beside the reference's (BENCH_r05.json).
+4e. Checkpoints at glm100_fused's full width through K1, right after
+   phase 4 and against its run (the same data, vag, seed and settings):
+   ``run_warmup(..., stop=150)``, ``save_checkpoint`` into a temporary
+   directory, ``load_checkpoint``, ``resume_warmup(..., num_samples=2000)``;
+   then ``sample()`` at 300 + 1000, save, load and ``resume(...,
+   num_samples=1000)``, and ``resume`` again from the live result. The
+   draws and every info field equal phase 4's bit for bit (the resumed
+   ones its draws [1000, 2000), the first run's its [0, 1000)), the
+   mid-warmup tunables phase 4's. Launches are exact, over each path's two
+   segments: K1 phase 4's + 1 (the continuation evaluates its start) - 3
+   (below), Philox phase 4's, host syncs phase 4's (the continuation's
+   probe evaluations 0), and the second resume launches what the first
+   did. Every segment has phase 4's settings, value+grad (the model is
+   None) and data, so each runs on phase 4's cached runner and replays its
+   graphs: no segment captures a graph (``graphs.capture.count``), and no
+   path repeats the capture's eager warm-up that phase 4's K1 holds (a
+   root and ``graphs.PAIRS_PER_REPLAY`` pair iterations: 3 launches).
+   Prints each segment's wall, the save and load seconds and the file's
+   bytes.
 4a. The same on int8 X (``quantize="int8"``) through the int8 one-pass
    kernel, cut to 100 + 100: the same checks, the Laplace approximation
    on the dequantized X; and on f32 X (``x_dtype="float32"``, the
@@ -85,7 +104,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    rate <= 1%, finite draws of shape (256, 400, 1000), the Laplace check at
    D = 1000.
 4c. HMC at glm100_fused's full width through the ``MCMC`` facade and K1,
-   run right after phase 4:
+   run right after phase 4e:
    ``MCMC(None).run(method="hmc", num_chains=4096, num_warmup=300,
    num_samples=2000, num_leapfrog_steps=10)`` with the fused K1 vag, the
    reference's dataset and a bf16 store. Prints wall, host syncs, graph
@@ -107,7 +126,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    syncs the probe's + 300 + 1 (a count read per warmup step, one for the
    draws); MALA K1 2300 + 1 + the probe's, host syncs the probe's, 2,299
    replays; chunked MALA K1 3 more (each continuation evaluates its start),
-   the same host syncs and replays (one capture serves every chunk).
+   the same host syncs, and 2,300 replays and no capture: it runs on the
+   unchunked run's runner and graphs (the chunk size is no key of the
+   runner cache).
    ChEES's counts must be equal across chains in every draw and equal to
    those read, its final trajectory length finite and above its step size.
    Mean accept in ``ACCEPT_BAND`` (below), divergences <= 1%, finite bf16 draws, the Laplace check and every
@@ -146,6 +167,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    combined Monte Carlo standard errors (sd / sqrt(ESS), ESS on the card);
    poisson1000's mu and tau against the truth as in phase 7; glm100 and
    glm1000 against the Laplace approximation on the same f32 X.
+7c. ADVI: ``fit_advi`` on glm100's plain model at full width (f32 X,
+   10K x 100, autograd), 'meanfield' (learning rate 0.05) and 'fullrank'
+   (``ADVI_FULLRANK_LR``), 1000 steps of 8 draws each: q's mean and
+   marginal sd against the Laplace approximation on the same X, within
+   ``ADVI_BAND``; then ``sample(init_strategy='advi')`` at
+   poisson1000_cov's bench settings, K3 (the model's fused vag) driving
+   the fit and the transitions: phase 7's checks; the fit, timed inside
+   that run, launching K3 exactly 500 times (one a step, at 8 rows) + 1
+   (the starts' densities) and Philox 500 + 1 (the starts); the run's K3
+   exactly the fit's + 1 (init) + the probe's + each transition's root and
+   two per pair iteration + 3 if it captured its graphs (the capture's
+   eager warm-up; it runs on phase 7's runner, so it need not); Philox the
+   fit's + 1 (the probe's draw) + 800.
 8. Layout invariance: three NUTS steps at fixed tunables, driven by the
    engine's per-chain draws and replayed as the transition's CUDA graphs,
    through a small elementwise model (4 and 8 chains), glm100_fused's K1
@@ -166,9 +200,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    int8 wide, K2 and K4 f32 and K1 f32 at glm1000, on no sampling path,
    with their phase-3 launches; K1 f32 with the f32 cut run's; the
    variants with their launches from phase 3b's entry points; K1 one-pass
-   with phase 4c's HMC and phase 4d's ChEES, MALA and chunked MALA
-   launches and Philox with its launches on each path of phases 4c, 4d, 7b
-   and 9 beside the main path's), then the
+   with phase 4c's HMC, phase 4d's ChEES, MALA and chunked MALA and phase
+   4e's checkpoint paths' launches, K3 with phase 7c's, and Philox with
+   its launches on each path of phases 4c, 4d, 4e, 7b, 7c and 9 beside the
+   main path's), then the
    contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -185,6 +220,7 @@ Imports nothing of JAX or of the reference package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -270,6 +306,21 @@ PAIR_LL_TOL_REL, PAIR_BOUNDARY_SHARE, PAIR_FLIP_SHARE = 1e-4, 1e-3, 5e-3
 # trajectory, near 3 and near 5.5), MALA 0.718-0.746. A step size adapted
 # too large shows below the band, one collapsed toward 0 above it.
 ACCEPT_BAND = {"chees": (0.651 - 0.05, 0.82), "mala": (0.574 - 0.05, 0.80)}
+
+# ADVI at glm100 (phase 7c), 1000 steps, against the Laplace approximation
+# on the same X: max |mu - MAP| / sd at most the first number, q's marginal
+# sd over the Laplace sd in the range. Set from both packages on the CPU,
+# seeds 0-11 (tools/glm100_advi_bands.py): mean-field (learning rate 0.05)
+# gaps 0.113-0.148 in the reference, 0.107-0.150 in the port, sd ratios
+# 0.966-1.039 and 0.966-1.056; full-rank at ADVI_FULLRANK_LR gaps
+# 0.258-0.274 and 0.255-0.271 (the mean still closing on the MAP, in both
+# alike), ratios 1.000-1.041 and 1.001-1.036. The bands: the reference's
+# highest gap plus ~0.1 sd, the sd ratio within 10% (phase 4's band for
+# the draws). Full-rank at the default 0.05 diverges in both packages
+# (gaps 9-107 sd); at 0.01 two of the reference's twelve seeds and one of
+# the port's went astray (gaps 2.2-2.7 sd).
+ADVI_FULLRANK_LR = 0.005
+ADVI_BAND = {"meanfield": (0.25, (0.9, 1.1)), "fullrank": (0.35, (0.9, 1.1))}
 
 
 def fail(msg: str) -> None:
@@ -868,11 +919,10 @@ def moment_gap(beta_draws, center, sd_ref):
     return float(((mean - center).abs() / sd_ref).max()), float(ratio.min()), float(ratio.max())
 
 
-def laplace_check(data, beta_draws):
-    """Posterior mean and sd of the logistic draws against a Laplace
-    approximation (Newton MAP and inverse Hessian, float64, on the same
-    bf16-rounded X, or int8 X times its column scales). At N = 10K, D = 100
-    the two agree to ~0.1 sd."""
+def laplace_fit(data):
+    """The Laplace approximation of the logistic posterior (unit normal
+    prior): Newton MAP and the inverse Hessian's sd, float64, on the same
+    bf16-rounded X, or int8 X times its column scales."""
     d = data["dim"]
     X = data["Xp"][:, :d].double()
     if "col_scale" in data:
@@ -888,7 +938,14 @@ def laplace_check(data, beta_draws):
         b = b + step
         if float(step.abs().max()) < 1e-12:
             break
-    return moment_gap(beta_draws, b, torch.sqrt(torch.diagonal(torch.linalg.inv(hess))))
+    return b, torch.sqrt(torch.diagonal(torch.linalg.inv(hess)))
+
+
+def laplace_check(data, beta_draws):
+    """Posterior mean and sd of the logistic draws against the Laplace
+    approximation (:func:`laplace_fit`). At N = 10K, D = 100 the two agree
+    to ~0.1 sd."""
+    return moment_gap(beta_draws, *laplace_fit(data))
 
 
 def exact_gaussian_check(data, beta_draws):
@@ -958,9 +1015,33 @@ def truth_check(label, draws, truth):
         fail(f"{label}: mean {float(mean)} is {gap} from truth {truth}")
 
 
+def poisson_truth_checks(label: str, s: dict, truth: dict) -> None:
+    """poisson1000_cov's beta, mu and tau = exp(log_tau) posterior means
+    within 4 posterior sd (+0.02) of the generator's truth."""
+    checks = {f"beta[{i}]": (s["beta"][..., i], float(truth["beta"][i])) for i in range(4)}
+    checks["mu"] = (s["mu"], truth["mu"])
+    checks["tau"] = (torch.exp(s["log_tau"].float()), truth["tau"])
+    for name, (draws, want) in checks.items():
+        truth_check(f"{label} {name}", draws, want)
+
+
+def plain_data(data) -> dict:
+    """A plain GLM's f32 ``X`` and ``y`` as the Laplace helpers take them."""
+    return {"dim": data["X"].shape[1], "Xp": data["X"], "yp": data["y"]}
+
+
 def plain_laplace(data, beta):
     """``laplace_check`` on a plain GLM's f32 ``X`` and ``y``."""
-    return laplace_check({"dim": data["X"].shape[1], "Xp": data["X"], "yp": data["y"]}, beta)
+    return laplace_check(plain_data(data), beta)
+
+
+def advi_gap(mean, sd, center, sd_ref) -> tuple:
+    """A fitted q against the Laplace approximation: max |mean - MAP| /
+    sd and the range of q's marginal sd over the Laplace sd (float64)."""
+    mean, sd = torch.as_tensor(mean).double(), torch.as_tensor(sd).double()
+    ratio = sd.to(sd_ref.device) / sd_ref
+    return (float(((mean.to(center.device) - center).abs() / sd_ref).max()),
+            float(ratio.min()), float(ratio.max()))
 
 
 def other_configs(CONFIGS, h_problem, po_problem, g_problem, t_start) -> dict:
@@ -1359,9 +1440,9 @@ def chees_mala_full_width(cfg, init, data, vag, nuts_mean, nuts_se) -> dict:
              f"{probes} (probe) + {continuations} (continuations)")
     if chunked.host_syncs != probes or probes < 1:
         fail(f"{label}: {chunked.host_syncs} host syncs, want {probes} (the probe's)")
-    if chunked.graph_replays != transitions - 1:
-        fail(f"{label}: {chunked.graph_replays} graph replays, want {transitions - 1} (one "
-             "capture for all the chunks)")
+    if chunked.graph_replays != transitions:
+        fail(f"{label}: {chunked.graph_replays} graph replays, want {transitions} (the unchunked "
+             "run's runner and graphs serve every chunk: no capture)")
     if not np.array_equal(chunked.samples["beta"], res.samples["beta"].float().cpu().numpy()):
         fail(f"{label}: the draws differ from the unchunked run's")
     for field, a, b in zip(type(res.info)._fields, chunked.info, res.info):
@@ -1370,6 +1451,252 @@ def chees_mala_full_width(cfg, init, data, vag, nuts_mean, nuts_se) -> dict:
     out[label].update(host_syncs=chunked.host_syncs, replays=chunked.graph_replays)
     log(f"{label}: {continuations} continuations, draws and every info field bit-identical to "
         "the unchunked run's")
+    return out
+
+
+def counted(fn) -> tuple:
+    """``(fn(), wall s, K1, K3 and Philox launches, graphs captured)``, the
+    launch counts set to 0 just before and read just after."""
+    from mlx_mcmc_tpu_torch.bench import launch_counts, reset_launch_counts
+    from mlx_mcmc_tpu_torch.inference import graphs
+
+    reset_launch_counts()
+    captures = graphs.capture.count
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = launch_counts()
+    return (out, wall, {"K1": n["glm_fused_logistic"], "K3": n["poisson_fused"],
+                        "philox": n["philox_step_draws"]}, graphs.capture.count - captures)
+
+
+def capture_warm_up_launches() -> int:
+    """K1 or K3 launches of a NUTS graph capture's eager warm-up: a root
+    and ``graphs.PAIRS_PER_REPLAY`` pair iterations of two leapfrogs."""
+    from mlx_mcmc_tpu_torch.inference import graphs
+
+    return 1 + 2 * graphs.PAIRS_PER_REPLAY
+
+
+@contextlib.contextmanager
+def timed_call(module, name: str, out: dict):
+    """While open, ``module.name`` is wrapped: each call records in ``out``
+    its wall (``"wall"``, the card synchronized on both sides), the K1, K3
+    and Philox launches it made and its result (``"out"``)."""
+    from mlx_mcmc_tpu_torch.bench import launch_counts
+
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        out["wall"] = time.perf_counter() - t0
+        after = launch_counts()
+        for key, kernel in (("K1", "glm_fused_logistic"), ("K3", "poisson_fused"),
+                            ("philox", "philox_step_draws")):
+            out[key] = after[kernel] - before[kernel]
+        out["out"] = result
+        return result
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def same_run(label: str, got, want, draws: slice) -> None:
+    """``got``'s draws and every info field equal ``want``'s over
+    ``draws``, bit for bit."""
+    a, b = got.samples["beta"], want.samples["beta"][:, draws]
+    if a.dtype != b.dtype or not torch.equal(a, b):
+        fail(f"{label}: the draws differ from phase 4's")
+    for field, x, y in zip(type(want.info)._fields, got.info, want.info):
+        if not torch.equal(x, y[:, draws]):
+            fail(f"{label}: info {field} differs from phase 4's")
+
+
+def checkpoint_phase(cfg, init, data, vag, main, main_k1: int, main_philox: int) -> dict:
+    """Phase 4e: checkpoints at glm100_fused's full width through K1 (see
+    the module docstring). ``main`` is phase 4's result, ``main_k1`` and
+    ``main_philox`` its launches. Returns each path's launches."""
+    import os
+    import tempfile
+
+    from mlx_mcmc_tpu_torch import sample
+    from mlx_mcmc_tpu_torch.io import (load_checkpoint, resume, resume_warmup, run_warmup,
+                                       save_checkpoint)
+
+    warmup, draws, half = cfg["num_warmup"], cfg["num_samples"], cfg["num_samples"] // 2
+    run_kw = dict(num_chains=cfg["num_chains"], kernel="nuts", seed=1, data=data,
+                  max_tree_depth=cfg["max_tree_depth"], target_accept=cfg["target_accept"],
+                  store_dtype=cfg["store_dtype"], value_and_grad_fn=vag)
+    out = {}
+
+    def disk(label, obj, tmp):
+        path = os.path.join(tmp, f"{label}.npz")
+        t0 = time.perf_counter()
+        save_checkpoint(path, obj)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_checkpoint(path)
+        load_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        log(f"glm100_fused {label} checkpoint: save {save_s:.4f} s, load {load_s:.4f} s, "
+            f"{nbytes} bytes ({loaded['positions']['beta'].nbytes} of positions)")
+        return loaded, {"save_seconds": save_s, "load_seconds": load_s, "bytes": nbytes}
+
+    def check_counts(label, launched, captures, first, rest):
+        """Over a path's two segments, on phase 4's runner and graphs."""
+        warm_up = capture_warm_up_launches()
+        k1 = sum(n["K1"] for n in launched)
+        philox = sum(n["philox"] for n in launched)
+        syncs = first[0] + rest.host_syncs
+        log(f"{label}: K1 {k1} (phase 4: {main_k1}), Philox {philox} (phase 4: {main_philox}), "
+            f"host syncs {first[0]} + {rest.host_syncs} (phase 4: {main.host_syncs}), probe "
+            f"evaluations {first[1]} + {rest.probe_evals}, graphs the segments captured "
+            f"{captures}")
+        if k1 != main_k1 + 1 - warm_up:
+            fail(f"{label}: {k1} K1 launches, want phase 4's {main_k1} + 1 (the continuation "
+                 f"evaluates its start) - {warm_up} (phase 4's capture warm-up)")
+        if philox != main_philox:
+            fail(f"{label}: {philox} Philox launches, want phase 4's {main_philox}")
+        if syncs != main.host_syncs or rest.probe_evals != 0 or first[1] != main.probe_evals:
+            fail(f"{label}: host syncs {syncs}, probe evaluations {first[1]} + "
+                 f"{rest.probe_evals}; want phase 4's {main.host_syncs} and {main.probe_evals} + 0")
+        if captures != 0:
+            fail(f"{label}: the segments captured {captures} graphs, want 0 (phase 4's replay)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # mid-warmup: run_warmup to step 150, the disk, resume_warmup
+        label = "glm100_fused mid-warmup"
+        ckpt, w1, n1, cap1 = counted(lambda: run_warmup(None, init, num_warmup=warmup, stop=150,
+                                                        **run_kw))
+        loaded, io_stats = disk("warmup", ckpt, tmp)
+        res, w2, n2, cap = counted(lambda: resume_warmup(None, loaded, num_samples=draws,
+                                                          data=data, value_and_grad_fn=vag))
+        log(f"{label}: run_warmup [0, 150) {w1:.2f} s, resume_warmup [150, {warmup}) and "
+            f"{draws} draws {w2:.2f} s")
+        same_run(label, res, main, slice(None))
+        for name, x, y in zip(("step_size", "inv_mass_diag"), res.tunables, main.tunables):
+            if not torch.equal(x, y):
+                fail(f"{label}: tunables {name} differ from phase 4's")
+        check_counts(label, (n1, n2), cap1 + cap, (ckpt["host_syncs"], ckpt["probe_evals"]), res)
+        log(f"{label}: draws, every info field and the tunables bit-identical to phase 4's")
+        out[label] = dict(io_stats, K1=n1["K1"] + n2["K1"], philox=n1["philox"] + n2["philox"],
+                          wall_seconds=[w1, w2])
+        del res, ckpt, loaded
+
+        # mid-sampling: sample() at 300 + 1000, the disk, resume 1000 more;
+        # then again from the live result
+        label = "glm100_fused mid-sampling"
+        first, w3, n3, cap3 = counted(lambda: sample(None, init, num_warmup=warmup,
+                                                     num_samples=half, **run_kw))
+        same_run(f"{label} (the first {half})", first, main, slice(0, half))
+        loaded, io_stats = disk("sampling", first, tmp)
+        rest, w4, n4, cap = counted(lambda: resume(None, loaded, num_samples=draws - half,
+                                                   data=data, value_and_grad_fn=vag))
+        same_run(f"{label} (resumed)", rest, main, slice(half, None))
+        check_counts(label, (n3, n4), cap3 + cap, (first.host_syncs, first.probe_evals), rest)
+        live, w5, n5, cap = counted(lambda: resume(None, first, num_samples=draws - half,
+                                                   data=data, value_and_grad_fn=vag))
+        same_run(f"{label} (resumed from the live result)", live, main, slice(half, None))
+        if cap != 0 or n5 != n4:
+            fail(f"{label}: the second resume captured {cap} graphs and launched {n5}, want 0 "
+                 f"and the first resume's {n4}")
+        log(f"{label}: sample {warmup} + {half} {w3:.2f} s, resume {draws - half} {w4:.2f} s, "
+            f"again from the live result {w5:.2f} s (K1 {n5['K1']}, no graph captured); draws "
+            "and every info field bit-identical to phase 4's")
+        out[label] = dict(io_stats, K1=n3["K1"] + n4["K1"], philox=n3["philox"] + n4["philox"],
+                          wall_seconds=[w3, w4, w5])
+        out[f"{label}, live resume"] = {"K1": n5["K1"], "philox": n5["philox"]}
+    return out
+
+
+def advi_phase(g_problem, p_problem, pcfg, spec_truth) -> dict:
+    """Phase 7c: ``fit_advi`` at glm100's full width and
+    ``sample(init_strategy='advi')`` at poisson1000_cov's bench settings
+    through K3 (see the module docstring). Returns the paths' launches."""
+    from mlx_mcmc_tpu_torch import fit_advi, sample
+    from mlx_mcmc_tpu_torch.inference import api
+
+    out = {}
+    g_log_prob, g_init, g_data, _ = g_problem
+    laplace = laplace_fit(plain_data(g_data))
+    for method, lr in (("meanfield", 0.05), ("fullrank", ADVI_FULLRANK_LR)):
+        label = f"glm100 ADVI {method}"
+        q, wall, n, _ = counted(lambda: fit_advi(g_log_prob, g_init, method=method,
+                                                 num_steps=1000, seed=1, data=g_data,
+                                                 learning_rate=lr))
+        sd = torch.exp(q.log_sigma)
+        gap, lo, hi = advi_gap(q.mu, sd, *laplace)
+        max_gap, (sd_lo, sd_hi) = ADVI_BAND[method]
+        log(f"{label} (1000 steps, 8 draws a step, learning rate {lr}): wall {wall:.2f} s, ELBO "
+            f"{q.elbo:.3f}, Philox launches {n['philox']}; vs Laplace: max |mu - MAP| / sd "
+            f"{gap:.4f} (band {max_gap}), sd ratio in [{lo:.4f}, {hi:.4f}] (band [{sd_lo}, "
+            f"{sd_hi}])")
+        if not (bool(torch.isfinite(q.mu).all()) and bool(torch.isfinite(sd).all())):
+            fail(f"{label}: q's mean or sd is not finite")
+        if gap > max_gap or not (sd_lo <= lo and hi <= sd_hi):
+            fail(f"{label}: q is outside the band that the CPU rehearsal of both packages set")
+        out[label] = {"wall_seconds": wall, "philox": n["philox"], "gap": gap,
+                      "sd_ratio": [lo, hi]}
+
+    # init_strategy='advi' at poisson1000_cov: the model's fused vag (K3)
+    # drives the fit and the transitions; the fit is timed inside the run
+    log_prob, init, data, extra = p_problem
+    c = pcfg["num_chains"]
+    label = "poisson1000_cov advi"
+    fit = {}
+    with timed_call(api, "advi_initialize", fit):
+        res, wall, n, cap = counted(lambda: sample(
+            log_prob, init, data=data, num_samples=pcfg["num_samples"],
+            num_warmup=pcfg["num_warmup"], num_chains=c, kernel="nuts", seed=1,
+            max_tree_depth=pcfg["max_tree_depth"], target_accept=pcfg["target_accept"],
+            store_dtype=pcfg["store_dtype"], init_strategy="advi", **extra))
+    starts, inv_mass = fit["out"]
+    fit_steps = 500
+    if fit["K3"] != fit_steps + 1 or fit["philox"] != fit_steps + 1:
+        fail(f"{label}: the fit launched K3 {fit['K3']} and Philox {fit['philox']} times, want "
+             f"{fit_steps} + 1 each (a step's 8 draws; the starts)")
+    if not bool(torch.isfinite(starts).all()):
+        fail(f"{label}: non-finite starts")
+    transitions = pcfg["num_warmup"] + pcfg["num_samples"]
+    probes, syncs = res.probe_evals, res.host_syncs
+    # the fit's, init, the probe's, each transition's root and two per pair
+    # iteration (one host read each after the root's), and the capture's
+    # eager warm-up where the run captured its graphs
+    warm_up = capture_warm_up_launches() if cap else 0
+    want_k3 = fit["K3"] + 1 + probes + 2 * (syncs - probes) - transitions + warm_up
+    want_philox = fit["philox"] + 1 + transitions
+    accept = res.acceptance_rate
+    depth = float(res.info.tree_depth.float().mean())
+    log(f"{label}: the fit {fit['wall']:.2f} s (500 steps; K3 {fit['K3']}, Philox "
+        f"{fit['philox']}), the run with its fit {wall:.2f} s; K3 {n['K3']} (want {want_k3}), "
+        f"Philox {n['philox']} (want {want_philox}: the fit's, the probe's draw, {transitions} "
+        f"transitions), graphs captured {cap}, host syncs {syncs}, graph replays "
+        f"{res.graph_replays}; accept "
+        f"{accept:.4f}, depth {depth:.3f}, divergences {res.divergences}; q's variances in "
+        f"[{float(inv_mass.min()):.3e}, {float(inv_mass.max()):.3e}]")
+    if n["K3"] != want_k3 or n["philox"] != want_philox:
+        fail(f"{label}: K3 {n['K3']} or Philox {n['philox']} launches, want {want_k3} and "
+             f"{want_philox}")
+    for k, v in res.samples.items():
+        if v.shape[:2] != (c, pcfg["num_samples"]) or not bool(torch.isfinite(v).all()):
+            fail(f"{label} draws {k}: shape {tuple(v.shape)} or non-finite")
+    check_sampler(label, {"launches": {"poisson_fused": n["K3"]}, "mean_accept": accept,
+                          "mean_tree_depth": depth,
+                          "divergence_rate": res.divergences / (c * pcfg["num_samples"])},
+                  0.9, 7, ["poisson_fused"])
+    poisson_truth_checks(label, res.samples, spec_truth)
+    out[label] = {"K3": n["K3"], "philox": n["philox"], "wall_seconds": wall,
+                  "fit_wall_seconds": fit["wall"], "fit_K3": fit["K3"], "host_syncs": syncs,
+                  "accept": accept}
     return out
 
 
@@ -1778,6 +2105,12 @@ def main() -> None:
         fail("posterior moments disagree with the Laplace approximation")
     nuts_mean, nuts_se, _ = param_mean_mcse(beta)
     init = problem[1]
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # --- glm100_fused: checkpoint and resume, against phase 4's run -------
+    ckpt_paths = checkpoint_phase(cfg, init, data, problem[3]["value_and_grad_fn"], result,
+                                  launches["K1"], launches["philox"])
+    log("glm100_fused checkpoint paths: " + json.dumps(ckpt_paths))
     del result, beta, problem
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
@@ -1878,22 +2211,18 @@ def main() -> None:
         if v.shape[:2] != (c_p, pcfg["num_samples"]) or not bool(torch.isfinite(v).all()):
             fail(f"poisson1000_cov draws {k}: shape {tuple(v.shape)} or non-finite")
     check_sampler("poisson1000_cov", pmetrics, 0.9, 7, ["poisson_fused", "philox_step_draws"])
-    s = presult.samples
-    checks = {f"beta[{i}]": (s["beta"][..., i], float(spec_truth["beta"][i])) for i in range(4)}
-    checks["mu"] = (s["mu"], spec_truth["mu"])
-    checks["tau"] = (torch.exp(s["log_tau"].float()), spec_truth["tau"])
-    for name, (draws, truth) in checks.items():
-        mean, sd = draw_moments(draws.reshape(-1, 1))
-        gap = abs(float(mean) - truth)
-        log(f"  poisson1000_cov {name}: mean {float(mean):.4f} sd {float(sd):.4f} truth {truth:.4f}")
-        if gap > 4 * float(sd) + 0.02:
-            fail(f"poisson1000_cov: {name} mean {float(mean)} is {gap} from truth {truth}")
-    del presult, s
+    poisson_truth_checks("poisson1000_cov", presult.samples, spec_truth)
+    del presult
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- the reference's other bench configs -------------------------------
     philox_by_path = other_configs(CONFIGS, h_problem, po_problem, g_problem, t_start)
+
+    # --- ADVI: glm100's fits, init_strategy='advi' through K3 --------------
+    advi_paths = advi_phase(g_problem, p_problem, pcfg, spec_truth)
+    log("ADVI paths: " + json.dumps(advi_paths))
     del h_problem, po_problem, g_problem
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- layout invariance -------------------------------------------------
     layout_invariance("elementwise", elementwise_vag(), 3, (4, 8), 0.4, 6)
@@ -1966,12 +2295,19 @@ def main() -> None:
         if key == "K1":
             extra["launches_by_path"] = {"glm100_fused": launches[key],
                                          "glm100_fused hmc (facade)": hmc_path["K1"],
-                                         **{k: cm_paths[v]["K1"] for k, v in cm_names.items()}}
+                                         **{k: cm_paths[v]["K1"] for k, v in cm_names.items()},
+                                         **{k: v["K1"] for k, v in ckpt_paths.items()}}
+        if key == "K3":
+            extra["launches_by_path"] = {"poisson1000_cov": launches[key],
+                                         "poisson1000_cov advi": advi_paths["poisson1000_cov advi"]
+                                         ["K3"]}
         if key == "philox":
             extra["launches_by_path"] = dict(
                 philox_by_path, glm100_fused=launches[key],
                 **{"glm100_fused hmc (facade)": hmc_path["philox"]},
-                **{k: cm_paths[v]["philox"] for k, v in cm_names.items()}, **readme_philox)
+                **{k: cm_paths[v]["philox"] for k, v in cm_names.items()}, **readme_philox,
+                **{k: v["philox"] for k, v in ckpt_paths.items()},
+                **{k: v["philox"] for k, v in advi_paths.items()})
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[key], "max_abs_err": row["max_abs_err"],

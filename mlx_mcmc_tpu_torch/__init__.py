@@ -6,8 +6,8 @@ a GPU they raise rather than fall back. The fused logistic value+grad is a
 hand-written Hopper kernel (``csrc/glm_fused.cu``) with a plain PyTorch twin
 that serves CPU tensors and the tests.
 
-The package imports ``torch`` only: nothing of JAX and nothing of
-``mlx_mcmc_tpu``.
+Checkpoint and resume: ``mlx_mcmc_tpu_torch.io``. The package imports
+``torch`` only: nothing of JAX and nothing of ``mlx_mcmc_tpu``.
 """
 
 from mlx_mcmc_tpu_torch.distributions import (
@@ -39,6 +39,7 @@ from mlx_mcmc_tpu_torch.distributions import (
 )
 from mlx_mcmc_tpu_torch.inference.api import MCMCResult, clear_runner_cache, sample
 from mlx_mcmc_tpu_torch.inference.mcmc import MCMC
+from mlx_mcmc_tpu_torch.inference.vi import ADVIResult, fit_advi
 from mlx_mcmc_tpu_torch.kernels.legacy import hmc, metropolis_hastings, nuts
 
 __all__ = [
@@ -46,6 +47,8 @@ __all__ = [
     "MCMCResult",
     "sample",
     "clear_runner_cache",
+    "ADVIResult",
+    "fit_advi",
     "metropolis_hastings",
     "hmc",
     "nuts",

@@ -3,18 +3,22 @@
 Counterpart of ``mlx_mcmc_tpu/inference/api.py:220-585``: the kernels
 'metropolis', 'hmc', 'nuts', 'chees' and 'mala', ``data=``, ``num_chains``,
 ``seed``, ``jitter``, ``batched_initial``, ``transforms``, ``config``,
-``init_strategy`` ('tile', 'map'), the tunables, ``thin``, ``store_dtype``,
+``init_strategy``, the tunables, ``thin``, ``store_dtype``,
 ``draw_chunk``, the kernel kwargs (``num_leapfrog_steps``,
 ``max_tree_depth``, ``max_leapfrog_steps``, ``static_schedule``,
 ``value_and_grad_fn``, ``init_inv_mass_diag``, ``progress_every``,
-``progress_callback``) and ``device``. Not yet: ``init_strategy='advi'``
-(ROADMAP A.9). Draws stay on the device until numpy is asked for, except
-with ``draw_chunk``, which fetches every chunk to the host.
+``progress_callback``), ``device``, ``init_strategy='advi'``
+(``inference/vi.py``) and ``MCMCResult.resume_payload`` (what
+``io/checkpoint.py`` saves and continues). Draws stay on the device until
+numpy is asked for, except with ``draw_chunk``, which fetches every chunk
+to the host.
 
 The compiled-runner cache (reference ``api.py:63-140, 331-367``) keeps, per
-static configuration, the runner that ``build_sampler`` made and, inside
-it, the CUDA graphs of its transition (``inference/graphs.py``), so a
-repeated ``sample()`` call replays them instead of capturing them again.
+static configuration (:func:`runner_key`), the runner that
+``build_sampler`` made and, inside it, the CUDA graphs of its transition
+(``inference/graphs.py``), so a repeated ``sample()`` call, and
+``io/checkpoint.py``'s ``run_warmup``, ``resume`` and ``resume_warmup``,
+replay them instead of capturing them again.
 """
 
 from __future__ import annotations
@@ -36,27 +40,29 @@ from mlx_mcmc_tpu_torch.inference import graphs
 from mlx_mcmc_tpu_torch.distributions.transforms import make_transformed_logprob
 from mlx_mcmc_tpu_torch.inference.engine import (
     build_sampler,
+    data_fingerprint,
     data_key,
     jittered_starts,
-    make_batched_value_and_grad,
     resolve_step_size,
 )
 from mlx_mcmc_tpu_torch.inference.init_strategies import map_initialize
+from mlx_mcmc_tpu_torch.inference.vi import advi_initialize, batched_vag
 from mlx_mcmc_tpu_torch.kernels.base import TransitionInfo, Tunables
 from mlx_mcmc_tpu_torch.ops.ravel import _leaves, make_flat_logprob, ravel_batched, ravel_params
 
-# Compiled-runner cache: repeated ``sample()`` calls with the same static
-# configuration reuse the runner and the CUDA graphs it captured, instead
-# of capturing them again. As in the reference, functions are keyed by
-# identity and the entry pins them, so ids cannot be recycled while cached;
-# eviction is LRU. Unlike the reference, whose ``data`` and chain count are
-# jit arguments, the graphs bake in the data tensors' addresses and the
-# chain count, so both are part of the key (tensors by identity and
-# shape). Transform instances are keyed by identity, as the reference keys
-# them (by hash), ``init_inv_mass_diag`` by value; ``jitter`` and the
-# initial values are per-call values, not keys. Mutating a cached ``data``
-# tensor in place needs ``clear_runner_cache()``, as mutating what a cached
-# closure captures does in the reference.
+# Compiled-runner cache: runs with the same static configuration reuse the
+# runner and the CUDA graphs it captured, instead of capturing them again.
+# As in the reference, functions are keyed by identity and the entry pins
+# them, so ids cannot be recycled while cached; eviction is LRU. Unlike the
+# reference, whose ``data`` and chain count are jit arguments, the graphs
+# bake in the data tensors' addresses and the chain count, so both are part
+# of the key (tensors by identity and shape). Transform instances are keyed
+# by identity, as the reference keys them (by hash). What a run passes to
+# its runner is not a key: the initial values, ``jitter``, the seed, the
+# initial metric, the draw count and the segment (so ``draw_chunk``, a
+# checkpoint's continuation and an 'advi' start reuse the runner).
+# Mutating a cached ``data`` tensor in place needs ``clear_runner_cache()``,
+# as mutating what a cached closure captures does in the reference.
 _RUNNER_CACHE: "OrderedDict[Any, Any]" = OrderedDict()
 _RUNNER_CACHE_MAX = 64
 
@@ -86,6 +92,136 @@ def _param_spec(params) -> tuple:
     return tuple((path, tuple(torch.as_tensor(v).shape)) for path, v in _leaves(params))
 
 
+# The tunables' settings of a run, with sample()'s defaults; a checkpoint
+# records them.
+TUNABLE_SETTINGS = {"step_size": "auto", "adapt_step_size": True, "adapt_mass_matrix": True,
+                    "target_accept": None, "store_dtype": None}
+# The kernel kwargs that shape each kernel's transitions, with sample()'s
+# defaults.
+_KERNEL_OPTIONS = {
+    "nuts": {"max_tree_depth": 10, "static_schedule": False},
+    "hmc": {"num_leapfrog_steps": 10},
+    "chees": {"max_leapfrog_steps": 1000},
+    "mala": {},
+    "metropolis": {},
+}
+_GIVEN_OPTIONS = ("value_and_grad_fn", "progress_every", "progress_callback")
+
+
+def run_kwargs(kernel: str, options: dict) -> dict:
+    """The kernel kwargs that a continuation of a run must repeat, from
+    ``options`` (sample()'s kernel kwargs, or a checkpoint's with the
+    caller's): ``thin``, the kernel's own options (NUTS's
+    ``max_tree_depth`` and ``static_schedule``, HMC's
+    ``num_leapfrog_steps``, ChEES's ``max_leapfrog_steps``; their defaults
+    where absent) and ``value_and_grad_fn``, ``progress_every`` and
+    ``progress_callback`` where given."""
+    out = {"thin": int(options.get("thin", 1))}
+    out.update({k: options.get(k, v) for k, v in _KERNEL_OPTIONS[kernel].items()})
+    out.update({k: options[k] for k in _GIVEN_OPTIONS if options.get(k) is not None})
+    return out
+
+
+# Every sampler option a run may set: what run_settings reads, and the
+# initial metric, which a runner takes per call.
+RUN_OPTIONS = frozenset(TUNABLE_SETTINGS) | {"thin", "init_inv_mass_diag"} | frozenset(
+    k for opts in _KERNEL_OPTIONS.values() for k in opts) | frozenset(_GIVEN_OPTIONS)
+
+
+def run_settings(kernel: str, num_warmup: int, options: dict) -> dict:
+    """What a runner bakes in, from ``options`` (sample()'s sampler kwargs,
+    or a checkpoint's with the caller's; defaults where absent): the
+    kernel, ``num_warmup``, the tunables' settings (``step_size`` resolved,
+    the store dtype as a ``torch.dtype``) and :func:`run_kwargs`. The
+    runner's build arguments and, with the model, its cache key
+    (:func:`runner_key`). An option outside :data:`RUN_OPTIONS` raises."""
+    unknown = sorted(set(options) - RUN_OPTIONS)
+    if unknown:
+        raise ValueError(f"unsupported sampler kwarg(s) {unknown}")
+    tun = {k: options.get(k, v) for k, v in TUNABLE_SETTINGS.items()}
+    adapt_step_size = bool(tun["adapt_step_size"])
+    return dict(
+        kernel=kernel, num_warmup=int(num_warmup),
+        step_size=resolve_step_size(tun["step_size"], kernel, adapt_step_size),
+        adapt_step_size=adapt_step_size, adapt_mass_matrix=bool(tun["adapt_mass_matrix"]),
+        target_accept=tun["target_accept"], store_dtype=_as_dtype(tun["store_dtype"]),
+        **run_kwargs(kernel, options))
+
+
+def runner_key(log_prob_fn, example, data, num_chains: int, device, transforms, settings: dict):
+    """The runner-cache key, or None where ``data`` cannot be keyed: what
+    the runner and its graphs bake in. The functions and the data by
+    identity, ``example``'s structure (one chain's parameters in the
+    sampled space), the transforms, the chain count, the device and
+    :func:`run_settings`'s ``settings``."""
+    dkey = data_key(data)
+    if dkey is None:
+        return None
+    tkey = None if transforms is None else tuple(sorted(transforms.items(), key=lambda kv: kv[0]))
+    items = tuple(sorted((k, id(v) if callable(v) else v) for k, v in settings.items()))
+    return (id(log_prob_fn), _param_spec(example), dkey, tkey, int(num_chains), device,
+            graphs.PAIRS_PER_REPLAY, items)
+
+
+def cached_runner(log_prob_fn, example, *, data, transforms, num_chains: int, device,
+                  settings: dict, maps=None) -> dict:
+    """The runner-cache entry for a run: the cached one under
+    :func:`runner_key` (with its graphs), or a new one (:func:`model_entry`
+    and ``build_sampler(**settings)``), cached where the key exists."""
+    key = runner_key(log_prob_fn, example, data, num_chains, device, transforms, settings)
+    entry = None if key is None else _lru_get(_RUNNER_CACHE, key)
+    if entry is None:
+        entry = model_entry(log_prob_fn, transforms, example, data, device, maps)
+        entry["run"] = build_sampler(entry["flat_log_prob"], entry["dim"], **settings)
+        # what the key names by id, so no id is recycled while cached
+        entry["pin"] = (log_prob_fn, data, transforms, tuple(settings.values()))
+        if key is not None:
+            _lru_put(_RUNNER_CACHE, key, entry, _RUNNER_CACHE_MAX)
+    return entry
+
+
+def resume_payload(result, unravel, **settings) -> dict:
+    """A result's ``resume_payload``: the final positions and adaptation
+    state of ``result`` (an engine ``ChainResult``), ``unravel`` and the
+    run's ``settings``, which a continuation repeats."""
+    position = result.final_state.position
+    return dict(phase="sampling", flat_position=position, adapt=result.final_adapt,
+                traj=result.final_traj, inv_mass_diag=result.final_tunables.inv_mass_diag,
+                unravel=unravel, dim=int(position.shape[1]), **settings)
+
+
+def dtype_name(dtype) -> Optional[str]:
+    """A store dtype's name as the reference records it (``'bfloat16'``)."""
+    return None if dtype is None else str(dtype).removeprefix("torch.")
+
+
+def transformed(log_prob_fn, transforms, data) -> tuple:
+    """``(log density in the sampled space, to_constrained,
+    to_unconstrained)``: ``make_transformed_logprob``'s with transforms,
+    the model itself and no maps without."""
+    if transforms:
+        return make_transformed_logprob(log_prob_fn, transforms, data_aware=data is not None)
+    return log_prob_fn, None, None
+
+
+def model_entry(log_prob_fn, transforms, example, data, device, maps=None) -> dict:
+    """The model's part of a runner-cache entry: the flat log density over
+    ``example``'s structure in the sampled space (None without
+    ``log_prob_fn``), its width ``dim``, ``unravel`` and the transforms'
+    maps (``maps``: :func:`transformed`'s, if made already).
+    :func:`cached_runner` adds ``run`` and ``pin``."""
+    lp_fn, to_constrained, to_unconstrained = maps or transformed(log_prob_fn, transforms, data)
+    flat_log_prob, z_example, unravel = make_flat_logprob(
+        lp_fn, example, data_aware=data is not None, device=device)
+    return {
+        "flat_log_prob": flat_log_prob if log_prob_fn is not None else None,
+        "dim": z_example.shape[0],
+        "unravel": unravel,
+        "to_constrained": to_constrained,
+        "to_unconstrained": to_unconstrained,
+    }
+
+
 @dataclass
 class MCMCResult:
     """Posterior draws plus per-draw sampler diagnostics.
@@ -103,6 +239,10 @@ class MCMCResult:
     warmup first (empty for the other kernels).
     ``probe_evals``: the step-size probe's evaluations (one value+grad and
     one host read each).
+    ``resume_payload``: what a bit-exact continuation needs (the final
+    positions, the adaptation state, the run's settings), which
+    ``io/checkpoint.py`` saves and ``resume`` continues; None for a
+    ``resume_warmup`` result, as in the reference.
     """
 
     samples: Dict[str, torch.Tensor]
@@ -115,6 +255,7 @@ class MCMCResult:
     graph_replays: int = 0
     leapfrog_counts: tuple = ()
     probe_evals: int = 0
+    resume_payload: Optional[Dict[str, Any]] = field(default=None, repr=False)
     _numpy_cache: Optional[Dict[str, np.ndarray]] = field(default=None, repr=False)
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
@@ -241,7 +382,12 @@ def sample(
     leading ``num_chains`` axis. ``init_strategy='map'`` then moves every
     start by 200 Adam steps up the log density from a jittered point
     (``init_strategies.map_initialize``; the jitter is ``jitter`` or 1);
-    'tile' (the default) keeps them. ``transforms`` maps parameter names to
+    ``init_strategy='advi'`` fits a mean-field q by 500 ADVI steps from the
+    first chain's start (``vi.advi_initialize``),
+    draws every chain's start from q (a draw whose log density is not
+    finite keeps its start) and, unless ``init_inv_mass_diag`` is given,
+    takes q's variances as the initial metric; 'tile' (the default) keeps
+    them. Both climb through ``value_and_grad_fn`` where one is given. ``transforms`` maps parameter names to
     unconstraining transforms (names like 'log'/'logit'/'simplex' or
     ``Transform`` instances): those parameters are sampled in
     unconstrained space with the Jacobian added, and the draws come back
@@ -278,7 +424,10 @@ def sample(
     Runners are cached (``_RUNNER_CACHE``, see ``clear_runner_cache``): a
     call with the same functions, parameter structure, settings, chain
     count, device and ``data`` tensors replays the graphs of the last one;
-    a new seed, new initial values or another ``jitter`` reuse them.
+    a new seed, new initial values, ``jitter``, initial metric, draw count
+    or ``draw_chunk`` reuse them. ``resume_payload`` lets
+    ``io.checkpoint.save_checkpoint`` and ``resume`` continue the run
+    (from the last chunk, with ``draw_chunk``) bit for bit.
     """
     if config is not None:
         kw = config.to_kwargs()
@@ -301,76 +450,25 @@ def sample(
         raise ValueError("transforms rewrite log_prob_fn; pass one")
     if init_strategy not in _INIT_STRATEGIES:
         raise ValueError(f"Unknown init_strategy: {init_strategy!r}")
-    if init_strategy == "advi":
-        raise NotImplementedError("init_strategy='advi' is not ported yet (ROADMAP A.9)")
     if draw_chunk is not None:
         if draw_chunk <= 0:
             raise ValueError(f"draw_chunk must be positive, got {draw_chunk}")
         if draw_chunk >= num_samples:
             draw_chunk = None  # one chunk is the unchunked run
-    store = _as_dtype(store_dtype)
-    step_size = resolve_step_size(step_size, kernel, adapt_step_size)
-    dkey = data_key(data)
-    tkey = None if transforms is None else tuple(sorted(transforms.items(), key=lambda kv: kv[0]))
-    mkey = (None if init_inv_mass_diag is None
-            else tuple(torch.as_tensor(init_inv_mass_diag).flatten().tolist()))
-    cache_key = None if dkey is None else (
-        id(log_prob_fn), id(value_and_grad_fn), _param_spec(initial_params), dkey,
-        int(num_chains), kernel, int(num_samples), int(num_warmup), int(thin), step_size,
-        bool(adapt_step_size), bool(adapt_mass_matrix), target_accept, store,
-        int(max_tree_depth), bool(static_schedule), dev, graphs.PAIRS_PER_REPLAY,
-        int(num_leapfrog_steps), int(max_leapfrog_steps), draw_chunk, bool(batched_initial),
-        tkey, mkey, progress_every, id(progress_callback),
-    )
-    entry = None if cache_key is None else _lru_get(_RUNNER_CACHE, cache_key)
-    if entry is not None:
-        lp_fn, to_constrained, to_unconstrained = None, entry["to_constrained"], entry[
-            "to_unconstrained"]
-    elif transforms:
-        lp_fn, to_constrained, to_unconstrained = make_transformed_logprob(
-            log_prob_fn, transforms, data_aware=data is not None)
-    else:
-        lp_fn, to_constrained, to_unconstrained = log_prob_fn, None, None
+    settings = run_settings(kernel, num_warmup, dict(
+        step_size=step_size, adapt_step_size=adapt_step_size,
+        adapt_mass_matrix=adapt_mass_matrix, target_accept=target_accept,
+        store_dtype=store_dtype, thin=thin, max_tree_depth=max_tree_depth,
+        static_schedule=static_schedule, num_leapfrog_steps=num_leapfrog_steps,
+        max_leapfrog_steps=max_leapfrog_steps, value_and_grad_fn=value_and_grad_fn,
+        progress_every=progress_every, progress_callback=progress_callback))
     # Per-call values: the initial positions, in the sampled space.
-    if to_unconstrained is not None:
-        initial_params = to_unconstrained(initial_params)
+    maps = transformed(log_prob_fn, transforms, data)
+    if maps[2] is not None:
+        initial_params = maps[2](initial_params)
     example = _first(initial_params) if batched_initial else initial_params
-    if entry is None:
-        flat_log_prob, z_example, unravel = make_flat_logprob(
-            lp_fn, example, data_aware=data is not None, device=dev
-        )
-        common = dict(
-            kernel=kernel,
-            num_warmup=num_warmup,
-            thin=thin,
-            step_size=step_size,
-            adapt_step_size=adapt_step_size,
-            adapt_mass_matrix=adapt_mass_matrix,
-            target_accept=target_accept,
-            store_dtype=store,
-            max_tree_depth=max_tree_depth,
-            num_leapfrog_steps=num_leapfrog_steps,
-            max_leapfrog_steps=max_leapfrog_steps,
-            value_and_grad_fn=value_and_grad_fn,
-            static_schedule=static_schedule,
-            init_inv_mass_diag=init_inv_mass_diag,
-            progress_every=progress_every,
-            progress_callback=progress_callback,
-        )
-        flp = flat_log_prob if log_prob_fn is not None else None
-        dim = z_example.shape[0]
-        entry = {
-            "run": build_sampler(flp, dim, num_samples=draw_chunk or num_samples, **common),
-            "flat_log_prob": flp,
-            "unravel": unravel,
-            "to_constrained": to_constrained,
-            "to_unconstrained": to_unconstrained,
-            # pin what the key names by id, so no id is recycled while cached
-            "pin": (log_prob_fn, value_and_grad_fn, data, tkey, progress_callback),
-        }
-        if cache_key is not None:
-            _lru_put(_RUNNER_CACHE, cache_key, entry, _RUNNER_CACHE_MAX)
-    run, unravel = entry["run"], entry["unravel"]
+    entry = cached_runner(log_prob_fn, example, data=data, transforms=transforms,
+                          num_chains=num_chains, device=dev, settings=settings, maps=maps)
     if batched_initial:
         z0_batch = ravel_batched(initial_params, device=dev)
         if z0_batch.shape[0] != num_chains:
@@ -383,19 +481,25 @@ def sample(
         if jitter > 0.0:
             z0_batch = jittered_starts(int(seed), z0_batch, jitter)
     if init_strategy == "map":
-        if value_and_grad_fn is not None:
-            def map_vag(Z):
-                return value_and_grad_fn(Z) if data is None else value_and_grad_fn(Z, data)
-        else:
-            map_vag = make_batched_value_and_grad(entry["flat_log_prob"], data)
-        z0_batch = map_initialize(map_vag, z0_batch, int(seed),
-                                  jitter=jitter if jitter > 0 else 1.0)
+        z0_batch = map_initialize(batched_vag(entry["flat_log_prob"], data, value_and_grad_fn),
+                                  z0_batch, int(seed), jitter=jitter if jitter > 0 else 1.0)
+    elif init_strategy == "advi":
+        # Starts drawn from a mean-field q fitted from the first chain's,
+        # through the fused value+grad where one is given; q's variances
+        # as the initial metric unless one was given.
+        z0_batch, advi_inv_mass = advi_initialize(
+            entry["flat_log_prob"], z0_batch, int(seed), data=data,
+            value_and_grad_fn=value_and_grad_fn)
+        if init_inv_mass_diag is None:
+            init_inv_mass_diag = advi_inv_mass
+    run, unravel, to_constrained = entry["run"], entry["unravel"], entry["to_constrained"]
 
     def post(positions):
         samples = unravel(positions)
         return samples if to_constrained is None else to_constrained(samples)
 
-    results = [run(int(seed), z0_batch, data)]
+    results = [run(int(seed), z0_batch, data, num_samples=draw_chunk or num_samples,
+                   init_inv_mass_diag=init_inv_mass_diag)]
     if draw_chunk is None:
         samples, info = post(results[0].positions), results[0].info
     else:
@@ -414,10 +518,11 @@ def sample(
         samples = {k: np.concatenate([p[0][k] for p in parts], axis=1) for k in parts[0][0]}
         info = type(parts[0][1])(*(np.concatenate(fields, axis=1)
                                    for fields in zip(*(p[1] for p in parts))))
+    last = results[-1]
     return MCMCResult(
         samples=samples,
         info=info,
-        tunables=results[-1].final_tunables,
+        tunables=last.final_tunables,
         num_chains=num_chains,
         num_samples=num_samples,
         kernel=kernel,
@@ -425,6 +530,15 @@ def sample(
         graph_replays=sum(r.graph_replays for r in results),
         leapfrog_counts=tuple(n for r in results for n in r.leapfrog_counts),
         probe_evals=results[0].probe_evals,
+        # on the device until saved
+        resume_payload=resume_payload(
+            last, unravel, num_warmup=int(num_warmup), num_chains=int(num_chains),
+            next_sample_start=int(num_samples), thin=int(thin), kernel=kernel, seed=int(seed),
+            step_size=settings["step_size"], adapt_step_size=settings["adapt_step_size"],
+            adapt_mass_matrix=settings["adapt_mass_matrix"], target_accept=target_accept,
+            store_dtype=dtype_name(settings["store_dtype"]),
+            kernel_kwargs=run_kwargs(kernel, settings),
+            has_transforms=transforms is not None, data_fingerprint=data_fingerprint(data)),
     )
 
 

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from mlx_mcmc_tpu_torch.kernels.adaptation import (
@@ -148,6 +149,48 @@ def data_key(data):
     return None
 
 
+def data_fingerprint(data):
+    """A structural fingerprint of ``data``: for each leaf, in JAX's
+    flattening order (dict keys sorted; None is no leaf), its
+    ``jax.tree_util.keystr`` path (``"['X']"``, ``"[0]"``, ``".field"``),
+    its shape and its dtype's name, as the reference's checkpoints record
+    it (``mlx_mcmc_tpu/io/checkpoint.py:_data_fingerprint``), so that
+    either package's checkpoint checks the other's data. None for no
+    data. Reads no values."""
+    if data is None:
+        return None
+    out = []
+
+    def walk(node, path):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}[{k!r}]")
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            for name in node._fields:
+                walk(getattr(node, name), f"{path}.{name}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+        elif isinstance(node, torch.Tensor):
+            out.append([path, list(node.shape), str(node.dtype).removeprefix("torch.")])
+        else:
+            dtype = node.dtype if hasattr(node, "dtype") else np.asarray(node).dtype
+            out.append([path, list(np.shape(node)), str(dtype)])
+
+    walk(data, "")
+    return out
+
+
+def vmap_log_prob(flat_log_prob: Callable, data=None) -> Callable:
+    """The per-chain flat log density under ``torch.func.vmap``: ``(C, D)
+    -> (C,)``, ``data`` bound where given."""
+    if data is None:
+        return torch.func.vmap(flat_log_prob)
+    return torch.func.vmap(lambda z: flat_log_prob(z, data))
+
+
 def make_batched_value_and_grad(flat_log_prob: Callable, data=None):
     """Batched value+grad by autograd for models without a fused one.
 
@@ -166,10 +209,7 @@ def make_batched_value_and_grad(flat_log_prob: Callable, data=None):
     H100 the funnel's transition captures and gives the eager loop's bits
     (``chip_smoke.py`` phase 3c).
     """
-    if data is None:
-        batched = torch.func.vmap(flat_log_prob)
-    else:
-        batched = torch.func.vmap(lambda z: flat_log_prob(z, data))
+    batched = vmap_log_prob(flat_log_prob, data)
 
     def vag(Z):
         with torch.enable_grad():
@@ -186,10 +226,7 @@ def make_batched_value(flat_log_prob: Callable, data=None):
     """Batched log density ``value(Z (C, D)) -> (C,)`` for Metropolis: the
     per-chain model under ``torch.func.vmap``, no gradient. Graph-safe
     where the model declared it, as :func:`make_batched_value_and_grad`."""
-    if data is None:
-        batched = torch.func.vmap(flat_log_prob)
-    else:
-        batched = torch.func.vmap(lambda z: flat_log_prob(z, data))
+    batched = vmap_log_prob(flat_log_prob, data)
 
     def value(Z):
         with torch.no_grad():
@@ -289,8 +326,9 @@ def build_sampler(
     warmup_stop: Optional[int] = None,
 ) -> Callable[..., ChainResult]:
     """Build ``run(seed, z0_batch, data=None, resume_state=None,
-    sample_start=0, *, num_samples, warmup_start, warmup_stop) ->
-    ChainResult``; the last three default to the values given here.
+    sample_start=0, *, num_samples, warmup_start, warmup_stop,
+    init_inv_mass_diag) -> ChainResult``; the last four default to the
+    values given here.
 
     ``kernel`` is 'metropolis', 'hmc' (``num_leapfrog_steps`` leapfrogs),
     'nuts' (``max_tree_depth``, ``static_schedule``), 'chees' (at most
@@ -327,9 +365,9 @@ def build_sampler(
     and ``final_traj``), which also skips the probe. ``num_samples=0``
     stops after the warmup segment, and ``sample_start`` offsets the
     draws, so the segments of a run give its uninterrupted bits. A call may
-    run another segment or draw count than the build's (``sample()``'s
-    ``draw_chunk`` continuations: no warmup, one chunk of draws) and
-    replays the same graphs.
+    run another segment, draw count or initial metric than the build's
+    (``sample()``'s ``draw_chunk`` continuations: no warmup, one chunk of
+    draws; a checkpoint's continuation) and replays the same graphs.
 
     On the card, a value (+grad) with ``graph_safe = True`` runs through
     :class:`graphs.GraphedTransition` (NUTS), :class:`graphs.GraphedTrajectory`
@@ -363,7 +401,8 @@ def build_sampler(
 
     def run(seed: int, z0_batch: torch.Tensor, data=None, resume_state=None,
             sample_start: int = 0, *, num_samples: int = num_samples,
-            warmup_start: int = warmup_start, warmup_stop: int = warmup_stop) -> ChainResult:
+            warmup_start: int = warmup_start, warmup_stop: int = warmup_stop,
+            init_inv_mass_diag=init_inv_mass_diag) -> ChainResult:
         _check_segment(warmup_start, warmup_stop, num_warmup)
         device = z0_batch.device
         num_chains = z0_batch.shape[0]

@@ -95,12 +95,16 @@ class CapturedGraph:
 
 def capture(fn: Callable, pool=None):
     """``(CapturedGraph, fn's outputs)``: ``fn`` captured on the current
-    device, its kernel launches recorded."""
+    device, its kernel launches recorded. Adds one to ``capture.count``."""
     graph = torch.cuda.CUDAGraph()
     with _capture.recording() as rec:
         with torch.cuda.graph(graph, pool=pool):
             out = fn()
+    capture.count += 1
     return CapturedGraph(graph, rec), out
+
+
+capture.count = 0
 
 
 @contextlib.contextmanager

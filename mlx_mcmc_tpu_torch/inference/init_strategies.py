@@ -5,8 +5,8 @@ Counterpart of ``mlx_mcmc_tpu/inference/init_strategies.py``
 and climbs for ``num_steps`` Adam steps, all chains at once through the
 batched value+grad, so warmup starts near the mode.
 
-Adam is written out as ``optax.adam`` computes it (b1 0.9, b2 0.999, eps
-1e-8, bias-corrected moments). The jitter normals come from Philox at
+Adam is ``ops.math.adam_update``, ``optax.adam``'s step (b1 0.9, b2 0.999,
+eps 1e-8, bias-corrected moments). The jitter normals come from Philox at
 chain ``i``'s reserved step :data:`MAP_JITTER_STEP`, beside
 ``engine.JITTER_STEP``: a chain's start does not depend on the chain count
 (the reference draws one joint ``(C, D)`` normal from its init key), so
@@ -19,6 +19,7 @@ from typing import Callable
 
 import torch
 
+from mlx_mcmc_tpu_torch.ops.math import adam_update
 from mlx_mcmc_tpu_torch.ops.random import step_draws
 
 # Reserved step index of the MAP init's jitter: neither a sampling step,
@@ -40,19 +41,13 @@ def map_initialize(
     ``z0_batch + jitter * N(0, 1)``. Non-finite gradients count as 0; a
     chain whose optimized log density is not finite keeps its ``z0_batch``
     row. Reads nothing on the host."""
-    b1, b2, eps = 0.9, 0.999, 1e-8  # optax.adam's defaults
     chains = torch.arange(z0_batch.shape[0], device=z0_batch.device)
     noise, _ = step_draws(seed, chains, MAP_JITTER_STEP, z0_batch.shape[1], 0)
     z = z0_batch + jitter * noise
-    m = torch.zeros_like(z)
-    v = torch.zeros_like(z)
+    m = v = (torch.zeros_like(z),)
     for count in range(1, num_steps + 1):
         _, grad = value_and_grad(z)
-        g = torch.where(torch.isfinite(grad), -grad, 0.0)  # the loss is -log_prob
-        m = (1 - b1) * g + b1 * m
-        v = (1 - b2) * g * g + b2 * v
-        m_hat = m / (1 - b1**count)
-        v_hat = v / (1 - b2**count)
-        z = z + -learning_rate * (m_hat / (torch.sqrt(v_hat) + eps))
+        # the loss is -log_prob
+        (z,), m, v = adam_update((z,), (-grad,), m, v, count, learning_rate)
     log_prob, _ = value_and_grad(z)
     return torch.where(torch.isfinite(log_prob)[:, None], z, z0_batch)

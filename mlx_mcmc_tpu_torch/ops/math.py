@@ -1,8 +1,11 @@
-"""Numerics helpers: NaN-safe support masking and Welford streaming moments.
+"""Numerics helpers: NaN-safe support masking, Welford streaming moments
+and the Adam step.
 
 Counterpart of ``mlx_mcmc_tpu/ops/math.py``. The Welford accumulators drive
 the diagonal mass-matrix adaptation; ``welford_batch_update`` pools all
 chains in one vectorized update (Chan et al.'s parallel merge).
+:func:`adam_update` is the one Adam of the package (the MAP init and the
+ADVI fits; the reference takes ``optax.adam`` for both).
 """
 
 from __future__ import annotations
@@ -106,3 +109,24 @@ def welford_finalize(state: WelfordState, regularize: bool = True) -> torch.Tens
         w = n / (n + 5.0)
         var = w * var + 1e-3 * (1.0 - w)
     return torch.where(n > 1.0, var, torch.ones_like(var))
+
+
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
+
+
+def adam_update(params, grads, m, v, count: int, learning_rate: float):
+    """One Adam step on tuples of tensors, as ``optax.adam`` computes it:
+    bias-corrected moments, ``count`` the step's 1-based index. A
+    non-finite gradient entry counts as 0. Returns ``(params, m, v)``;
+    reads nothing on the host."""
+    new_p, new_m, new_v = [], [], []
+    for p, g, m_i, v_i in zip(params, grads, m, v):
+        g = torch.where(torch.isfinite(g), g, 0.0)
+        m_i = (1 - _ADAM_B1) * g + _ADAM_B1 * m_i
+        v_i = (1 - _ADAM_B2) * g * g + _ADAM_B2 * v_i
+        m_hat = m_i / (1 - _ADAM_B1**count)
+        v_hat = v_i / (1 - _ADAM_B2**count)
+        new_p.append(p + -learning_rate * (m_hat / (torch.sqrt(v_hat) + _ADAM_EPS)))
+        new_m.append(m_i)
+        new_v.append(v_i)
+    return tuple(new_p), tuple(new_m), tuple(new_v)

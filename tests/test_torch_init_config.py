@@ -9,8 +9,9 @@
 - ``init_strategy='map'`` lands absurdly far starts near the mode
   (``tests/test_facade.py:193-215``), and its Adam is ``optax.adam``'s: 200
   steps from the same start on a Gaussian agree with optax to 1e-4; an
-  unknown strategy raises ``ValueError`` and 'advi' ``NotImplementedError``
-  naming A.9.
+  unknown strategy raises ``ValueError``, and 'advi' runs (its draws of the
+  right shapes, sigma's in its support; ``tests/test_torch_vi.py`` holds
+  the fit itself).
 """
 
 import dataclasses
@@ -167,6 +168,7 @@ def test_unknown_and_unported_strategies_raise(data):
     with pytest.raises(ValueError, match="init_strategy"):
         sample(_facade_model(data), {"mu": 0.0, "sigma": 1.0}, num_samples=10, num_warmup=10,
                init_strategy="magic", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        sample(_facade_model(data), {"mu": 0.0, "sigma": 1.0}, num_samples=10, num_warmup=10,
-               init_strategy="advi", device="cpu")
+    res = sample(_facade_model(data), {"mu": 0.0, "sigma": 1.0}, num_samples=10, num_warmup=10,
+                 num_chains=3, init_strategy="advi", transforms={"sigma": "log"}, device="cpu")
+    assert res.samples["mu"].shape == (3, 10) and res.samples["sigma"].shape == (3, 10)
+    assert bool((res.samples["sigma"] > 0).all()) and bool(torch.isfinite(res.samples["mu"]).all())

@@ -26,13 +26,17 @@ for name in ("mlx_mcmc_tpu_torch.ops.glm_variants", "mlx_mcmc_tpu_torch.models.j
              "mlx_mcmc_tpu_torch.benchmarks.flagship_decomposition",
              "mlx_mcmc_tpu_torch.kernels.chees", "mlx_mcmc_tpu_torch.kernels.mala",
              "mlx_mcmc_tpu_torch.inference.init_strategies",
-             "mlx_mcmc_tpu_torch.distributions.extras", "mlx_mcmc_tpu_torch.utils.config"):
+             "mlx_mcmc_tpu_torch.distributions.extras", "mlx_mcmc_tpu_torch.utils.config",
+             "mlx_mcmc_tpu_torch.io.checkpoint", "mlx_mcmc_tpu_torch.inference.vi"):
     assert name in names, name
 from mlx_mcmc_tpu_torch import (MCMC, sample, metropolis_hastings, hmc, nuts, Normal, HalfNormal,
                                 Beta, Gamma, Exponential, Categorical, make_transformed_logprob,
                                 Bernoulli, Binomial, NegativeBinomial, Laplace, Cauchy, Uniform,
                                 LogNormal, StudentT, Poisson, Dirichlet, MultivariateNormal)
 from mlx_mcmc_tpu_torch.utils import SamplerConfig, AdaptationConfig, MeshConfig
+from mlx_mcmc_tpu_torch import ADVIResult, fit_advi
+from mlx_mcmc_tpu_torch.io import (save_checkpoint, load_checkpoint, resume, run_warmup,
+                                   resume_warmup)
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mlx_mcmc_tpu"))
@@ -67,6 +71,24 @@ def test_sample_defaults_to_cuda_and_raises_without_it():
                                                   method="hmc", verbose=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         metropolis_hastings(lambda p: -(p["x"] ** 2).sum(), {"x": [0.0]}, num_samples=2)
+    from mlx_mcmc_tpu_torch import fit_advi
+    from mlx_mcmc_tpu_torch.io import resume, resume_warmup, run_warmup
+
+    def model(p):
+        return -(p["x"] ** 2).sum()
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit_advi(model, {"x": [0.0]}, num_steps=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_warmup(model, {"x": [0.0]}, num_warmup=4, stop=2)
+    # a sampling and a warmup checkpoint, made on the CPU, resumed without
+    # device=
+    done = sample(model, {"x": [0.0]}, num_samples=2, num_warmup=2, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resume(model, done, num_samples=2)
+    half = run_warmup(model, {"x": [0.0]}, num_warmup=4, stop=2, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resume_warmup(model, half, num_samples=2)
 
 
 _JAX_RANDOM_PROBE = """

@@ -5,9 +5,11 @@ transition) and give the same bits as a fresh build.
 
 Unlike the reference, the chain count and the ``data`` tensors (by
 identity) are part of the key, because the graphs bake them in. As in the
-reference, the key holds the kernel and its kwargs, ``batched_initial``
-and the transforms (names by value, ``Transform`` instances by identity);
-``jitter`` is a per-call value, not a key.
+reference, the key holds the kernel and its kwargs and the transforms
+(names by value, ``Transform`` instances by identity). What a run hands
+its runner per call is not a key: ``jitter``, the initial values (also
+``batched_initial`` ones), the initial metric, the draw count and
+``draw_chunk``.
 """
 
 import numpy as np
@@ -152,11 +154,12 @@ def test_kernel_and_its_kwargs_get_distinct_entries():
     _run(kernel="metropolis")
     _run(thin=2)
     _run(progress_every=10, progress_callback=lambda *a: None)
-    _run(init_inv_mass_diag=torch.full((3,), 2.0))
-    assert len(api._RUNNER_CACHE) == 7
-    _run(init_inv_mass_diag=[2.0, 2.0, 2.0])  # keyed by value
-    _run(kernel="hmc", num_leapfrog_steps=4)
-    assert len(api._RUNNER_CACHE) == 7
+    assert len(api._RUNNER_CACHE) == 6
+    # the initial metric is a per-call value: the same runner, other draws
+    a = _run(kernel="hmc", num_leapfrog_steps=4, init_inv_mass_diag=torch.full((3,), 2.0))
+    b = _run(kernel="hmc", num_leapfrog_steps=4)
+    assert len(api._RUNNER_CACHE) == 6
+    assert not torch.equal(a.samples["x"], b.samples["x"])
 
 
 def test_transforms_keyed_by_name_and_instance_identity():
@@ -176,11 +179,13 @@ def test_batched_initial_is_a_key_and_jitter_is_not():
     r1 = _run(seed=2, jitter=0.5)
     assert len(api._RUNNER_CACHE) == 1
     assert not torch.equal(r0.samples["x"], r1.samples["x"])
+    # batched starts are per-call values too: one chain's structure is the
+    # key's
     start = {"x": torch.arange(12.0).reshape(4, 3)}
     rb = _run(seed=2, init=start, batched_initial=True)
-    assert len(api._RUNNER_CACHE) == 2
+    assert len(api._RUNNER_CACHE) == 1
     rb2 = _run(seed=2, init={"x": -start["x"]}, batched_initial=True)
-    assert len(api._RUNNER_CACHE) == 2  # new starting values, the same runner
+    assert len(api._RUNNER_CACHE) == 1  # new starting values, the same runner
     assert not torch.equal(rb.samples["x"], rb2.samples["x"])
 
 
@@ -188,9 +193,9 @@ def test_chees_mala_and_their_kwargs_get_distinct_entries():
     _run(kernel="chees")
     _run(kernel="chees", max_leapfrog_steps=8)
     _run(kernel="mala")
-    _run(kernel="mala", draw_chunk=3)
-    assert len(api._RUNNER_CACHE) == 4
+    _run(kernel="mala", draw_chunk=3)  # chunks run on the same runner
+    assert len(api._RUNNER_CACHE) == 3
     _run(kernel="chees", max_leapfrog_steps=8)
     _run(kernel="mala", draw_chunk=3, seed=5)
     _run(kernel="mala", init_strategy="map")  # a per-call start, not a key
-    assert len(api._RUNNER_CACHE) == 4
+    assert len(api._RUNNER_CACHE) == 3
