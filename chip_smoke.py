@@ -93,6 +93,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    root and ``graphs.PAIRS_PER_REPLAY`` pair iterations: 3 launches).
    Prints each segment's wall, the save and load seconds and the file's
    bytes.
+4f. Parallel tempering at glm100_fused's full width through K1, run
+   right after phase 4e: ``sample_tempered(kernel="nuts")`` with 512
+   chains x 8 rungs (geometric, ``beta_min`` 0.1: 4096 rows a K1 launch),
+   300 + 1000, depth 6, target 0.8, phase 4's data and fused vag, the
+   reference bench's value path as ``log_prob``. Every K1 launch at 4096
+   rows; K1 exactly 1 (init) + each transition's root and two per pair
+   iteration + 3 (the capture's warm-up), the swaps none; Philox one step
+   draw and one raw-word launch (the swap uniforms) a transition. The cold
+   rung: accept within 0.05 of 0.8, divergences <= 1%, finite draws of
+   shape (512, 1000, 100), the Laplace check, every posterior mean within
+   4 combined MCSEs of phase 4's NUTS. Swap acceptance finite in [0, 1];
+   the rungs' step sizes finite and positive, the hottest above the cold.
+   The final cold state's log_prob and grad against one fresh K1
+   evaluation at its positions (K1's tolerances). Chains 0-3 of a 4-chain
+   run (3 transitions at fixed tunables through graphs) equal the
+   512-chain run's bit for bit. The busy share over a 20 + 20 run. HMC and
+   MALA under tempering at the same width, 100 + 100: K1 exactly 1 + 200 x
+   10 and 1 + 200, 199 replays, no host sync; accept within 0.05 of 0.8
+   (HMC) or in ``ACCEPT_BAND`` (MALA), divergences, finite draws, the
+   Laplace check; each called again with the same settings runs on the
+   cached runner: no graph captured, the same K1 count, the same draws. Each run prints its wall, host syncs, replays, the
+   per-boundary swap acceptance and the rungs' step sizes.
 4a. The same on int8 X (``quantize="int8"``) through the int8 one-pass
    kernel, cut to 100 + 100: the same checks, the Laplace approximation
    on the dequantized X; and on f32 X (``x_dtype="float32"``, the
@@ -195,15 +217,35 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``print_summary()``, each run's wall, host syncs and Philox launches;
    mu's and sigma's means within 4 MCSE of the posterior means by
    quadrature (float64), R-hat < 1.05, every sigma draw positive.
+9b. The other samplers on the card: ``sample_tempered`` on
+   ``tests/test_tempered.py``'s bimodal model (declared ``graph_safe``) at
+   512 chains x 8 rungs (``beta_min`` 0.02, 800 + 1200, NUTS depth 6): the
+   cold chains' share in the right mode in (0.2, 0.8). ``sample_ensemble``
+   on ``tests/test_ensemble.py``'s Gaussian and correlated targets at its
+   settings and through ``MCMC.run(method="ensemble")``, with that test's
+   bounds; then at glm100_fused's data with 4096 walkers, 300 + 2000, on
+   the bench's plain bf16 value path: mean accept inside
+   ``ENSEMBLE_ACCEPT_BAND``, Philox one step draw (the starts) and 2,300
+   raw-word launches; wall and min-ESS printed. ``sample_smc`` on
+   ``tests/test_smc.py``'s three targets at 16,384 particles with its
+   bounds (stages, host reads and walls printed). The posterior predictive
+   of phase 4's draws cut to 64 chains x 100 draws (y ~ Bernoulli(sigmoid(X
+   beta)) over the 10K rows, one ``torch.Generator`` a chain on the card
+   under ``torch.func.vmap(randomness="different")``): shape (64, 100,
+   10000), mean rate within 0.01 of y's mean, chains 0-1 the same with 2
+   chains. ``pointwise_log_likelihood`` of the same draws, ``waic`` and
+   ``psis_loo``: finite, the two elpds within twice the larger standard
+   error; p_waic, p_loo and the share of k > 0.7 printed.
 10. The kernels JSON line (K1 one-pass, K1 wide, K1 int8 one-pass and wide,
    K2, K3, K4, Philox, and K1, K2 and K4 on f32 X, K1 also at glm1000; K4,
    int8 wide, K2 and K4 f32 and K1 f32 at glm1000, on no sampling path,
    with their phase-3 launches; K1 f32 with the f32 cut run's; the
    variants with their launches from phase 3b's entry points; K1 one-pass
    with phase 4c's HMC, phase 4d's ChEES, MALA and chunked MALA and phase
-   4e's checkpoint paths' launches, K3 with phase 7c's, and Philox with
-   its launches on each path of phases 4c, 4d, 4e, 7b, 7c and 9 beside the
-   main path's), then the
+   4e's checkpoint paths' and phase 4f's, K3 with phase 7c's, and Philox
+   with its launches on each path of phases 4c, 4d, 4e, 4f, 7b, 7c, 9 and
+   9b beside the main path's, and its raw-word kernel's on 4f's and 9b's
+   paths), then the
    contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -306,6 +348,20 @@ PAIR_LL_TOL_REL, PAIR_BOUNDARY_SHARE, PAIR_FLIP_SHARE = 1e-4, 1e-3, 5e-3
 # trajectory, near 3 and near 5.5), MALA 0.718-0.746. A step size adapted
 # too large shows below the band, one collapsed toward 0 above it.
 ACCEPT_BAND = {"chees": (0.651 - 0.05, 0.82), "mala": (0.574 - 0.05, 0.80)}
+
+# Phase 4f: parallel tempering at glm100_fused's data, 512 chains x 8 rungs
+# (4096 rows a K1 launch), warmup + draws.
+TEMPER_CHAINS, TEMPER_RUNGS, TEMPER_SETTINGS = 512, 8, (300, 1000)
+# Phase 9b: the ensemble sampler at glm100_fused's data (300 + 2000),
+# tempered SMC's populations and tempering's chains on the bimodal target.
+ENSEMBLE_WALKERS, SMC_PARTICLES, BIMODAL_CHAINS = 4096, 16384, 512
+# The ensemble's mean accept there (tools/glm100_ensemble_accept.py, both
+# packages on the CPU): 0.1535-0.1584 at 512 walkers over seeds 0-3 in
+# either package; at 4096 walkers (seed 0) 0.1442 in the reference and
+# 0.1441 in the port. The walker count moves it, so the band is taken at
+# the smoke's 4096: those readings +- 0.01, twice the 512-walker spread
+# over seeds. A stretch scale or log-ratio gone wrong moves it far outside.
+ENSEMBLE_ACCEPT_BAND = (0.134, 0.155)
 
 # ADVI at glm100 (phase 7c), 1000 steps, against the Laplace approximation
 # on the same X: max |mu - MAP| / sd at most the first number, q's marginal
@@ -1456,11 +1512,15 @@ def chees_mala_full_width(cfg, init, data, vag, nuts_mean, nuts_se) -> dict:
 
 def counted(fn) -> tuple:
     """``(fn(), wall s, K1, K3 and Philox launches, graphs captured)``, the
-    launch counts set to 0 just before and read just after."""
+    launch counts set to 0 just before and read just after. Philox's are
+    its step draws (``"philox"``) and its raw words (``"philox_words"``:
+    the tempered swap, ensemble walker and SMC resampling uniforms)."""
     from mlx_mcmc_tpu_torch.bench import launch_counts, reset_launch_counts
     from mlx_mcmc_tpu_torch.inference import graphs
+    from mlx_mcmc_tpu_torch.ops.random import words_cuda
 
     reset_launch_counts()
+    words_cuda.launches = 0
     captures = graphs.capture.count
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1469,7 +1529,8 @@ def counted(fn) -> tuple:
     wall = time.perf_counter() - t0
     n = launch_counts()
     return (out, wall, {"K1": n["glm_fused_logistic"], "K3": n["poisson_fused"],
-                        "philox": n["philox_step_draws"]}, graphs.capture.count - captures)
+                        "philox": n["philox_step_draws"], "philox_words": words_cuda.launches},
+            graphs.capture.count - captures)
 
 
 def capture_warm_up_launches() -> int:
@@ -1771,6 +1832,385 @@ def readme_phase() -> dict:
         if not bool((res.samples["sigma"] > 0).all()):
             fail(f"{label}: a sigma draw is not positive")
     return philox
+
+
+@contextlib.contextmanager
+def k1_rows(seen: list):
+    """While open, every call of K1's dispatcher records the rows of its
+    Z in ``seen``: each eager launch and each captured one (a replay
+    repeats a captured launch at its capture's shape)."""
+    from mlx_mcmc_tpu_torch.ops import glm
+
+    fn = glm.fused_logistic_value_and_grad
+
+    def wrapper(Xp, y, Z, XpT=None):
+        seen.append(int(Z.shape[0]))
+        return fn(Xp, y, Z, XpT)
+
+    glm.fused_logistic_value_and_grad = wrapper
+    try:
+        yield
+    finally:
+        glm.fused_logistic_value_and_grad = fn
+
+
+def tempered_run(label: str, kernel: str, cfg, init, data, vag, **settings) -> tuple:
+    """One ``sample_tempered`` run at glm100_fused's data through K1 with
+    the reference bench's value path as ``log_prob``, the launch counts
+    set to 0 just before and read just after. Returns ``(result, record)``:
+    wall, host syncs, graph replays, captures, K1 and Philox launches, the
+    rows of every K1 launch."""
+    from mlx_mcmc_tpu_torch import sample_tempered
+    from mlx_mcmc_tpu_torch.bench import fused_glm_value_log_prob
+    from mlx_mcmc_tpu_torch.inference import graphs
+
+    rows = []
+    kw = dict(num_chains=TEMPER_CHAINS, num_replicas=TEMPER_RUNGS, beta_min=0.1, kernel=kernel,
+              seed=1, target_accept=0.8 if kernel != "mala" else None, data=data,
+              value_and_grad_fn=vag)
+    kw.update(settings)
+    with k1_rows(rows):
+        res, wall, n, captured = counted(lambda: sample_tempered(fused_glm_value_log_prob,
+                                                                 init, **kw))
+    record = {"wall_seconds": wall, "host_syncs": res.host_syncs,
+              "graph_replays": res.graph_replays, "graphs_captured": captured, "K1": n["K1"],
+              "philox": n["philox"], "philox_words": n["philox_words"],
+              "k1_rows": sorted(set(rows)),
+              "swap_acceptance": [float(x) for x in res.swap_acceptance],
+              "rung_step_sizes": [float(x) for x in res.replica_step_sizes]}
+    log(f"{label}: wall {wall:.2f} s, host syncs {res.host_syncs}, graph replays "
+        f"{res.graph_replays}, graphs captured {captured}, K1 launches {n['K1']} (rows "
+        f"{record['k1_rows']}), Philox step-draw launches {n['philox']}, raw-word launches "
+        f"{n['philox_words']}; swap acceptance per boundary {record['swap_acceptance']}; rung step "
+        f"sizes {record['rung_step_sizes']}")
+    rows_want = TEMPER_CHAINS * TEMPER_RUNGS if kw["num_chains"] == TEMPER_CHAINS else None
+    if rows_want is not None and record["k1_rows"] != [rows_want]:
+        fail(f"{label}: K1 launched at rows {record['k1_rows']}, want every launch at "
+             f"{rows_want}")
+    return res, record
+
+
+def tempered_checks(label: str, res, record, transitions: int, target: tuple, data,
+                    rungs: bool = False) -> float:
+    """A glm100_fused tempered run's cold-rung statistics, its swap
+    acceptance, its Philox launches (one step draw and one raw-word launch
+    per transition) and the Laplace check; with ``rungs``, the rungs' step
+    sizes too. Returns the cold draws' mean accept."""
+    beta = res.samples["beta"]
+    want = (TEMPER_CHAINS, res.num_samples, 100)
+    if tuple(beta.shape) != want or not bool(torch.isfinite(beta).all()):
+        fail(f"{label}: cold draws {tuple(beta.shape)} or non-finite, want {want}")
+    accept = float(res.info.accept_prob.float().mean())
+    lo, hi = target
+    log(f"{label}: cold mean accept {accept:.4f} (band [{lo}, {hi}]), divergences "
+        f"{res.divergences}, mean tree depth {float(res.info.tree_depth.float().mean()):.3f}")
+    if not lo <= accept <= hi:
+        fail(f"{label}: cold mean accept {accept} outside [{lo}, {hi}]")
+    if res.divergences > 0.01 * beta.shape[0] * beta.shape[1]:
+        fail(f"{label}: {res.divergences} divergences")
+    swap = res.swap_acceptance
+    if not (np.isfinite(swap).all() and (swap >= 0).all() and (swap <= 1).all()):
+        fail(f"{label}: swap acceptance {swap} not finite in [0, 1]")
+    eps = res.replica_step_sizes
+    if rungs and not (np.isfinite(eps).all() and (eps > 0).all() and eps[-1] > eps[0]):
+        fail(f"{label}: rung step sizes {eps} not finite and positive with the hottest above "
+             f"the cold one")
+    if record["philox"] != transitions or record["philox_words"] != transitions:
+        fail(f"{label}: Philox launches {record['philox']} step draws and "
+             f"{record['philox_words']} raw words, want {transitions} each (one a transition)")
+    z_gap, sd_lo, sd_hi = laplace_check(data, beta)
+    log(f"{label} vs Laplace: max |mean - MAP| / sd = {z_gap:.4f}, "
+        f"sd ratio in [{sd_lo:.4f}, {sd_hi:.4f}]")
+    if z_gap > 0.25 or not (0.9 <= sd_lo and sd_hi <= 1.1):
+        fail(f"{label}: posterior moments disagree with the Laplace approximation")
+    return accept
+
+
+def tempered_full_width(cfg, init, data, vag, nuts_mean, nuts_se) -> dict:
+    """Phase 4f: parallel tempering at glm100_fused's full width through K1
+    (see the module docstring). Returns each path's launches and figures."""
+    from mlx_mcmc_tpu_torch import sample_tempered
+    from mlx_mcmc_tpu_torch.bench import _device_busy, fused_glm_value_log_prob
+
+    paths = {}
+    warmup, draws = TEMPER_SETTINGS
+    transitions = warmup + draws
+    res, rec = tempered_run("glm100_fused tempered NUTS", "nuts", cfg, init, data, vag,
+                            num_warmup=warmup, num_samples=draws, max_tree_depth=6)
+    # K1: init, each transition's root and two per pair iteration (one host
+    # read after the root and one after each pairs replay), and the
+    # capture's eager warm-up
+    pairs = rec["host_syncs"] - transitions
+    want = 1 + transitions + 2 * pairs + capture_warm_up_launches()
+    if rec["K1"] != want:
+        fail(f"glm100_fused tempered NUTS: {rec['K1']} K1 launches, want 1 (init) + "
+             f"{transitions} (roots) + 2 x {pairs} (pair iterations) + "
+             f"{capture_warm_up_launches()} (the capture's warm-up) = {want}")
+    accept = tempered_checks("glm100_fused tempered NUTS", res, rec, transitions,
+                             (0.75, 0.85), data, rungs=True)
+    mean, se, ess = param_mean_mcse(res.samples["beta"])
+    z = (mean - nuts_mean).abs() / torch.hypot(se, nuts_se)
+    log(f"glm100_fused tempered NUTS vs NUTS (the main path): max |mean gap| / combined MCSE "
+        f"= {float(z.max()):.3f} over {z.numel()} parameters; cold min-ESS "
+        f"{float(ess.min()):.1f}")
+    if float(z.max()) > 4:
+        fail("glm100_fused tempered NUTS: posterior means disagree with NUTS's beyond 4 "
+             "combined MCSEs")
+    # the final cold state against one fresh K1 evaluation at its positions
+    final = res.final_state
+    ll, g = vag(final.position, data)
+    ll_err = float((final.log_prob - ll).abs().max())
+    g_err = float((final.grad - g).abs().max())
+    g_max = float(g.abs().max())
+    log(f"glm100_fused tempered NUTS final cold state vs a fresh K1 evaluation: max |ll| error "
+        f"{ll_err:.3e} nats, max |g| error {g_err:.3e} (max |g| {g_max:.3e})")
+    if ll_err > LL_TOL_NATS + LL_TOL_REL * float(ll.abs().max()) \
+            or g_err > G_TOL_REL * g_max + G_TOL_ABS:
+        fail("glm100_fused tempered NUTS: the final state's log_prob or grad disagrees with "
+             "a fresh K1 evaluation")
+    paths["glm100_fused tempered nuts"] = dict(rec, mean_accept=accept,
+                                               min_ess=float(ess.min()))
+    del res
+    # layout: chains 0-3 of a 4-chain run equal the 512-chain run's
+    fixed = dict(num_warmup=0, num_samples=3, max_tree_depth=6, adapt_step_size=False,
+                 adapt_mass_matrix=False, step_size=0.02)
+    small = sample_tempered(fused_glm_value_log_prob, init, num_chains=4,
+                            num_replicas=TEMPER_RUNGS, kernel="nuts", seed=1, data=data,
+                            value_and_grad_fn=vag, **fixed)
+    full = sample_tempered(fused_glm_value_log_prob, init, num_chains=TEMPER_CHAINS,
+                           num_replicas=TEMPER_RUNGS, kernel="nuts", seed=1, data=data,
+                           value_and_grad_fn=vag, **fixed)
+    if small.graph_replays == 0 or full.graph_replays == 0:
+        fail("glm100_fused tempered layout: a run replayed no graph")
+    if not torch.equal(small.samples["beta"], full.samples["beta"][:4]):
+        fail("glm100_fused tempered layout: chains 0-3 of 4 and of 512 chains differ")
+    for field, a, b in zip(type(small.info)._fields, small.info, full.info):
+        if not torch.equal(a, b[:4]):
+            fail(f"glm100_fused tempered layout: info {field} differs between 4 and 512 chains")
+    log("glm100_fused tempered NUTS layout: chains 0-3 of 4 and of 512 chains (3 transitions "
+        "through graphs, fixed tunables) bit for bit")
+    del small, full
+    # the device's busy share over a 20 + 20 tempered run
+    busy = _device_busy(lambda: sample_tempered(
+        fused_glm_value_log_prob, init, num_chains=TEMPER_CHAINS, num_replicas=TEMPER_RUNGS,
+        kernel="nuts", seed=1, num_warmup=20, num_samples=20, max_tree_depth=6,
+        target_accept=0.8, data=data, value_and_grad_fn=vag))
+    log("glm100_fused tempered NUTS under the profiler (20 + 20): " + json.dumps(busy))
+    paths["glm100_fused tempered nuts"]["busy_20_20"] = busy
+    # HMC and MALA under tempering, cut
+    for kernel, band in (("hmc", (0.75, 0.85)), ("mala", ACCEPT_BAND["mala"])):
+        label = f"glm100_fused tempered {kernel.upper()} (100 + 100)"
+        res, rec = tempered_run(label, kernel, cfg, init, data, vag, num_warmup=100,
+                                num_samples=100)
+        steps = 10 if kernel == "hmc" else 1
+        want = 1 + 200 * steps
+        if rec["K1"] != want or rec["host_syncs"] != 0 or rec["graph_replays"] != 199:
+            fail(f"{label}: K1 {rec['K1']} (want 1 + 200 x {steps} = {want}), host syncs "
+                 f"{rec['host_syncs']} (want 0), replays {rec['graph_replays']} (want 199)")
+        accept = tempered_checks(label, res, rec, 200, band, data)
+        paths[f"glm100_fused tempered {kernel}"] = dict(rec, mean_accept=accept)
+        # the same call again runs on the cached runner: its graphs, its bits
+        again, rec2 = tempered_run(label + ", again", kernel, cfg, init, data, vag,
+                                   num_warmup=100, num_samples=100)
+        if rec2["graphs_captured"] != 0 or rec2["K1"] != want \
+                or not torch.equal(again.samples["beta"], res.samples["beta"]):
+            fail(f"{label}: a second call captured {rec2['graphs_captured']} graphs, launched "
+                 f"K1 {rec2['K1']} times (want 0 and {want}) or gave other draws")
+        del res, again
+    return paths
+
+
+def _bimodal(params):
+    # tests/test_tempered.py:14-22: an equal mixture of N(-4, 1) and N(4, 1)
+    x = params["x"]
+    from mlx_mcmc_tpu_torch import Normal
+
+    la = Normal(-4.0, 1.0).log_prob(x)
+    lb = Normal(4.0, 1.0).log_prob(x)
+    return torch.sum(torch.logsumexp(torch.stack([la, lb]), dim=0) - math.log(2.0))
+
+
+_bimodal.graph_safe = True  # no host read, no host data: graphs may capture it
+
+
+def _gauss_model(loc, scale):
+    from mlx_mcmc_tpu_torch import Normal
+
+    def log_prob(params):
+        return torch.sum(Normal(loc, scale).log_prob(params["x"]))
+
+    return log_prob
+
+
+def other_samplers(cfg, init, data, pred_beta) -> dict:
+    """Phase 9b: the other samplers of the inference layer on the card (see
+    the module docstring). ``pred_beta``: phase 4's draws cut to 64 chains
+    x 100 draws, float32. Returns each path's Philox launches and figures."""
+    from mlx_mcmc_tpu_torch import MCMC, sample_ensemble, sample_posterior_predictive
+    from mlx_mcmc_tpu_torch import sample_smc, sample_tempered
+    from mlx_mcmc_tpu_torch.bench import fused_glm_value_log_prob
+    from mlx_mcmc_tpu_torch.diagnostics import pointwise_log_likelihood, psis_loo, waic
+    from mlx_mcmc_tpu_torch.diagnostics.device import device_ess
+
+    paths = {}
+    # tempering on the bimodal target: the cold chain holds both modes
+    res, wall, n, _ = counted(lambda: sample_tempered(
+        _bimodal, {"x": -4.0 * torch.ones(1)}, num_samples=1200, num_warmup=800,
+        num_chains=BIMODAL_CHAINS, num_replicas=8, beta_min=0.02, kernel="nuts", seed=2,
+        max_tree_depth=6))
+    xs = res.samples["x"].reshape(-1)
+    right = float((xs > 0).float().mean())
+    log(f"tempered NUTS, bimodal ({BIMODAL_CHAINS} chains x 8 rungs, 800 + 1200): wall "
+        f"{wall:.2f} s, host syncs {res.host_syncs}, graph replays {res.graph_replays}, launches {n}; right-mode "
+        f"share {right:.4f}, swap acceptance {[round(float(a), 4) for a in res.swap_acceptance]}")
+    if not 0.2 < right < 0.8 or res.graph_replays == 0:
+        fail(f"tempered bimodal: right-mode share {right} outside (0.2, 0.8), or no graph replay")
+    paths["bimodal tempered nuts"] = dict(n, wall_seconds=wall, host_syncs=res.host_syncs,
+                                          right_share=right)
+    del res, xs
+    # ensemble: tests/test_ensemble.py's Gaussian and correlated targets
+    res, wall, n, _ = counted(lambda: sample_ensemble(
+        _gauss_model(2.0, 1.5), {"x": torch.zeros(3)}, num_walkers=64, num_samples=800,
+        num_warmup=500, seed=0))
+    d = res.samples["x"].reshape(-1, 3)
+    m, s = d.mean(0), d.std(0)
+    log(f"ensemble, Gaussian (64 walkers, 500 + 800): wall {wall:.2f} s, launches {n}; means "
+        f"{m.tolist()}, sds {s.tolist()}")
+    if float((m - 2.0).abs().max()) > 0.15 or float(((s - 1.5).abs() / 1.5).max()) > 0.12:
+        fail("ensemble Gaussian: moments off")
+    paths["ensemble gaussian"] = dict(n, wall_seconds=wall)
+    cov = np.array([[1.0, 0.97], [0.97, 1.0]])
+    prec = torch.tensor(np.linalg.inv(cov), dtype=torch.float32, device=data["Xp"].device)
+
+    def corr_lp(params):
+        x = params["x"]
+        return -0.5 * x @ prec @ x
+
+    res, wall, n, _ = counted(lambda: sample_ensemble(
+        corr_lp, {"x": torch.zeros(2)}, num_walkers=64, num_samples=1500, num_warmup=800, seed=1))
+    d = res.samples["x"].reshape(-1, 2).cpu().numpy()
+    corr = float(np.corrcoef(d.T)[0, 1])
+    log(f"ensemble, correlated (64 walkers, 800 + 1500): wall {wall:.2f} s; accept "
+        f"{res.acceptance_rate:.4f}, sds {d.std(0).tolist()}, correlation {corr:.4f}")
+    if not (0.2 < res.acceptance_rate < 0.8 and np.all(np.abs(d.std(0) - 1.0) < 0.15)
+            and corr > 0.9):
+        fail("ensemble correlated: acceptance, sds or correlation off")
+    paths["ensemble correlated"] = dict(n, wall_seconds=wall)
+    mcmc = MCMC(_gauss_model(1.0, 2.0))
+    draws, wall, n, _ = counted(lambda: mcmc.run({"x": 0.0}, num_samples=400, num_warmup=300,
+                                              method="ensemble", num_chains=32, verbose=False))
+    log(f"ensemble through the facade (32 walkers, 300 + 400): wall {wall:.2f} s; mean "
+        f"{draws['x'].mean():.4f}, sd {draws['x'].std():.4f}")
+    if draws["x"].shape != (32 * 400,) or abs(draws["x"].mean() - 1.0) > 0.25 \
+            or abs(draws["x"].std() - 2.0) > 0.35:
+        fail("ensemble facade: shape or moments off")
+    paths["ensemble facade"] = dict(n, wall_seconds=wall)
+    # ensemble at glm100_fused's data, the bench's value path
+    res, wall, n, _ = counted(lambda: sample_ensemble(
+        fused_glm_value_log_prob, init, num_walkers=ENSEMBLE_WALKERS, num_warmup=300,
+        num_samples=2000, seed=1, data=data))
+    beta = res.samples["beta"]
+    accept = float(res.info.accept_prob.mean())
+    ess = float(device_ess(beta).min())
+    lo, hi = ENSEMBLE_ACCEPT_BAND
+    log(f"ensemble at glm100_fused ({ENSEMBLE_WALKERS} walkers, 300 + 2000, plain bf16 value "
+        f"path): wall {wall:.2f} s, launches {n}; mean accept {accept:.4f} (band [{lo}, {hi}]), "
+        f"accepted share {res.acceptance_rate:.4f}, min-ESS {ess:.1f} "
+        f"({ess / wall:.1f}/s)")
+    if not lo <= accept <= hi or not bool(torch.isfinite(beta).all()):
+        fail(f"ensemble glm100_fused: mean accept {accept} outside [{lo}, {hi}] or non-finite "
+             "draws")
+    if n["philox_words"] != 2300 or n["philox"] != 1:
+        fail(f"ensemble glm100_fused: launches {n}, want 1 Philox step draw (the starts) and "
+             "2300 raw-word launches (one a step)")
+    paths["ensemble glm100_fused"] = dict(n, wall_seconds=wall, mean_accept=accept, min_ess=ess)
+    del res, beta
+    # SMC: tests/test_smc.py's three targets
+    res, wall, n, _ = counted(lambda: sample_smc(_gauss_model(2.0, 1.5), {"x": torch.zeros(2)},
+                                            num_particles=SMC_PARTICLES, seed=0, q0_scale=3.0))
+    pts = res.particles["x"]
+    m, s = pts.mean(0), pts.std(0)
+    log(f"SMC, Gaussian ({SMC_PARTICLES} particles): wall {wall:.2f} s, stages "
+        f"{res.num_stages}, host reads {res.host_syncs}, launches {n}; means {m.tolist()}, sds "
+        f"{s.tolist()}, log Z {res.log_evidence:.4f}, accept {res.final_accept_rate:.4f}")
+    if float((m - 2.0).abs().max()) > 0.15 or float(((s - 1.5).abs() / 1.5).max()) > 0.15 \
+            or abs(res.log_evidence) > 0.25 or not 1 <= res.num_stages < 100 \
+            or res.final_accept_rate <= 0.05:
+        fail("SMC Gaussian: moments, evidence, stages or acceptance off")
+    paths["smc gaussian"] = dict(n, wall_seconds=wall, stages=res.num_stages,
+                                 host_syncs=res.host_syncs)
+
+    def unnorm(params):
+        return -0.5 * torch.sum(params["x"] ** 2) / 4.0
+
+    res, wall, n, _ = counted(lambda: sample_smc(unnorm, {"x": 0.0}, num_particles=SMC_PARTICLES,
+                                            seed=1, q0_scale=4.0))
+    true_log_z = 0.5 * (math.log(2 * math.pi) + 2 * math.log(2.0))
+    log(f"SMC, unnormalized ({SMC_PARTICLES} particles): wall {wall:.2f} s, stages "
+        f"{res.num_stages}, host reads {res.host_syncs}; log Z {res.log_evidence:.4f} (true "
+        f"{true_log_z:.4f})")
+    if abs(res.log_evidence - true_log_z) > 0.2:
+        fail("SMC unnormalized: evidence off")
+    paths["smc unnormalized"] = dict(n, wall_seconds=wall, stages=res.num_stages,
+                                     host_syncs=res.host_syncs)
+    from mlx_mcmc_tpu_torch import Normal
+
+    def mixture(params):
+        x = params["x"]
+        la = math.log(0.3) + Normal(-4.0, 0.5).log_prob(x)
+        lb = math.log(0.7) + Normal(4.0, 0.5).log_prob(x)
+        return torch.logaddexp(la, lb)
+
+    res, wall, n, _ = counted(lambda: sample_smc(mixture, {"x": 0.0}, num_particles=SMC_PARTICLES,
+                                            seed=0, q0_scale=6.0))
+    right = float((res.particles["x"] > 0).float().mean())
+    log(f"SMC, bimodal ({SMC_PARTICLES} particles): wall {wall:.2f} s, stages "
+        f"{res.num_stages}, host reads {res.host_syncs}; right-mode mass {right:.4f}, log Z "
+        f"{res.log_evidence:.4f}")
+    if abs(right - 0.7) > 0.1 or abs(res.log_evidence) > 0.3:
+        fail("SMC bimodal: mode mass or evidence off")
+    paths["smc bimodal"] = dict(n, wall_seconds=wall, stages=res.num_stages,
+                                host_syncs=res.host_syncs)
+    # the posterior predictive of phase 4's draws over the 10K rows
+    d = data["dim"]
+    X = data["Xp"][:, :d].float()
+    y_mean = float(data["yp"].float().mean())
+
+    def predictive(g, p):
+        return torch.bernoulli(torch.sigmoid(X @ p["beta"]), generator=g)
+
+    samples = {"beta": pred_beta}
+    pp, wall, _, _ = counted(lambda: sample_posterior_predictive(predictive, samples, seed=3))
+    two = sample_posterior_predictive(predictive, {"beta": pred_beta[:2]}, seed=3)
+    rate = float(pp.mean())
+    log(f"posterior predictive ({tuple(pp.shape)}, one torch.Generator a chain on "
+        f"{pp.device}): wall {wall:.2f} s; mean predicted rate {rate:.5f}, y's mean "
+        f"{y_mean:.5f}")
+    if tuple(pp.shape) != (64, 100, 10000) or abs(rate - y_mean) > 0.01:
+        fail("posterior predictive: shape or mean rate off")
+    if not torch.equal(two, pp[:2]):
+        fail("posterior predictive: chains 0-1 differ between 2 and 64 chains")
+    paths["predictive"] = {"wall_seconds": wall}
+    # model comparison on the same draws
+
+    def log_lik(p):
+        s = X @ p["beta"]
+        return data["yp"] * s - torch.logaddexp(s, torch.zeros_like(s))
+
+    t0 = time.perf_counter()
+    ll = pointwise_log_likelihood(log_lik, samples)
+    w, lo_ = waic(ll), psis_loo(ll)
+    wall = time.perf_counter() - t0
+    k_share = float((lo_["pareto_k"] > 0.7).mean())
+    log(f"model comparison ({ll.shape}): wall {wall:.2f} s; elpd_waic {w['elpd_waic']:.3f} "
+        f"(se {w['se']:.3f}, p_waic {w['p_waic']:.3f}), elpd_loo {lo_['elpd_loo']:.3f} (se "
+        f"{lo_['se']:.3f}, p_loo {lo_['p_loo']:.3f}), share of k > 0.7 {k_share:.5f}")
+    if not (np.isfinite([w["elpd_waic"], lo_["elpd_loo"], w["se"], lo_["se"]]).all()
+            and abs(w["elpd_waic"] - lo_["elpd_loo"]) < 2 * max(w["se"], lo_["se"])):
+        fail("model comparison: WAIC or PSIS-LOO not finite, or they disagree")
+    paths["model comparison"] = {"wall_seconds": wall, "p_waic": w["p_waic"],
+                                 "p_loo": lo_["p_loo"], "k_share_above_0.7": k_share}
+    return paths
 
 
 def main() -> None:
@@ -2111,7 +2551,13 @@ def main() -> None:
     ckpt_paths = checkpoint_phase(cfg, init, data, problem[3]["value_and_grad_fn"], result,
                                   launches["K1"], launches["philox"])
     log("glm100_fused checkpoint paths: " + json.dumps(ckpt_paths))
+    pred_beta = beta[:64, :100].float().clone()  # phase 9b's posterior predictive
     del result, beta, problem
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # --- glm100_fused: parallel tempering through K1 -----------------------
+    temper_paths = tempered_full_width(cfg, init, data, k1_vag, nuts_mean, nuts_se)
+    log("glm100_fused tempered paths: " + json.dumps(temper_paths))
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- glm100_fused through HMC and the MCMC facade ----------------------
@@ -2248,6 +2694,11 @@ def main() -> None:
     readme_philox = readme_phase()
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
+    # --- the other samplers: tempering, ensemble, SMC, predictive, WAIC/LOO -
+    sampler_paths = other_samplers(cfg, init, data, pred_beta)
+    log("other samplers: " + json.dumps(sampler_paths))
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
     glm_src = "mlx_mcmc_tpu_torch/csrc/glm_fused.cu"
     k1, k2, k4 = ("mlx_mcmc_tpu/ops/pallas/glm.py:49", "mlx_mcmc_tpu/ops/pallas/glm.py:281",
                   "mlx_mcmc_tpu/ops/pallas/glm.py:113")
@@ -2273,7 +2724,8 @@ def main() -> None:
         "K4": ("glm_fused_hoisted", glm_src, k4, onepass),
         "K4_f32": ("glm_fused_hoisted:f32", glm_src, k4, f32_kernels),
         "philox": ("philox_step_draws", "mlx_mcmc_tpu_torch/csrc/philox.cu",
-                   "mlx_mcmc_tpu/inference/engine.py:390", ["philox_step_kernel"]),
+                   "mlx_mcmc_tpu/inference/engine.py:390",
+                   ["philox_step_kernel", "philox_words_kernel"]),
     }
     launches["K4"] = k4_launches
     launches["K1_int8_wide"] = int8_wide_launches
@@ -2296,7 +2748,8 @@ def main() -> None:
             extra["launches_by_path"] = {"glm100_fused": launches[key],
                                          "glm100_fused hmc (facade)": hmc_path["K1"],
                                          **{k: cm_paths[v]["K1"] for k, v in cm_names.items()},
-                                         **{k: v["K1"] for k, v in ckpt_paths.items()}}
+                                         **{k: v["K1"] for k, v in ckpt_paths.items()},
+                                         **{k: v["K1"] for k, v in temper_paths.items()}}
         if key == "K3":
             extra["launches_by_path"] = {"poisson1000_cov": launches[key],
                                          "poisson1000_cov advi": advi_paths["poisson1000_cov advi"]
@@ -2307,7 +2760,15 @@ def main() -> None:
                 **{"glm100_fused hmc (facade)": hmc_path["philox"]},
                 **{k: cm_paths[v]["philox"] for k, v in cm_names.items()}, **readme_philox,
                 **{k: v["philox"] for k, v in ckpt_paths.items()},
-                **{k: v["philox"] for k, v in advi_paths.items()})
+                **{k: v["philox"] for k, v in advi_paths.items()},
+                **{k: v["philox"] for k, v in temper_paths.items()},
+                **{k: v["philox"] for k, v in sampler_paths.items() if "philox" in v})
+            # the raw-word kernel: the tempered swap, ensemble walker and SMC
+            # resampling uniforms
+            extra["words_launches_by_path"] = dict(
+                **{k: v["philox_words"] for k, v in temper_paths.items()},
+                **{k: v["philox_words"] for k, v in sampler_paths.items()
+                   if "philox_words" in v})
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[key], "max_abs_err": row["max_abs_err"],

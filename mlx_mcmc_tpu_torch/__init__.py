@@ -6,7 +6,10 @@ a GPU they raise rather than fall back. The fused logistic value+grad is a
 hand-written Hopper kernel (``csrc/glm_fused.cu``) with a plain PyTorch twin
 that serves CPU tensors and the tests.
 
-Checkpoint and resume: ``mlx_mcmc_tpu_torch.io``. The package imports
+Beside ``sample()`` and the ``MCMC`` facade: parallel tempering
+(``sample_tempered``), the ensemble sampler, tempered SMC, ADVI and the
+posterior predictive; WAIC and PSIS-LOO in ``diagnostics``. Checkpoint and
+resume: ``mlx_mcmc_tpu_torch.io``. The package imports
 ``torch`` only: nothing of JAX and nothing of ``mlx_mcmc_tpu``.
 """
 
@@ -37,9 +40,20 @@ from mlx_mcmc_tpu_torch.distributions import (
     Uniform,
     make_transformed_logprob,
 )
-from mlx_mcmc_tpu_torch.inference.api import MCMCResult, clear_runner_cache, sample
-from mlx_mcmc_tpu_torch.inference.mcmc import MCMC
-from mlx_mcmc_tpu_torch.inference.vi import ADVIResult, fit_advi
+from mlx_mcmc_tpu_torch.inference import (
+    MCMC,
+    ADVIResult,
+    MCMCResult,
+    SMCResult,
+    TemperedResult,
+    clear_runner_cache,
+    fit_advi,
+    sample,
+    sample_ensemble,
+    sample_posterior_predictive,
+    sample_smc,
+    sample_tempered,
+)
 from mlx_mcmc_tpu_torch.kernels.legacy import hmc, metropolis_hastings, nuts
 
 __all__ = [
@@ -47,6 +61,12 @@ __all__ = [
     "MCMCResult",
     "sample",
     "clear_runner_cache",
+    "sample_posterior_predictive",
+    "TemperedResult",
+    "sample_tempered",
+    "sample_ensemble",
+    "SMCResult",
+    "sample_smc",
     "ADVIResult",
     "fit_advi",
     "metropolis_hastings",

@@ -251,6 +251,20 @@ def plain_glm_log_prob(params, data):
 plain_glm_log_prob.graph_safe = True
 
 
+def fused_glm_value_log_prob(params, data):
+    """glm100_fused's value path, the reference bench's ``log_prob`` beside
+    its fused value+grad (``bench.py:225-236``): ``s = X beta`` with beta
+    rounded to X's dtype (bf16) and float32 products, the logistic
+    likelihood (softplus as ``logaddexp(s, 0)``), the padded rows' constant
+    and a unit normal prior, on :func:`build_problem`'s data. Plain
+    PyTorch, no kernel (the ensemble sampler's batched value)."""
+    beta = params["beta"]
+    d = data["dim"]
+    s = data["Xp"][:, :d].float() @ beta.to(data["Xp"].dtype).float()
+    ll = (data["yp"] * s - torch.logaddexp(s, torch.zeros_like(s))).sum()
+    return ll + data["pad_const"] + Normal(0.0, 1.0).log_prob(beta).sum()
+
+
 def hier_full_log_prob(params, data):
     """hier1000_full's data-aware log density over every observation
     ``data["y"] (G, n)`` (reference ``bench.py:273-282``)."""

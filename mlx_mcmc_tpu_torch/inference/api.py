@@ -11,7 +11,8 @@ Counterpart of ``mlx_mcmc_tpu/inference/api.py:220-585``: the kernels
 (``inference/vi.py``) and ``MCMCResult.resume_payload`` (what
 ``io/checkpoint.py`` saves and continues). Draws stay on the device until
 numpy is asked for, except with ``draw_chunk``, which fetches every chunk
-to the host.
+to the host. ``sample_posterior_predictive`` is the reference's
+``api.py:588-639``, with ``torch.Generator``-taking predictive functions.
 
 The compiled-runner cache (reference ``api.py:63-140, 331-367``) keeps, per
 static configuration (:func:`runner_key`), the runner that
@@ -48,6 +49,7 @@ from mlx_mcmc_tpu_torch.inference.engine import (
 from mlx_mcmc_tpu_torch.inference.init_strategies import map_initialize
 from mlx_mcmc_tpu_torch.inference.vi import advi_initialize, batched_vag
 from mlx_mcmc_tpu_torch.kernels.base import TransitionInfo, Tunables
+from mlx_mcmc_tpu_torch.ops.random import STREAM_UNIFORM, words
 from mlx_mcmc_tpu_torch.ops.ravel import _leaves, make_flat_logprob, ravel_batched, ravel_params
 
 # Compiled-runner cache: runs with the same static configuration reuse the
@@ -164,15 +166,17 @@ def runner_key(log_prob_fn, example, data, num_chains: int, device, transforms, 
 
 
 def cached_runner(log_prob_fn, example, *, data, transforms, num_chains: int, device,
-                  settings: dict, maps=None) -> dict:
+                  settings: dict, maps=None, build=build_sampler) -> dict:
     """The runner-cache entry for a run: the cached one under
     :func:`runner_key` (with its graphs), or a new one (:func:`model_entry`
-    and ``build_sampler(**settings)``), cached where the key exists."""
+    and ``build(flat_log_prob, dim, **settings)``: ``build_sampler`` for
+    ``sample()``, another sampler's build function for its runs, whose
+    ``settings`` name that sampler), cached where the key exists."""
     key = runner_key(log_prob_fn, example, data, num_chains, device, transforms, settings)
     entry = None if key is None else _lru_get(_RUNNER_CACHE, key)
     if entry is None:
         entry = model_entry(log_prob_fn, transforms, example, data, device, maps)
-        entry["run"] = build_sampler(entry["flat_log_prob"], entry["dim"], **settings)
+        entry["run"] = build(entry["flat_log_prob"], entry["dim"], **settings)
         # what the key names by id, so no id is recycled while cached
         entry["pin"] = (log_prob_fn, data, transforms, tuple(settings.values()))
         if key is not None:
@@ -546,3 +550,75 @@ def _fetch(post, result):
     """A chunk's constrained draws (float32) and info as numpy arrays."""
     samples = {k: _host(v) for k, v in post(result.positions).items()}
     return samples, type(result.info)(*(x.cpu().numpy() for x in result.info))
+
+
+# Reserved step index of the posterior predictive's per-chain generator
+# seeds: no sampling step, the probe's (engine._PROBE_STEP), the jittered
+# starts' (engine.JITTER_STEP) or MAP's (init_strategies.MAP_JITTER_STEP).
+PREDICTIVE_STEP = 0x7FFFFFFC
+
+
+def _stack(outs: list):
+    """Stack a list of equally structured outputs (tensors in dicts,
+    lists and tuples) along a new leading axis."""
+    first = outs[0]
+    if isinstance(first, dict):
+        return {k: _stack([o[k] for o in outs]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack(list(parts)) for parts in zip(*outs))
+    return torch.stack(outs)
+
+
+def _chain_generator(seed: int, chain: int, device) -> torch.Generator:
+    """Chain ``chain``'s posterior-predictive generator on ``device``,
+    seeded with the 64-bit Philox word pair at ``(seed, chain,
+    PREDICTIVE_STEP)`` (the plain version, read on the host): a chain's
+    stream does not depend on how many chains there are."""
+    w = words(seed, torch.tensor([chain]), PREDICTIVE_STEP, 1, STREAM_UNIFORM)[0, 0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(w[0]) | (int(w[1]) << 32))
+    return gen
+
+
+def sample_posterior_predictive(
+    predictive_fn: Callable[..., Any],
+    samples: Dict[str, torch.Tensor],
+    seed: int = 0,
+    data=None,
+    device=None,
+) -> Any:
+    """Draw from the posterior predictive: run a user predictive function at
+    every posterior draw.
+
+    ``predictive_fn(generator, params)`` (``(generator, params, data)``
+    with ``data``) returns simulated data (a tensor, or dicts, lists and
+    tuples of them), drawing its randomness from the ``torch.Generator`` it
+    is given, e.g. ``lambda g, p: Normal(p['mu'], 1.0).sample(g, (n,))``.
+    ``samples``: dict of ``(chains, draws, *event)`` posterior draws
+    (``MCMCResult.samples``), moved to ``device`` (None means CUDA and
+    raises without a GPU).
+
+    Chain ``c`` gets a generator of its own (:func:`_chain_generator`), and
+    its draws go through ``predictive_fn`` under ``torch.func.vmap(...,
+    randomness="different")``, one call per chain: each draw gets its own
+    numbers, and a chain's numbers do not depend on how many chains there
+    are (they do depend on its draw count; the reference folds a key per
+    (chain, draw)). Returns ``(chains, draws, *sim_shape)`` on the device.
+    """
+    dev = resolve_device(device)
+    if not isinstance(seed, (int, np.integer)):
+        raise TypeError(f"seed must be an int, got {type(seed).__name__}")
+    samples = {k: torch.as_tensor(v, device=dev) for k, v in samples.items()}
+    num_chains = next(iter(samples.values())).shape[0]
+    outs = []
+    for c in range(num_chains):
+        gen = _chain_generator(int(seed), c, dev)
+        if data is None:
+            def fn(p, gen=gen):
+                return predictive_fn(gen, p)
+        else:
+            def fn(p, gen=gen):
+                return predictive_fn(gen, p, data)
+        outs.append(torch.func.vmap(fn, randomness="different")(
+            {k: v[c] for k, v in samples.items()}))
+    return _stack(outs)

@@ -125,9 +125,9 @@ class ChainResult(NamedTuple):
 
 def step_inputs(seed: int, chains: torch.Tensor, t: int, inv_mass_diag: torch.Tensor, n_slots: int):
     """Global step ``t``'s random inputs for the chains ``chains`` (global
-    indices): momenta ``r0 (C, D)`` for ``inv_mass_diag`` and the NUTS
-    uniform table ``U (C, n_slots, 4)``."""
-    normals, U = step_draws(seed, chains, t, inv_mass_diag.shape[0], n_slots)
+    indices): momenta ``r0 (C, D)`` for ``inv_mass_diag`` (``(D,)``, or
+    ``(C, D)`` per row) and the NUTS uniform table ``U (C, n_slots, 4)``."""
+    normals, U = step_draws(seed, chains, t, inv_mass_diag.shape[-1], n_slots)
     return sample_momentum(normals, inv_mass_diag), U
 
 
@@ -234,6 +234,60 @@ def make_batched_value(flat_log_prob: Callable, data=None):
 
     value.graph_safe = bool(getattr(flat_log_prob, "graph_safe", False))
     return value
+
+
+def batched_density(kernel: str, flat_log_prob: Optional[Callable],
+                    value_and_grad_fn: Optional[Callable], data=None):
+    """``(batched, vag)``: what ``kernel``'s transitions evaluate and the
+    batched value+grad. ``vag`` is ``value_and_grad_fn`` with ``data``
+    bound where one is given, else autograd of ``flat_log_prob``
+    (:func:`make_batched_value_and_grad`; None for Metropolis); ``batched``
+    is ``vag``, or for Metropolis the value alone (the model's, else
+    ``vag``'s first output). Each carries its ``graph_safe``."""
+    if value_and_grad_fn is not None:
+        def vag(Z):
+            return value_and_grad_fn(Z) if data is None else value_and_grad_fn(Z, data)
+
+        vag.graph_safe = graphs.captures(value_and_grad_fn)
+    else:
+        vag = None if kernel == "metropolis" else make_batched_value_and_grad(flat_log_prob, data)
+    if kernel != "metropolis":
+        return vag, vag
+    if flat_log_prob is not None:
+        return make_batched_value(flat_log_prob, data), vag
+
+    def batched(Z):
+        return vag(Z)[0]
+
+    batched.graph_safe = vag.graph_safe
+    return batched, vag
+
+
+def graphed_transition(last_graphs: dict, kernel: str, batched: Callable, step_fn: Callable,
+                       device, num_chains: int, data, max_tree_depth: int,
+                       static_schedule: bool):
+    """A run's transition as CUDA graphs, or None where it runs eagerly
+    (on the CPU, or where ``batched`` does not declare ``graph_safe``):
+    :class:`graphs.GraphedTransition` (NUTS), :class:`graphs.GraphedTrajectory`
+    (ChEES) or :class:`graphs.GraphedStep` around ``step_fn``. A runner
+    keeps the graphs of its last call in ``last_graphs``, by what they bake
+    in (device, chain count, ``data`` by identity), and replays them in the
+    next call with the same."""
+    if device.type != "cuda" or not graphs.captures(batched):
+        return None
+    key = (device, num_chains, data_key(data), graphs.PAIRS_PER_REPLAY)
+    transition = last_graphs.get(key)
+    if transition is None:
+        last_graphs.clear()
+        if kernel == "nuts":
+            transition = graphs.GraphedTransition(batched, max_tree_depth, static_schedule)
+        elif kernel == "chees":
+            transition = graphs.GraphedTrajectory(make_chees_parts(batched))
+        else:
+            transition = graphs.GraphedStep(step_fn)
+        if key[2] is not None:
+            last_graphs[key] = transition
+    return transition
 
 
 def _check_kernel(kernel: str) -> None:
@@ -409,40 +463,14 @@ def build_sampler(
         if resume_state is None and warmup_start > 0:
             raise ValueError("warmup_start > 0 requires resume_state=(adapt, traj) from the "
                              "prior segment's ChainResult")
-        if value_and_grad_fn is not None:
-            def vag(Z):
-                return value_and_grad_fn(Z) if data is None else value_and_grad_fn(Z, data)
-
-            vag.graph_safe = graphs.captures(value_and_grad_fn)
-        elif kernel != "metropolis":
-            vag = make_batched_value_and_grad(flat_log_prob, data)
-        if kernel != "metropolis":
-            batched = vag
-        elif flat_log_prob is not None:
-            batched = make_batched_value(flat_log_prob, data)
-        else:
-            def batched(Z):
-                return vag(Z)[0]
-
-            batched.graph_safe = vag.graph_safe
+        batched, vag = batched_density(kernel, flat_log_prob, value_and_grad_fn, data)
         init_fn, step_fn = make_kernel(kernel, batched, num_leapfrog_steps=num_leapfrog_steps,
                                        max_tree_depth=max_tree_depth,
                                        static_schedule=static_schedule,
                                        max_leapfrog_steps=max_leapfrog_steps)
-        transition = None
-        if device.type == "cuda" and graphs.captures(batched):
-            key = (device, num_chains, data_key(data), graphs.PAIRS_PER_REPLAY)
-            transition = last_graphs.get(key)
-            if transition is None:
-                last_graphs.clear()
-                if kernel == "nuts":
-                    transition = graphs.GraphedTransition(vag, max_tree_depth, static_schedule)
-                elif is_chees:
-                    transition = graphs.GraphedTrajectory(make_chees_parts(vag))
-                else:
-                    transition = graphs.GraphedStep(step_fn)
-                if key[2] is not None:
-                    last_graphs[key] = transition
+        transition = graphed_transition(last_graphs, kernel, batched, step_fn, device,
+                                        num_chains, data, max_tree_depth, static_schedule)
+        if transition is not None:
             step_fn = transition.step
             replays0 = transition.replays
         states = init_fn(z0_batch)

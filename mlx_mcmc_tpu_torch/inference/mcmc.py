@@ -8,12 +8,14 @@ warmup run followed by a restart of every chain from its last warmup draw
 at ``random_seed + 1``, the same ``summary`` keys
 (mean/std/median/'2.5%'/'97.5%'/n_eff/r_hat), ``print_summary``,
 ``diagnostics()`` and ``stats``. ``**kwargs`` pass through to
-:func:`~mlx_mcmc_tpu_torch.inference.api.sample` for every method,
-``device`` included (the reference's Metropolis ignores them).
+:func:`~mlx_mcmc_tpu_torch.inference.api.sample` for every method but
+'ensemble', which goes through
+:func:`~mlx_mcmc_tpu_torch.inference.ensemble.sample_ensemble`, ``device``
+included (the reference's Metropolis ignores them).
 
-The reference's method 'ensemble' and ``chain_method='sharded'`` are not
-ported yet: they raise ``NotImplementedError`` naming their ROADMAP item,
-and nothing falls back to another method.
+``chain_method='sharded'`` is not ported yet: it raises
+``NotImplementedError`` naming its ROADMAP item (after the reference's
+``ValueError`` for 'ensemble'), and nothing falls back to another method.
 """
 
 from __future__ import annotations
@@ -23,9 +25,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from mlx_mcmc_tpu_torch.inference.api import MCMCResult, sample
+from mlx_mcmc_tpu_torch.inference.ensemble import sample_ensemble
 
-_METHODS = ("metropolis", "hmc", "nuts", "chees", "mala")
-_NOT_PORTED = {"ensemble": "A.9"}
+_METHODS = ("metropolis", "hmc", "nuts", "chees", "mala", "ensemble")
 
 
 class MCMC:
@@ -60,25 +62,29 @@ class MCMC:
         """Run MCMC sampling; returns {name: np.ndarray of draws}, each
         ``(num_chains * num_samples, *event_shape)``.
 
-        ``method``: 'metropolis' | 'hmc' | 'nuts' | 'chees' | 'mala'. Extra
-        kwargs go to ``sample()``: ``step_size``, ``num_leapfrog_steps``,
-        ``adapt_step_size``, ``target_accept`` (hmc); ``step_size``,
-        ``max_tree_depth``, ``adapt_step_size``, ``target_accept`` (nuts);
-        ``max_leapfrog_steps`` (chees);
+        ``method``: 'metropolis' | 'hmc' | 'nuts' | 'chees' | 'mala' |
+        'ensemble'. Extra kwargs go to ``sample()``: ``step_size``,
+        ``num_leapfrog_steps``, ``adapt_step_size``, ``target_accept``
+        (hmc); ``step_size``, ``max_tree_depth``, ``adapt_step_size``,
+        ``target_accept`` (nuts); ``max_leapfrog_steps`` (chees);
         and ``transforms``, ``data``, ``value_and_grad_fn``,
-        ``store_dtype``, ``device`` and the rest for any method.
+        ``store_dtype``, ``device`` and the rest for any method. 'ensemble'
+        runs ``sample_ensemble`` with ``num_chains`` walkers (64 when it is
+        1) and a jitter of 0.1 when ``jitter`` is 0; its kwargs are ``a``,
+        ``thin``, ``transforms``, ``data`` and ``device``.
         Metropolis runs ``num_warmup`` draws at the fixed ``proposal_scale``
         (no adaptation), then restarts every chain from its last warmup
         draw with seed ``random_seed + 1``.
         """
-        if method not in _METHODS + tuple(_NOT_PORTED):
+        if method not in _METHODS:
             raise ValueError(f"Unknown sampling method: {method}")
         if chain_method not in ("vmap", "sharded"):
             raise ValueError(f"Unknown chain_method: {chain_method}")
-        if method in _NOT_PORTED:
-            raise NotImplementedError(
-                f"method={method!r} is not ported yet (ROADMAP {_NOT_PORTED[method]})")
         if chain_method == "sharded":
+            if method == "ensemble":
+                raise ValueError(
+                    "chain_method='sharded' supports metropolis/hmc/nuts/chees/mala (the "
+                    "ensemble sampler couples walkers and has its own entry point)")
             raise NotImplementedError("chain_method='sharded' is not ported yet (ROADMAP A.10)")
 
         if verbose:
@@ -88,7 +94,15 @@ class MCMC:
                   f"{num_warmup} warmup + {num_samples} draws)")
             print("=" * 70)
 
-        if method == "metropolis":
+        if method == "ensemble":
+            # num_chains names the walker count (the sampler's minimum
+            # useful ensemble when left at 1), as in the reference
+            result = sample_ensemble(
+                self.log_prob_fn, initial_params,
+                num_walkers=num_chains if num_chains > 1 else 64, num_samples=num_samples,
+                num_warmup=num_warmup, seed=random_seed, jitter=jitter if jitter > 0 else 0.1,
+                **kwargs)
+        elif method == "metropolis":
             fixed = dict(num_warmup=0, num_chains=num_chains, kernel="metropolis",
                          step_size=proposal_scale, adapt_step_size=False,
                          adapt_mass_matrix=False, **kwargs)

@@ -14,14 +14,28 @@ import torch
 
 
 class Tunables(NamedTuple):
-    """Adaptation-controlled sampler knobs: the leapfrog ``step_size`` (0-d
-    tensor), the inverse mass diagonal ``inv_mass_diag`` (``(D,)``) and
-    ``trajectory_length``, ChEES's integration length (a 0-d tensor; the
-    other kernels ignore it, and it defaults to the reference's 1.0)."""
+    """Adaptation-controlled sampler knobs: the leapfrog ``step_size``, the
+    inverse mass diagonal ``inv_mass_diag`` and ``trajectory_length``,
+    ChEES's integration length (a 0-d tensor; the other kernels ignore it,
+    and it defaults to the reference's 1.0).
+
+    Shared or per row: ``step_size`` is a 0-d tensor (every chain) or
+    ``(C,)`` (one per row), and ``inv_mass_diag`` is ``(D,)`` or ``(C, D)``.
+    Parallel tempering (``inference/tempered.py``) folds its rungs into the
+    rows and gives each rung's rows its own. Each kernel forms the step
+    size's ``(C, 1)`` column itself (:func:`step_column`); a 0-d step size
+    and a ``(D,)`` mass run exactly the operations they ran before per-row
+    tunables existed (ChEES takes shared tunables only)."""
 
     step_size: torch.Tensor
     inv_mass_diag: torch.Tensor
     trajectory_length: torch.Tensor = 1.0
+
+
+def step_column(step_size: torch.Tensor) -> torch.Tensor:
+    """The step size as a kernel multiplies ``(C, D)`` rows by it: a 0-d
+    step size as it is, a per-row ``(C,)`` one as a ``(C, 1)`` column."""
+    return step_size if step_size.dim() == 0 else step_size[:, None]
 
 
 class TransitionInfo(NamedTuple):

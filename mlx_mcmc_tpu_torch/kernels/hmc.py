@@ -17,7 +17,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from mlx_mcmc_tpu_torch.kernels.base import TransitionInfo, Tunables
+from mlx_mcmc_tpu_torch.kernels.base import TransitionInfo, Tunables, step_column
 from mlx_mcmc_tpu_torch.kernels.integrators import IntegratorState, leapfrog, total_energy
 
 
@@ -46,11 +46,12 @@ def make_hmc_kernel(
 
     def step_fn(state: HMCState, tunables: Tunables, r0: torch.Tensor, U: torch.Tensor):
         inv_mass = tunables.inv_mass_diag
+        eps = step_column(tunables.step_size)
         start = IntegratorState(state.position, r0, state.log_prob, state.grad)
         energy0 = total_energy(start, inv_mass)
         end = start
         for _ in range(num_leapfrog_steps):
-            end = leapfrog(end, tunables.step_size, inv_mass, value_and_grad)
+            end = leapfrog(end, eps, inv_mass, value_and_grad)
         energy1 = total_energy(end, inv_mass)
 
         delta = energy0 - energy1  # log accept ratio

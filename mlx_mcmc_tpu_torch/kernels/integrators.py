@@ -46,7 +46,9 @@ def leapfrog(
     value_and_grad: Callable,
 ) -> IntegratorState:
     """One leapfrog step. ``eps`` is a 0-d tensor or a per-chain ``(C, 1)``
-    column (NUTS integrates chains in different directions)."""
+    column (NUTS integrates chains in different directions; per-row
+    tunables, ``kernels/base.step_column``); ``inv_mass_diag`` is ``(D,)``
+    or per row ``(C, D)``."""
     r_half = state.r + 0.5 * eps * state.grad
     z_new = state.z + eps * (inv_mass_diag * r_half)
     log_prob_new, grad_new = value_and_grad(z_new)

@@ -24,7 +24,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from mlx_mcmc_tpu_torch.kernels.base import TransitionInfo, Tunables
+from mlx_mcmc_tpu_torch.kernels.base import TransitionInfo, Tunables, step_column
 from mlx_mcmc_tpu_torch.ops.math import row_sum
 
 
@@ -54,7 +54,7 @@ def make_mala_kernel(
         return MALAState(position=position, log_prob=log_prob, grad=grad)
 
     def step_fn(state: MALAState, tunables: Tunables, noise: torch.Tensor, U: torch.Tensor):
-        eps = tunables.step_size
+        eps = step_column(tunables.step_size)
         inv_mass = tunables.inv_mass_diag
         drift = 0.5 * eps * eps * inv_mass
 

@@ -15,7 +15,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from mlx_mcmc_tpu_torch.kernels.base import TransitionInfo, Tunables
+from mlx_mcmc_tpu_torch.kernels.base import TransitionInfo, Tunables, step_column
 
 
 class MetropolisState(NamedTuple):
@@ -34,7 +34,7 @@ def make_metropolis_kernel(value: Callable[[torch.Tensor], torch.Tensor]):
         return MetropolisState(position=position, log_prob=value(position))
 
     def step_fn(state: MetropolisState, tunables: Tunables, noise: torch.Tensor, U: torch.Tensor):
-        scale = tunables.step_size * torch.sqrt(tunables.inv_mass_diag)
+        scale = step_column(tunables.step_size) * torch.sqrt(tunables.inv_mass_diag)
         proposal = state.position + scale * noise
         log_prob_prop = value(proposal)
 

@@ -101,7 +101,7 @@ def _leaf_turning_check(check_mask, r_sum, r_leaf, r_ckpts, r_sum_ckpts, inv_mas
     against the checkpointed left edges, evaluated for all slots at once
     under ``check_mask`` (C, T) from :func:`_slot_tables`."""
     sub_sum = r_sum[:, None, :] - r_sum_ckpts + r_ckpts  # (C, T, D)
-    v_first = inv_mass * r_ckpts
+    v_first = (inv_mass if inv_mass.dim() == 1 else inv_mass[:, None, :]) * r_ckpts
     v_leaf = inv_mass * r_leaf
     turning_t = (row_sum(sub_sum * v_first) <= 0.0) | (
         row_sum(sub_sum * v_leaf[:, None, :]) <= 0.0
@@ -157,8 +157,8 @@ class NutsInputs(NamedTuple):
     grad: torch.Tensor  # (C, D)
     r0: torch.Tensor  # (C, D) momenta
     U: torch.Tensor  # (C, 2**(max_tree_depth-1), 4) uniforms
-    step_size: torch.Tensor  # 0-d
-    inv_mass_diag: torch.Tensor  # (D,)
+    step_size: torch.Tensor  # 0-d, or (C,) per row (kernels/base.py)
+    inv_mass_diag: torch.Tensor  # (D,), or (C, D) per row
 
 
 class NutsFrame(NamedTuple):

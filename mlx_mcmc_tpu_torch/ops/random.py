@@ -30,6 +30,10 @@ the same words.
 ``step_draws`` is what the engine calls once per step: on a CUDA tensor
 it launches the kernel ``csrc/philox.cu`` (one launch fills the step's
 normals and uniform table); on a CPU tensor it takes the plain functions.
+``stream_uniforms`` gives the uniforms of any one stream the same way (the
+kernel's raw words on the card): the samplers' swap, walker and
+resampling uniforms. :func:`normal` and :func:`uniform` are the plain
+version on any device; no sampling path calls them.
 """
 
 from __future__ import annotations
@@ -44,6 +48,11 @@ from mlx_mcmc_tpu_torch import _build, _capture
 
 STREAM_NORMAL = 0
 STREAM_UNIFORM = 1
+# Streams of the samplers beside the engine: parallel tempering's swap
+# uniforms (``inference/tempered.py``) and tempered SMC's resampling
+# uniform (``inference/smc.py``).
+STREAM_SWAP = 2
+STREAM_RESAMPLE = 3
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # round multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # Weyl key increments
@@ -178,8 +187,8 @@ def _check_chains(chains: torch.Tensor, per_chain: int) -> None:
 
 
 def words_cuda(seed: int, chains: torch.Tensor, step: int, blocks: int, stream: int) -> torch.Tensor:
-    """The kernel's raw words, as :func:`words` gives them (a check of the
-    generator itself; the engine does not call it). Adds one to
+    """The kernel's raw words, as :func:`words` gives them: the generator's
+    own check, and :func:`stream_uniforms` on the card. Adds one to
     ``words_cuda.launches``."""
     _check_chains(chains, 4 * blocks)
     if blocks < 1:
@@ -232,3 +241,14 @@ def step_draws(seed: int, chains: torch.Tensor, step: int, dim: int, n_slots: in
     if chains.device.type == "cpu":
         return step_draws_reference(seed, chains, step, dim, n_slots)
     return step_draws_cuda(seed, chains, step, dim, n_slots)
+
+
+def stream_uniforms(seed: int, chains: torch.Tensor, step: int, n: int, stream: int):
+    """``(len(chains), n)`` float32 uniforms of ``stream`` at ``step``, value
+    ``i`` of a chain from word ``i`` of its counter blocks: one launch of
+    the kernel's raw words on a CUDA tensor (:func:`words_cuda`), the plain
+    version on a CPU tensor. The words are the same either way."""
+    blocks = -(-n // 4)
+    if chains.device.type == "cpu":
+        return _uniform_of(words(seed, chains, step, blocks, stream), n)
+    return _uniform_of(words_cuda(seed, chains, step, blocks, stream), n)

@@ -1,5 +1,7 @@
 """The port's ``MCMC`` facade against ``tests/test_facade.py`` (minus the
-sharded and MAP-init cases, not ported), and against the JAX facade.
+sharded and MAP-init cases, not ported; the sharded ensemble's refusal
+is), and against the JAX facade. Method 'ensemble' runs in
+``tests/test_torch_ensemble.py``.
 
 The README quick start's model (``Normal(0, 10)`` and ``HalfNormal(5)``
 priors, a normal likelihood over 100 observations from a numpy seed) runs
@@ -106,10 +108,15 @@ def test_errors():
         MCMC(log_prob).summary()
     with pytest.raises(ValueError, match="chain_method"):
         MCMC(log_prob).run({"mu": 0.0}, chain_method="pmap", verbose=False)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        MCMC(log_prob).run(INIT, method="ensemble", **CPU)
     with pytest.raises(NotImplementedError, match="A.10"):
         MCMC(log_prob).run(INIT, method="nuts", chain_method="sharded", **CPU)
+
+
+def test_sharded_ensemble_rejected():
+    # tests/test_facade.py:179: the reference's ValueError, before A.10's
+    # NotImplementedError for the other methods
+    with pytest.raises(ValueError, match="ensemble"):
+        MCMC(log_prob).run(INIT, method="ensemble", chain_method="sharded", **CPU)
 
 
 def test_progress_callback_fires_at_reporting_steps():

@@ -27,7 +27,10 @@ for name in ("mlx_mcmc_tpu_torch.ops.glm_variants", "mlx_mcmc_tpu_torch.models.j
              "mlx_mcmc_tpu_torch.kernels.chees", "mlx_mcmc_tpu_torch.kernels.mala",
              "mlx_mcmc_tpu_torch.inference.init_strategies",
              "mlx_mcmc_tpu_torch.distributions.extras", "mlx_mcmc_tpu_torch.utils.config",
-             "mlx_mcmc_tpu_torch.io.checkpoint", "mlx_mcmc_tpu_torch.inference.vi"):
+             "mlx_mcmc_tpu_torch.io.checkpoint", "mlx_mcmc_tpu_torch.inference.vi",
+             "mlx_mcmc_tpu_torch.inference.tempered", "mlx_mcmc_tpu_torch.inference.ensemble",
+             "mlx_mcmc_tpu_torch.inference.smc", "mlx_mcmc_tpu_torch.inference.api",
+             "mlx_mcmc_tpu_torch.diagnostics.model_comparison"):
     assert name in names, name
 from mlx_mcmc_tpu_torch import (MCMC, sample, metropolis_hastings, hmc, nuts, Normal, HalfNormal,
                                 Beta, Gamma, Exponential, Categorical, make_transformed_logprob,
@@ -35,6 +38,16 @@ from mlx_mcmc_tpu_torch import (MCMC, sample, metropolis_hastings, hmc, nuts, No
                                 LogNormal, StudentT, Poisson, Dirichlet, MultivariateNormal)
 from mlx_mcmc_tpu_torch.utils import SamplerConfig, AdaptationConfig, MeshConfig
 from mlx_mcmc_tpu_torch import ADVIResult, fit_advi
+from mlx_mcmc_tpu_torch import (sample_tempered, TemperedResult, sample_ensemble, sample_smc,
+                                SMCResult, sample_posterior_predictive)
+from mlx_mcmc_tpu_torch.inference import (MCMC, MCMCResult, sample, sample_posterior_predictive,
+                                          clear_runner_cache, build_sampler, make_kernel,
+                                          TemperedResult, geometric_ladder, sample_tempered,
+                                          ADVIResult, fit_advi, sample_ensemble, SMCResult,
+                                          sample_smc)
+from mlx_mcmc_tpu_torch.diagnostics import (effective_sample_size, potential_scale_reduction,
+                                            summary_stats, device_ess, device_rhat, compare,
+                                            pointwise_log_likelihood, psis_loo, waic)
 from mlx_mcmc_tpu_torch.io import (save_checkpoint, load_checkpoint, resume, run_warmup,
                                    resume_warmup)
 import chip_smoke
