@@ -115,6 +115,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    Laplace check; each called again with the same settings runs on the
    cached runner: no graph captured, the same K1 count, the same draws. Each run prints its wall, host syncs, replays, the
    per-boundary swap acceptance and the rungs' step sizes.
+4g. The measurement layer at glm100_fused's full width through K1, right
+   after phase 4f: (a) phase 4's ``roofline`` block (the bench line's
+   ``detail.roofline``, ``bench.roofline_detail``): all twelve fields,
+   ``0 < mfu_pct <= 100``, ``roofline_frac_pct <= 105``, ``lockstep_tax >=
+   1``, and ``total_leapfrogs x lockstep_tax`` within 10% of the
+   chain-leapfrogs phase 4's K1 launches imply (K1 - 1 - its probe
+   evaluations, times the chains; warmup is an estimate); (b)
+   ``build_sampler(..., collect_warmup=True)`` at 50 + 50 (4096 chains):
+   draws, every info field and the tunables bit-identical to the same run
+   without collecting, K1 and Philox launches and host syncs equal, the
+   positions float32 of shape (50, 4096, 100), the infos stacked (steps,
+   chains), and K1 exactly 1 + the probe's + the capture's warm-up + the
+   executed leapfrogs of both phases (``bench.lockstep_leaves`` of the
+   collected warmup counts and the draws'); (c) the native R-hat and ESS
+   (``csrc/fastdiag.c``, gcc) against the numpy path on 512 chains x 2,000
+   draws x 16 parameters of phase 4's draws in float64: ESS within rtol
+   1e-6, R-hat 1e-8, both times printed; (d) ``utils.trace_to`` around a
+   5 + 5 run through K1: one Chrome trace that names
+   ``glm_onepass_kernel``.
 4a. The same on int8 X (``quantize="int8"``) through the int8 one-pass
    kernel, cut to 100 + 100: the same checks, the Laplace approximation
    on the dequantized X; and on f32 X (``x_dtype="float32"``, the
@@ -242,9 +261,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    with their phase-3 launches; K1 f32 with the f32 cut run's; the
    variants with their launches from phase 3b's entry points; K1 one-pass
    with phase 4c's HMC, phase 4d's ChEES, MALA and chunked MALA and phase
-   4e's checkpoint paths' and phase 4f's, K3 with phase 7c's, and Philox
-   with its launches on each path of phases 4c, 4d, 4e, 4f, 7b, 7c, 9 and
-   9b beside the main path's, and its raw-word kernel's on 4f's and 9b's
+   4e's checkpoint paths' and phase 4f's and 4g's, K3 with phase 7c's, and
+   Philox with its launches on each path of phases 4c, 4d, 4e, 4f, 4g, 7b,
+   7c, 9 and 9b beside the main path's, and its raw-word kernel's on 4f's and 9b's
    paths), then the
    contract line
    ``{"ok": true, "device": {...}}`` last.
@@ -1834,6 +1853,133 @@ def readme_phase() -> dict:
     return philox
 
 
+ROOFLINE_FIELDS = ("total_leapfrogs", "flop_count", "achieved_tflops", "mfu_pct",
+                   "arithmetic_intensity", "roofline_bound_tflops", "roofline_frac_pct",
+                   "peak_tflops", "hbm_gbs", "lockstep_tax", "executed_mfu_pct",
+                   "wasted_leapfrog_pct")
+# Phase 4g: collect_warmup's run, warmup + draws, and trace_to's.
+COLLECT_SETTINGS, TRACE_SETTINGS = (50, 50), (5, 5)
+
+
+def measurement_phase(cfg, init, data, vag, metrics, main_k1: int, main_probe: int,
+                      stats_draws: np.ndarray) -> dict:
+    """Phase 4g: the measurement layer at glm100_fused's full width through
+    K1 (see the module docstring). ``metrics`` are phase 4's, ``main_k1``
+    and ``main_probe`` its K1 launches and probe evaluations,
+    ``stats_draws`` a float64 slice of its draws. Returns each path's
+    launches."""
+    import glob
+    import os
+    import tempfile
+
+    from mlx_mcmc_tpu_torch.bench import lockstep_leaves
+    from mlx_mcmc_tpu_torch.diagnostics.stats import (effective_sample_size,
+                                                      potential_scale_reduction)
+    from mlx_mcmc_tpu_torch.inference.engine import build_sampler
+    from mlx_mcmc_tpu_torch.ops.ravel import ravel_params
+    from mlx_mcmc_tpu_torch.utils import gradient_evals, trace_to
+
+    chains, dim = cfg["num_chains"], cfg["num_features"]
+    # (a) phase 4's roofline block
+    roof = metrics["roofline"]
+    log("glm100_fused roofline: " + json.dumps(roof))
+    missing = [f for f in ROOFLINE_FIELDS if f not in roof]
+    if missing:
+        fail(f"roofline block lacks {missing}")
+    if not (0 < roof["mfu_pct"] <= 100 and roof["roofline_frac_pct"] <= 105
+            and roof["lockstep_tax"] >= 1):
+        fail("roofline block out of range: mfu_pct in (0, 100], roofline_frac_pct <= 105, "
+             "lockstep_tax >= 1")
+    # every chain runs each K1 launch but the initial evaluation, the probe's
+    # and the capture's eager warm-up (which also runs every chain)
+    executed = (main_k1 - 1 - main_probe) * chains
+    estimate = roof["total_leapfrogs"] * roof["lockstep_tax"]
+    log(f"glm100_fused roofline cross-check: total_leapfrogs x lockstep_tax = {estimate:.0f}, "
+        f"K1's chain-leapfrogs (K1 - 1 - {main_probe} probe) x {chains} = {executed}, "
+        f"ratio {estimate / executed:.4f}")
+    if abs(estimate / executed - 1.0) > 0.10:
+        fail("roofline block: leapfrogs disagree with phase 4's K1 launches by more than 10%")
+
+    # (b) collect_warmup against the same run without collecting
+    warmup, draws = COLLECT_SETTINGS
+    z0 = ravel_params(init, device=data["Xp"].device)[0].expand(chains, dim).contiguous()
+    runs = {}
+    for collect in (False, True):
+        sampler = build_sampler(None, dim, kernel="nuts", num_warmup=warmup, num_samples=draws,
+                                target_accept=cfg["target_accept"],
+                                max_tree_depth=cfg["max_tree_depth"],
+                                store_dtype=getattr(torch, cfg["store_dtype"]),
+                                value_and_grad_fn=vag, collect_warmup=collect)
+        runs[collect] = counted(lambda: sampler(1, z0, data))
+    (plain, _, plain_n, plain_cap), ((res, (w_pos, w_info)), wall, n, cap) = runs[False], runs[True]
+    if not torch.equal(plain.positions, res.positions):
+        fail("collect_warmup: the draws differ from the run without collecting")
+    for field, x, y in zip(type(plain.info)._fields, plain.info, res.info):
+        if not torch.equal(x, y):
+            fail(f"collect_warmup: info {field} differs from the run without collecting")
+    for field, x, y in zip(plain.final_tunables._fields, plain.final_tunables, res.final_tunables):
+        if not torch.equal(torch.as_tensor(x), torch.as_tensor(y)):
+            fail(f"collect_warmup: tunables {field} differ")
+    if (n["K1"], n["philox"], res.host_syncs) != (plain_n["K1"], plain_n["philox"],
+                                                  plain.host_syncs):
+        fail(f"collect_warmup: K1 {n['K1']}, Philox {n['philox']}, host syncs "
+             f"{res.host_syncs}; without collecting {plain_n['K1']}, {plain_n['philox']}, "
+             f"{plain.host_syncs}")
+    if tuple(w_pos.shape) != (warmup, chains, dim) or w_pos.dtype != torch.float32:
+        fail(f"collect_warmup: positions {w_pos.dtype} {tuple(w_pos.shape)}, want float32 "
+             f"{(warmup, chains, dim)}")
+    if any(tuple(x.shape[:2]) != (warmup, chains) for x in w_info):
+        fail("collect_warmup: infos not stacked as (warmup steps, chains)")
+    w_steps = w_info.num_integration_steps.T  # (C, W)
+    exec_w = int(lockstep_leaves(w_steps).sum())
+    exec_s = int(lockstep_leaves(res.info.num_integration_steps).sum())
+    implied = n["K1"] - 1 - res.probe_evals - (capture_warm_up_launches() if cap else 0)
+    log(f"collect_warmup {warmup} + {draws} at {chains} chains: wall {wall:.2f} s (without "
+        f"{runs[False][1]:.2f}), "
+        f"K1 {n['K1']}, Philox {n['philox']}, host syncs {res.host_syncs}, captures {cap}; "
+        f"warmup leapfrogs {gradient_evals(w_info)} useful, {exec_w} executed a chain; "
+        f"sampling {exec_s}; K1 implies {implied}")
+    if exec_w + exec_s != implied:
+        fail(f"collect_warmup: executed leapfrogs {exec_w} + {exec_s} != the {implied} K1 "
+             "launches imply")
+    del plain, res, w_pos, w_info, runs
+
+    # (c) the native R-hat and ESS against the numpy path
+    times = {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        times[native] = (effective_sample_size(stats_draws, use_native=native),
+                         potential_scale_reduction(stats_draws, use_native=native))
+        times[native] += (time.perf_counter() - t0,)
+    (ess_n, rhat_n, t_n), (ess_p, rhat_p, t_p) = times[True], times[False]
+    ess_err = float(np.max(np.abs(ess_n / ess_p - 1.0)))
+    rhat_err = float(np.max(np.abs(rhat_n / rhat_p - 1.0)))
+    log(f"native R-hat/ESS on {stats_draws.shape} float64: {t_n:.3f} s, numpy {t_p:.3f} s; "
+        f"ESS rel err {ess_err:.2e}, R-hat {rhat_err:.2e}; min ESS {ess_n.min():.1f}")
+    if not (ess_err <= 1e-6 and rhat_err <= 1e-8):
+        fail("native R-hat/ESS disagree with numpy's (ESS rtol 1e-6, R-hat 1e-8)")
+
+    # (d) trace_to around a short run through K1
+    collect_label = f"glm100_fused collect_warmup ({warmup} + {draws})"
+    warmup, draws = TRACE_SETTINGS
+    sampler = build_sampler(None, dim, kernel="nuts", num_warmup=warmup, num_samples=draws,
+                            target_accept=cfg["target_accept"],
+                            max_tree_depth=cfg["max_tree_depth"], value_and_grad_fn=vag)
+    with tempfile.TemporaryDirectory() as log_dir:
+        with trace_to(log_dir):
+            _, t_wall, t_n, _ = counted(lambda: sampler(1, z0, data))
+        files = glob.glob(os.path.join(log_dir, "*.json"))
+        if len(files) != 1:
+            fail(f"trace_to wrote {files}, want one trace")
+        with open(files[0]) as f:
+            text = f.read()
+    log(f"trace_to around {warmup} + {draws}: {len(text)} bytes, K1 {t_n['K1']}, "
+        f"wall {t_wall:.2f} s")
+    if "glm_onepass_kernel" not in text:
+        fail("trace_to's trace names no glm_onepass_kernel")
+    return {collect_label: n, f"glm100_fused trace_to ({warmup} + {draws})": t_n}
+
+
 @contextlib.contextmanager
 def k1_rows(seen: list):
     """While open, every call of K1's dispatcher records the rows of its
@@ -2545,6 +2691,8 @@ def main() -> None:
         fail("posterior moments disagree with the Laplace approximation")
     nuts_mean, nuts_se, _ = param_mean_mcse(beta)
     init = problem[1]
+    stats_draws = beta[:512, :, :16].double().cpu().numpy()  # phase 4g's native R-hat/ESS
+    main_probe = result.probe_evals
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- glm100_fused: checkpoint and resume, against phase 4's run -------
@@ -2558,6 +2706,12 @@ def main() -> None:
     # --- glm100_fused: parallel tempering through K1 -----------------------
     temper_paths = tempered_full_width(cfg, init, data, k1_vag, nuts_mean, nuts_se)
     log("glm100_fused tempered paths: " + json.dumps(temper_paths))
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # --- glm100_fused: the roofline block, collect_warmup, stats, trace_to -
+    measure_paths = measurement_phase(cfg, init, data, k1_vag, metrics, launches["K1"],
+                                      main_probe, stats_draws)
+    del stats_draws
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- glm100_fused through HMC and the MCMC facade ----------------------
@@ -2749,7 +2903,8 @@ def main() -> None:
                                          "glm100_fused hmc (facade)": hmc_path["K1"],
                                          **{k: cm_paths[v]["K1"] for k, v in cm_names.items()},
                                          **{k: v["K1"] for k, v in ckpt_paths.items()},
-                                         **{k: v["K1"] for k, v in temper_paths.items()}}
+                                         **{k: v["K1"] for k, v in temper_paths.items()},
+                                         **{k: v["K1"] for k, v in measure_paths.items()}}
         if key == "K3":
             extra["launches_by_path"] = {"poisson1000_cov": launches[key],
                                          "poisson1000_cov advi": advi_paths["poisson1000_cov advi"]
@@ -2762,6 +2917,7 @@ def main() -> None:
                 **{k: v["philox"] for k, v in ckpt_paths.items()},
                 **{k: v["philox"] for k, v in advi_paths.items()},
                 **{k: v["philox"] for k, v in temper_paths.items()},
+                **{k: v["philox"] for k, v in measure_paths.items()},
                 **{k: v["philox"] for k, v in sampler_paths.items() if "philox" in v})
             # the raw-word kernel: the tempered swap, ensemble walker and SMC
             # resampling uniforms

@@ -1,10 +1,12 @@
-"""Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them.
+"""Build the native sources under ``csrc/`` and load them.
 
 Each ``csrc/<name>.cu`` becomes ``build/mlx_mcmc_tpu_torch/lib<name>.so``
-(beside the package, in a directory that ``.gitignore`` lists), compiled for
-``sm_90a`` at first use and again whenever its source is newer. The
-libraries have a plain C interface and are loaded with ``ctypes``; nothing
-includes PyTorch's headers, so a build takes seconds, not minutes.
+(beside the package, in a directory that ``.gitignore`` lists), compiled
+with ``nvcc`` for ``sm_90a``; each ``csrc/<name>.c`` (host code: the native
+R-hat and ESS, ``fastdiag.c``) with the host's ``gcc -O3 -fopenmp``. Both
+at first use and again whenever the source is newer. The libraries have a
+plain C interface and are loaded with ``ctypes``; nothing includes
+PyTorch's or Python's headers, so a build takes seconds, not minutes.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
+GCC_FLAGS = ["-O3", "-fopenmp", "-shared", "-fPIC"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -40,8 +43,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name: str, out_dir: Path = BUILD_DIR) -> Path:
-    return Path(out_dir) / f"lib{name}.so"
+def _gcc() -> str:
+    gcc = shutil.which("gcc")
+    if gcc is None:
+        raise RuntimeError("gcc not found: put gcc on PATH")
+    return gcc
+
+
+def library_path(name: str, out_dir=None) -> Path:
+    return Path(out_dir or BUILD_DIR) / f"lib{name}.so"
+
+
+def _source(name: str, src_dir: Path) -> Path:
+    """``<src_dir>/<name>.cu``, else ``<src_dir>/<name>.c``."""
+    cu = Path(src_dir) / f"{name}.cu"
+    return cu if cu.exists() else cu.with_suffix(".c")
+
+
+def _command(src: Path, tmp: Path, verbose: bool) -> list:
+    if src.suffix == ".c":
+        return [_gcc(), *GCC_FLAGS, "-o", str(tmp), str(src), "-lm"]
+    return [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []), "-o", str(tmp), str(src)]
 
 
 def _sources(src: Path) -> list:
@@ -59,23 +81,26 @@ def _sources(src: Path) -> list:
 
 
 def build(names: Iterable[str], verbose: bool = False, src_dir: Path = CSRC_DIR,
-          out_dir: Path = BUILD_DIR) -> Dict[str, str]:
-    """Compile every stale ``<src_dir>/<name>.cu`` in ``names`` (older than
-    it or than a file it includes) into ``<out_dir>/lib<name>.so`` with one
-    ``nvcc`` each, all started together. Returns ``{name: compiler output}``
-    for the sources it built (with ``verbose``, ptxas's register and
-    shared-memory report and its remarks). Raises with the compiler's output
-    if any build fails."""
-    Path(out_dir).mkdir(parents=True, exist_ok=True)
+          out_dir=None) -> Dict[str, str]:
+    """Compile every stale ``<src_dir>/<name>.cu`` or ``.c`` in ``names``
+    (older than it or than a file it includes) into
+    ``<out_dir>/lib<name>.so`` (default ``BUILD_DIR``) with one compiler
+    each, all started together. Returns ``{name: compiler output}`` for the
+    sources it built (with ``verbose``, ptxas's register and shared-memory
+    report and its remarks). Raises with the compiler's output if any build
+    fails. Each writes a temporary file of its own process and renames it
+    into place, so processes that build at once never load a half-written
+    library."""
+    out_dir = Path(out_dir or BUILD_DIR)
+    out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        src, out = Path(src_dir) / f"{name}.cu", library_path(name, out_dir)
+        src, out = _source(name, src_dir), library_path(name, out_dir)
         newest = max(p.stat().st_mtime for p in _sources(src))
         if out.exists() and out.stat().st_mtime >= newest:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
-               "-o", str(tmp), str(src)]
+        cmd = _command(src, tmp, verbose)
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,
@@ -91,12 +116,13 @@ def build(names: Iterable[str], verbose: bool = False, src_dir: Path = CSRC_DIR,
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("build failed for " + "\n".join(failed))
     return logs
 
 
 def load(name: str, path=None) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed.
+    """The loaded library for ``csrc/<name>.cu`` or ``.c``, built first if
+    needed.
     With ``path``, the library there (a build of a variant of that source)
     takes its place from now on."""
     if path is not None:

@@ -32,7 +32,9 @@ which the runner cache keeps from the warm run). ESS is computed on the
 device. The detail adds the adapted step size, every kernel's launch count,
 the host-sync count and the graph replays of the timed run, the pair
 iterations per replay and the seconds ``build_problem`` took to make the
-data. Every config samples the
+data; a GLM config's adds the reference's ``roofline`` block
+(:func:`roofline_detail`: useful leapfrogs, achieved TFLOP/s and MFU
+against the card's peak for X's dtype, the lockstep tax). Every config samples the
 reference's own dataset: ``models/glm.py``, ``models/hierarchical.py`` and
 ``models/poisson.py`` draw them from the reference's threefry streams
 (``models/jax_random.py``), key for key, the Poisson counts through
@@ -68,6 +70,7 @@ import numpy as np
 import torch
 
 from mlx_mcmc_tpu_torch import sample
+from mlx_mcmc_tpu_torch.benchmarks import elapsed_ms
 from mlx_mcmc_tpu_torch.diagnostics.device import device_ess_chunked
 from mlx_mcmc_tpu_torch.distributions import Normal
 from mlx_mcmc_tpu_torch.inference import graphs
@@ -100,6 +103,7 @@ from mlx_mcmc_tpu_torch.ops.suffstats import (
     prepare_hier_normal_data,
     prepare_poisson_rates_data,
 )
+from mlx_mcmc_tpu_torch.utils.roofline import glm_vag_bytes, glm_vag_flops, roofline_report
 
 # Every kernel wrapper, by the name of its kernel entry (the hoisted GLM
 # kernel is on no sampling path: its count stays 0 in a run).
@@ -331,10 +335,68 @@ def build_problem(cfg, device=None):
     raise ValueError(f"unknown family: {cfg['family']!r}")
 
 
+def lockstep_leaves(steps: torch.Tensor) -> torch.Tensor:
+    """Leapfrogs a batched NUTS transition executes for every chain, per
+    draw, from ``steps`` ``(C, S)`` (``num_integration_steps``): the root
+    leaf, then two leapfrogs per pair iteration until the last chain's tree
+    ends, ``1 + 2 * max over chains of ceil((leaves - 1) / 2)``, ``(S,)``.
+    Exact for the port's pair loop at one pair iteration per check
+    (``graphs.PAIRS_PER_REPLAY = 1``), as for the reference's."""
+    iters = torch.ceil(torch.clamp(steps.double() - 1.0, min=0.0) / 2.0)
+    return 1.0 + 2.0 * iters.amax(dim=0)
+
+
+def roofline_detail(result, cfg, data, wall: float, device) -> dict:
+    """The bench line's ``detail.roofline`` for a GLM config: the
+    reference's ``_mfu_detail`` (``bench.py:330-385``), with its fields,
+    accounting and rounding, on this run's counts and the port's own data.
+
+    Only *useful* flops count: the chains' true leapfrog counts, summed from
+    ``num_integration_steps``; the batched loop runs every chain until the
+    last chain's tree ends, so the hardware executes ``lockstep_tax`` times
+    as many (``executed_mfu_pct``; only at ``thin == 1``). Warmup leapfrogs
+    are not stored; they are estimated at the sampling phase's mean steps a
+    draw. X is read once a call by the fused kernels and twice by autograd
+    (forward and backward). The work is the port's padded X
+    (``ops/glm.py`` pads columns to a multiple of 16 and no rows): at
+    glm100_fused ``Xp`` is 10,000 x 112, so a chain-leapfrog is 4.48 MFLOP
+    (the reference's 10,240 x 128: 5.24). Peaks are those of X's dtype on
+    ``device`` (:func:`~mlx_mcmc_tpu_torch.utils.roofline.device_peaks`)."""
+    steps = torch.as_tensor(result.info.num_integration_steps)
+    sampling_leapfrogs = float(steps.double().sum())  # over (chains, draws)
+    # With thin > 1 a stored draw sums `thin` transitions' counts, so the
+    # sampling phase covers num_samples * thin steps.
+    thin = cfg.get("thin", 1)
+    total_leapfrogs = sampling_leapfrogs * (1.0 + cfg["num_warmup"] / (cfg["num_samples"] * thin))
+    lockstep = None
+    if thin == 1:
+        executed = float(lockstep_leaves(steps).sum())
+        lockstep = executed * cfg["num_chains"] / sampling_leapfrogs
+    X, x_reads = (data["Xp"], 1.0) if cfg["fused"] else (data["X"], 2.0)
+    n_eff, d_eff = X.shape
+    flops = total_leapfrogs * glm_vag_flops(n_eff, d_eff)
+    # X is streamed once a *call* (every chain shares it)
+    calls = total_leapfrogs / cfg["num_chains"]
+    bytes_total = calls * glm_vag_bytes(n_eff, d_eff, X.element_size(), x_reads)
+    out = {
+        "total_leapfrogs": int(total_leapfrogs),
+        "flop_count": "useful (per-chain true tree sizes; warmup estimated)",
+    }
+    out.update(roofline_report(flops, bytes_total, wall, device, X.dtype))
+    if lockstep is not None:
+        out["lockstep_tax"] = round(lockstep, 3)
+        if "mfu_pct" in out:  # a card of unknown peaks gives no MFU
+            out["executed_mfu_pct"] = round(out["mfu_pct"] * lockstep, 2)
+        out["wasted_leapfrog_pct"] = round(100.0 * (1.0 - 1.0 / lockstep), 1)
+    return out
+
+
 def run_config(cfg, seed: int = 1, problem=None):
     """One run of ``cfg`` through ``sample()``, timed to the device ESS.
 
-    Returns ``(metrics, result, ess)``; ``ess`` is the (P,) device ESS."""
+    Returns ``(metrics, result, ess)``; ``ess`` is the (P,) device ESS. A
+    GLM config's metrics add :func:`roofline_detail` (``"roofline"``),
+    computed after the wall was taken."""
     log_prob, initial_params, data, extra = problem or build_problem(cfg)
     launches0 = launch_counts()
     torch.cuda.synchronize()
@@ -375,6 +437,8 @@ def run_config(cfg, seed: int = 1, problem=None):
         "graph_replays": result.graph_replays,
         "pairs_per_replay": graphs.PAIRS_PER_REPLAY,
     }
+    if cfg["family"] == "glm":
+        metrics["roofline"] = roofline_detail(result, cfg, data, wall, flat.device)
     return metrics, result, ess
 
 
@@ -395,19 +459,41 @@ def _elementwise_vag(z):
 _elementwise_vag.graph_safe = True
 
 
+def nuts_loop_costs(name: str, vag, Z, tunables, r0, U, depth: int) -> dict:
+    """One NUTS step of ``vag`` from ``Z`` at ``tunables`` with momenta
+    ``r0`` and uniform table ``U``, timed from CUDA events: ms per pair
+    iteration run eagerly (one host check per iteration; ``<name>_iterations``
+    host checks), and, where ``vag`` is captured, through the transition's
+    CUDA graphs (per pair iteration run, ``graphs.PAIRS_PER_REPLAY`` per
+    replay, and per step; None where not captured). Keys start with
+    ``name``."""
+    from mlx_mcmc_tpu_torch.kernels.nuts import make_nuts_kernel
+
+    init_fn, step_fn = make_nuts_kernel(vag, max_tree_depth=depth)
+    state = init_fn(Z)
+    step_fn(state, tunables, r0, U)
+    (_, _, syncs), ms = elapsed_ms(lambda: step_fn(state, tunables, r0, U), Z.device)
+    out = {f"{name}_ms_per_iteration": ms / syncs, f"{name}_iterations": syncs,
+           f"{name}_graph_ms_per_iteration": None}
+    if Z.device.type == "cuda" and graphs.captures(vag):
+        transition = graphs.GraphedTransition(vag, max_tree_depth=depth)
+        transition.step(state, tunables, r0, U)  # captures
+        replays0 = transition.graphs["pairs"].replays
+        _, ms = elapsed_ms(lambda: transition.step(state, tunables, r0, U), Z.device)
+        replays = transition.graphs["pairs"].replays - replays0
+        out[f"{name}_graph_ms_per_iteration"] = ms / (replays * transition.k)
+        out[f"{name}_graph_ms_per_step"] = ms
+    return out
+
+
 def loop_costs() -> dict:
-    """Host-clock costs inside the NUTS loop, at the funnel detail row's
-    shape (``FUNNEL_DETAIL``: 512 chains, depth cap 10, centered eight
-    schools): one NUTS step's ms per pair iteration
-    with a trivial value+grad (the loop body alone) and with the generic
-    one, eagerly (one host check per iteration) and, where the value+grad
-    is captured, through the transition's CUDA graphs (per pair iteration
-    run: ``graphs.PAIRS_PER_REPLAY`` per replay; None where not captured);
-    and the generic value+grad per call beside ``vmap(grad_and_value)``,
-    the form it replaced."""
+    """Costs inside the NUTS loop, at the funnel detail row's shape
+    (``FUNNEL_DETAIL``: 512 chains, depth cap 10, centered eight schools):
+    :func:`nuts_loop_costs` with a trivial value+grad (the loop body alone)
+    and with the generic one; and the generic value+grad per call beside
+    ``vmap(grad_and_value)``, the form it replaced."""
     from mlx_mcmc_tpu_torch.inference.engine import make_batched_value_and_grad
     from mlx_mcmc_tpu_torch.kernels.base import Tunables
-    from mlx_mcmc_tpu_torch.kernels.nuts import make_nuts_kernel
     from mlx_mcmc_tpu_torch.ops.ravel import make_flat_logprob
 
     chains, depth = FUNNEL_DETAIL["num_chains"], FUNNEL_DETAIL["max_tree_depth"]
@@ -425,28 +511,7 @@ def loop_costs() -> dict:
     r0 = torch.randn(chains, 10, generator=gen, device="cuda")
     U = torch.rand(chains, 1 << (depth - 1), 4, generator=gen, device="cuda")
     for name, vag in [("body", _elementwise_vag), ("funnel", generic)]:
-        init_fn, step_fn = make_nuts_kernel(vag, max_tree_depth=depth)
-        state = init_fn(Z)
-        step_fn(state, tun, r0, U)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, _, syncs = step_fn(state, tun, r0, U)
-        torch.cuda.synchronize()
-        out[f"{name}_ms_per_iteration"] = (time.perf_counter() - t0) / syncs * 1e3
-        out[f"{name}_iterations"] = syncs
-        out[f"{name}_graph_ms_per_iteration"] = None
-        if graphs.captures(vag):
-            transition = graphs.GraphedTransition(vag, max_tree_depth=depth)
-            transition.step(state, tun, r0, U)  # captures
-            torch.cuda.synchronize()
-            replays0 = transition.graphs["pairs"].replays
-            t0 = time.perf_counter()
-            transition.step(state, tun, r0, U)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            replays = transition.graphs["pairs"].replays - replays0
-            out[f"{name}_graph_ms_per_iteration"] = wall / (replays * transition.k) * 1e3
-            out[f"{name}_graph_ms_per_step"] = wall * 1e3
+        out.update(nuts_loop_costs(name, vag, Z, tun, r0, U, depth))
     out["pairs_per_replay"] = graphs.PAIRS_PER_REPLAY
     return out
 

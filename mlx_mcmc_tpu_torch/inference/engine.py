@@ -378,6 +378,7 @@ def build_sampler(
     progress_callback: Optional[Callable] = None,
     warmup_start: int = 0,
     warmup_stop: Optional[int] = None,
+    collect_warmup: bool = False,
 ) -> Callable[..., ChainResult]:
     """Build ``run(seed, z0_batch, data=None, resume_state=None,
     sample_start=0, *, num_samples, warmup_start, warmup_stop,
@@ -422,6 +423,15 @@ def build_sampler(
     run another segment, draw count or initial metric than the build's
     (``sample()``'s ``draw_chunk`` continuations: no warmup, one chunk of
     draws; a checkpoint's continuation) and replays the same graphs.
+
+    ``collect_warmup=True``: ``run`` returns ``(ChainResult, (positions,
+    infos))``, the warmup segment's states as the reference's scan collects
+    them: ``positions`` ``(W_seg, C, D)`` float32 after each warmup step
+    and ``infos`` its transitions' ``TransitionInfo`` (ChEES: ``ChEESInfo``
+    with the endpoint fields) stacked on a leading step axis; ``None`` for
+    an empty segment. Each step's state is copied out after the step,
+    outside its graphs: the draws, tunables, host syncs and launches are
+    those of the run without collecting.
 
     On the card, a value (+grad) with ``graph_safe = True`` runs through
     :class:`graphs.GraphedTransition` (NUTS), :class:`graphs.GraphedTrajectory`
@@ -508,6 +518,10 @@ def build_sampler(
             adapt = adaptation_init(dim, eps_init, inv_mass0, device=device)
             traj = trajectory_init(eps_init, device=device) if is_chees else ()
         counts = []  # ChEES: each transition's leapfrog count, as read
+        warm_positions = warm_infos = None
+        if collect_warmup and warmup_stop > warmup_start:
+            warm_positions = torch.empty((warmup_stop - warmup_start, num_chains, dim),
+                                         dtype=torch.float32, device=device)
 
         def one_step(states, t, tunables, num_steps=None):
             if kernel in _NOISE_KERNELS:
@@ -541,6 +555,15 @@ def build_sampler(
                 prev_positions = states.position.clone()
             states, infos, syncs = one_step(states, t, tunables, num_steps)
             host_syncs += syncs
+            if warm_positions is not None:
+                # copies: a graph's outputs are overwritten by its next replay
+                warm_positions[t - warmup_start] = states.position
+                if warm_infos is None:
+                    warm_infos = type(infos)(*(
+                        torch.empty((len(warm_positions),) + x.shape, dtype=x.dtype,
+                                    device=device) for x in infos))
+                for buf, x in zip(warm_infos, infos):
+                    buf[t - warmup_start] = x
             adapt = adaptation_update(
                 adapt,
                 infos.accept_prob.mean(),
@@ -603,7 +626,7 @@ def build_sampler(
                 torch.empty((0, num_chains) + ((0,) if f in _ENDPOINT_FIELDS else ()),
                             device=device)
                 for f in info_type._fields))
-        return ChainResult(
+        result = ChainResult(
             positions=store.transpose(0, 1),
             info=type(info_store)(*(x.transpose(0, 1) for x in info_store)),
             final_tunables=tunables,
@@ -616,6 +639,9 @@ def build_sampler(
             leapfrog_counts=tuple(counts),
             probe_evals=probe_evals,
         )
+        if collect_warmup:
+            return result, (None if warm_positions is None else (warm_positions, warm_infos))
+        return result
 
     return run
 

@@ -32,6 +32,15 @@ class Tunables(NamedTuple):
     trajectory_length: torch.Tensor = 1.0
 
 
+def identity_tunables(dim: int, step_size: float = 0.1, device=None) -> Tunables:
+    """A float32 step size and a unit inverse mass diagonal of width ``dim``
+    on ``device`` (the reference's ``identity_tunables``)."""
+    return Tunables(
+        step_size=torch.tensor(step_size, dtype=torch.float32, device=device),
+        inv_mass_diag=torch.ones((dim,), dtype=torch.float32, device=device),
+    )
+
+
 def step_column(step_size: torch.Tensor) -> torch.Tensor:
     """The step size as a kernel multiplies ``(C, D)`` rows by it: a 0-d
     step size as it is, a per-row ``(C,)`` one as a ``(C, 1)`` column."""

@@ -15,7 +15,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
-from mlx_mcmc_tpu_torch.inference.api import sample
+# the module, not its ``sample``: ``kernels/__init__`` exports these functions
+# and may run while ``inference.api`` is still being imported
+import mlx_mcmc_tpu_torch.inference.api as api
 
 
 def _finish(result) -> Tuple[Dict[str, np.ndarray], float]:
@@ -34,7 +36,7 @@ def metropolis_hastings(
 ) -> Tuple[Dict[str, np.ndarray], float]:
     """Random-walk Metropolis with a fixed Gaussian proposal: no warmup,
     no adaptation (warmup is the facade's job)."""
-    result = sample(
+    result = api.sample(
         log_prob_fn, initial_params, num_samples=num_samples, num_warmup=0, num_chains=1,
         kernel="metropolis", seed=random_seed, step_size=proposal_scale,
         adapt_step_size=False, adapt_mass_matrix=False, device=device,
@@ -61,7 +63,7 @@ def hmc(
     device=None,
 ) -> Tuple[Dict[str, np.ndarray], float]:
     """HMC with dual-averaging warmup and diagonal mass adaptation."""
-    result = sample(
+    result = api.sample(
         log_prob_fn, initial_params, num_samples=num_samples, num_warmup=num_warmup,
         num_chains=1, kernel="hmc", seed=key if key is not None else 0, step_size=step_size,
         num_leapfrog_steps=num_leapfrog_steps, adapt_step_size=adapt_step_size,
@@ -89,7 +91,7 @@ def nuts(
     device=None,
 ) -> Tuple[Dict[str, np.ndarray], float]:
     """Iterative multinomial NUTS with dual-averaging warmup."""
-    result = sample(
+    result = api.sample(
         log_prob_fn, initial_params, num_samples=num_samples, num_warmup=num_warmup,
         num_chains=1, kernel="nuts", seed=key if key is not None else 0, step_size=step_size,
         max_tree_depth=max_tree_depth, adapt_step_size=adapt_step_size,
