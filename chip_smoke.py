@@ -134,6 +134,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    1e-6, R-hat 1e-8, both times printed; (d) ``utils.trace_to`` around a
    5 + 5 run through K1: one Chrome trace that names
    ``glm_onepass_kernel``.
+4h. Chains over ranks (``parallel.sample_sharded``) at glm100_fused's full
+   width through K1, on a world of one, right after phase 4g: (a)
+   ``initialize_distributed()`` starts nccl with one rank (the NCCL
+   version printed; the first collective, which builds the communicator,
+   timed on its own); (b) ``sample_sharded`` with phase 4's settings, data,
+   vag and seed (4096 chains, 300 + 2000, depth 6, target 0.8, bf16 store)
+   and ``device_diagnostics=True``: phase 4's sampler bands, the Laplace
+   check, every posterior mean within 4 combined MCSEs of phase 4's NUTS,
+   ``device_stats`` (max R-hat, min ESS) printed beside phase 4's and
+   within 1e-6 relative of the single-device ``device_rhat`` and
+   ``device_ess_chunked`` of the same draws; the wall beside phase 4's,
+   K1 and Philox launches, host syncs, replays, and the count and time of
+   the collectives (adaptation, diagnostics, and the final gather apart);
+   (c) ``sample_sharded`` and ``sample()`` at 4096 chains with phase 4's
+   adapted step size and metric (``init_inv_mass_diag``), adaptation off,
+   50 + 200: the draws and every info field bit for bit, the K1 and
+   Philox launches equal; (d) the facade's ``chain_method='sharded'``
+   (NUTS, 100 + 100) through K1: K1 launched, finite draws; (e) the
+   process group destroyed.
 4a. The same on int8 X (``quantize="int8"``) through the int8 one-pass
    kernel, cut to 100 + 100: the same checks, the Laplace approximation
    on the dequantized X; and on f32 X (``x_dtype="float32"``, the
@@ -261,9 +280,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    with their phase-3 launches; K1 f32 with the f32 cut run's; the
    variants with their launches from phase 3b's entry points; K1 one-pass
    with phase 4c's HMC, phase 4d's ChEES, MALA and chunked MALA and phase
-   4e's checkpoint paths' and phase 4f's and 4g's, K3 with phase 7c's, and
-   Philox with its launches on each path of phases 4c, 4d, 4e, 4f, 4g, 7b,
-   7c, 9 and 9b beside the main path's, and its raw-word kernel's on 4f's and 9b's
+   4e's checkpoint paths' and phase 4f's, 4g's and 4h's, K3 with phase 7c's,
+   and Philox with its launches on each path of phases 4c, 4d, 4e, 4f, 4g,
+   4h, 7b, 7c, 9 and 9b beside the main path's, and its raw-word kernel's on 4f's and 9b's
    paths), then the
    contract line
    ``{"ok": true, "device": {...}}`` last.
@@ -1980,6 +1999,135 @@ def measurement_phase(cfg, init, data, vag, metrics, main_k1: int, main_probe: i
     return {collect_label: n, f"glm100_fused trace_to ({warmup} + {draws})": t_n}
 
 
+# Phase 4h (c): the fixed-tunables comparison's warmup + draws; (d): the
+# facade's sharded route's.
+SHARDED_FIXED, SHARDED_FACADE = (50, 200), (100, 100)
+
+
+def sharded_metrics(res, launched: dict, wall: float) -> dict:
+    """What ``check_sampler`` reads of a glm100_fused run, as
+    ``bench.run_config`` gives it for phase 4."""
+    draws = res.num_chains * res.num_samples
+    return {"wall_seconds": wall, "launches": launched, "mean_accept": res.acceptance_rate,
+            "mean_tree_depth": float(res.info.tree_depth.float().mean()),
+            "divergences": res.divergences, "divergence_rate": res.divergences / draws,
+            "host_syncs": res.host_syncs, "graph_replays": res.graph_replays}
+
+
+def sharded_phase(cfg, init, data, vag, metrics, main_rhat: float, main_tunables: tuple,
+                  nuts_mean, nuts_se) -> dict:
+    """Phase 4h: ``sample_sharded`` at glm100_fused's full width through K1
+    on a world of one (see the module docstring). ``metrics`` are phase
+    4's, ``main_rhat`` its draws' max R-hat, ``main_tunables`` its adapted
+    step size and metric. Returns each path's launches."""
+    import torch.distributed as dist
+
+    from mlx_mcmc_tpu_torch import MCMC, sample
+    from mlx_mcmc_tpu_torch.bench import launch_counts, reset_launch_counts
+    from mlx_mcmc_tpu_torch.diagnostics.device import device_ess_chunked, device_rhat
+    from mlx_mcmc_tpu_torch.parallel import initialize_distributed, sample_sharded
+
+    # (a) a world of one on nccl; its first collective builds the communicator
+    initialize_distributed()
+    if (dist.get_backend(), dist.get_world_size()) != ("nccl", 1):
+        fail(f"initialize_distributed(): backend {dist.get_backend()}, world "
+             f"{dist.get_world_size()}; want nccl, 1")
+    one = torch.ones(1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist.all_reduce(one)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    log(f"process group: nccl, world 1, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}; "
+        f"first all_reduce (builds the communicator) {first_ms:.1f} ms")
+    if float(one) != 1.0:
+        fail(f"all_reduce over a world of one gave {float(one)}")
+    settings = dict(data=data, value_and_grad_fn=vag, num_chains=cfg["num_chains"],
+                    kernel="nuts", seed=1, max_tree_depth=cfg["max_tree_depth"],
+                    target_accept=cfg["target_accept"], store_dtype=cfg["store_dtype"])
+    paths = {}
+
+    # (b) the full-width path, with the device diagnostics
+    res, wall, n, _ = counted(lambda: sample_sharded(
+        None, init, num_warmup=cfg["num_warmup"], num_samples=cfg["num_samples"],
+        device_diagnostics=True, **settings))
+    label = "glm100_fused sharded (world of one)"
+    paths[label] = n
+    launched = {"glm_fused_logistic": n["K1"], "philox_step_draws": n["philox"]}
+    check_sampler(label, sharded_metrics(res, launched, wall), cfg["target_accept"], 5,
+                  ["glm_fused_logistic", "philox_step_draws"])
+    beta = res.samples["beta"]
+    min_ess = posterior_checks(label, cfg, data, beta, nuts_mean, nuts_se)
+    rhat, ess = res.device_stats["r_hat"], res.device_stats["n_eff"]
+    one_rhat, one_ess = device_rhat(beta.float()), device_ess_chunked(beta)
+    rhat_err = float(((rhat - one_rhat).abs() / one_rhat).max())
+    ess_err = float(((ess - one_ess).abs() / one_ess).max())
+    col = res.collectives
+    log(f"{label}: wall {wall:.2f} s (phase 4: {metrics['wall_seconds']:.2f} s), K1 {n['K1']}, "
+        f"Philox {n['philox']}, host syncs {res.host_syncs}, graph replays "
+        f"{res.graph_replays}, probe evaluations {res.probe_evals}; accept "
+        f"{res.acceptance_rate:.4f}, depth {float(res.info.tree_depth.float().mean()):.3f}, "
+        f"divergences {res.divergences}; device_stats max R-hat {float(rhat.max()):.5f} (phase "
+        f"4: {main_rhat:.5f}), min ESS {float(ess.min()):.1f} (phase 4: "
+        f"{metrics['min_ess']:.1f}; host-side min-ESS of these draws {min_ess:.1f}); against "
+        f"the single-device statistics of the same draws: R-hat rel err {rhat_err:.2e}, ESS "
+        f"{ess_err:.2e}; collectives " + json.dumps(col))
+    if not (rhat_err <= 1e-6 and ess_err <= 1e-6):
+        fail(f"{label}: device_stats differ from the single-device R-hat/ESS beyond 1e-6")
+    want = cfg["num_warmup"] + res.probe_evals  # one mean a step and a probe evaluation
+    if col["adaptation"]["count"] < want or col["gather"]["count"] == 0:
+        fail(f"{label}: collectives {col}; want at least {want} in the adaptation and a gather")
+    paths[label] = dict(n, wall_seconds=wall, host_syncs=res.host_syncs,
+                        collectives=col, first_collective_ms=first_ms)
+    del res, beta, one_rhat, one_ess
+
+    # (c) fixed tunables: sample()'s bits and launches
+    warmup, draws = SHARDED_FIXED
+    eps, inv_mass = main_tunables
+    fixed = dict(settings, num_warmup=warmup, num_samples=draws, step_size=eps,
+                 adapt_step_size=False, adapt_mass_matrix=False, init_inv_mass_diag=inv_mass)
+    got, s_wall, s_n, _ = counted(lambda: sample_sharded(None, init, **fixed))
+    want_res, p_wall, p_n, _ = counted(lambda: sample(None, init, **fixed))
+    if not torch.equal(got.samples["beta"], want_res.samples["beta"]):
+        fail("sharded fixed tunables: the draws differ from sample()'s")
+    for field, x, y in zip(type(want_res.info)._fields, got.info, want_res.info):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            fail(f"sharded fixed tunables: info {field} differs from sample()'s")
+    log(f"glm100_fused sharded fixed tunables ({warmup} + {draws}, step size {eps:.5f}): draws "
+        f"and every info field bit-identical to sample()'s; K1 {s_n['K1']} (sample(): "
+        f"{p_n['K1']}), Philox {s_n['philox']} ({p_n['philox']}), wall {s_wall:.2f} s "
+        f"({p_wall:.2f} s), collectives " + json.dumps(got.collectives))
+    if (s_n["K1"], s_n["philox"]) != (p_n["K1"], p_n["philox"]) or s_n["K1"] == 0:
+        fail("sharded fixed tunables: K1 or Philox launches differ from sample()'s")
+    paths[f"glm100_fused sharded fixed tunables ({warmup} + {draws})"] = s_n
+    paths[f"glm100_fused sample() fixed tunables ({warmup} + {draws})"] = p_n
+    del got, want_res
+
+    # (d) the facade's sharded route
+    warmup, draws = SHARDED_FACADE
+    mcmc = MCMC(None)
+    _, f_wall, f_n, _ = counted(lambda: mcmc.run(
+        init, method="nuts", num_chains=cfg["num_chains"], num_warmup=warmup,
+        num_samples=draws, chain_method="sharded", value_and_grad_fn=vag, data=data,
+        max_tree_depth=cfg["max_tree_depth"], target_accept=cfg["target_accept"],
+        store_dtype=cfg["store_dtype"], verbose=False))
+    flat = mcmc.samples["beta"]
+    log(f"glm100_fused sharded (facade, {warmup} + {draws}): wall {f_wall:.2f} s (the facade's "
+        f"numpy copy included), K1 {f_n['K1']}, Philox {f_n['philox']}, accept "
+        f"{mcmc.acceptance_rate:.4f}")
+    if f_n["K1"] == 0 or f_n["philox"] == 0:
+        fail("the facade's sharded route launched K1 or Philox no time")
+    if flat.shape != (cfg["num_chains"] * draws, cfg["num_features"]) \
+            or not np.isfinite(flat).all():
+        fail(f"the facade's sharded route: draws {flat.shape} or non-finite")
+    paths[f"glm100_fused sharded (facade, {warmup} + {draws})"] = f_n
+    del mcmc, flat
+
+    # (e)
+    dist.destroy_process_group()
+    return paths
+
+
 @contextlib.contextmanager
 def k1_rows(seen: list):
     """While open, every call of K1's dispatcher records the rows of its
@@ -2693,6 +2841,11 @@ def main() -> None:
     init = problem[1]
     stats_draws = beta[:512, :, :16].double().cpu().numpy()  # phase 4g's native R-hat/ESS
     main_probe = result.probe_evals
+    # phase 4h's: the draws' max R-hat, the adapted step size and metric
+    from mlx_mcmc_tpu_torch.diagnostics.device import device_rhat
+
+    main_rhat = float(device_rhat(beta.float()).max())
+    main_tunables = (float(result.tunables.step_size), result.tunables.inv_mass_diag.clone())
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- glm100_fused: checkpoint and resume, against phase 4's run -------
@@ -2712,6 +2865,12 @@ def main() -> None:
     measure_paths = measurement_phase(cfg, init, data, k1_vag, metrics, launches["K1"],
                                       main_probe, stats_draws)
     del stats_draws
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # --- glm100_fused: chains over ranks on a world of one ------------------
+    shard_paths = sharded_phase(cfg, init, data, k1_vag, metrics, main_rhat, main_tunables,
+                                nuts_mean, nuts_se)
+    log("glm100_fused sharded paths: " + json.dumps(shard_paths))
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # --- glm100_fused through HMC and the MCMC facade ----------------------
@@ -2904,7 +3063,8 @@ def main() -> None:
                                          **{k: cm_paths[v]["K1"] for k, v in cm_names.items()},
                                          **{k: v["K1"] for k, v in ckpt_paths.items()},
                                          **{k: v["K1"] for k, v in temper_paths.items()},
-                                         **{k: v["K1"] for k, v in measure_paths.items()}}
+                                         **{k: v["K1"] for k, v in measure_paths.items()},
+                                         **{k: v["K1"] for k, v in shard_paths.items()}}
         if key == "K3":
             extra["launches_by_path"] = {"poisson1000_cov": launches[key],
                                          "poisson1000_cov advi": advi_paths["poisson1000_cov advi"]
@@ -2918,6 +3078,7 @@ def main() -> None:
                 **{k: v["philox"] for k, v in advi_paths.items()},
                 **{k: v["philox"] for k, v in temper_paths.items()},
                 **{k: v["philox"] for k, v in measure_paths.items()},
+                **{k: v["philox"] for k, v in shard_paths.items()},
                 **{k: v["philox"] for k, v in sampler_paths.items() if "philox" in v})
             # the raw-word kernel: the tempered swap, ensemble walker and SMC
             # resampling uniforms

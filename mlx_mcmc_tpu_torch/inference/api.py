@@ -70,9 +70,13 @@ _RUNNER_CACHE_MAX = 64
 
 
 def clear_runner_cache() -> None:
-    """Drop every cached runner and its graphs. Call after mutating any
-    object that a cached model, value+grad or ``data`` holds."""
+    """Drop every cached runner and its graphs, ``sample_sharded``'s too.
+    Call after mutating any object that a cached model, value+grad or
+    ``data`` holds."""
+    from mlx_mcmc_tpu_torch.parallel.sharded import clear_sharded_runner_cache
+
     _RUNNER_CACHE.clear()
+    clear_sharded_runner_cache()
 
 
 def _lru_get(cache: "OrderedDict", key):
@@ -166,21 +170,25 @@ def runner_key(log_prob_fn, example, data, num_chains: int, device, transforms, 
 
 
 def cached_runner(log_prob_fn, example, *, data, transforms, num_chains: int, device,
-                  settings: dict, maps=None, build=build_sampler) -> dict:
+                  settings: dict, maps=None, build=build_sampler, cache=_RUNNER_CACHE,
+                  key_extra: tuple = ()) -> dict:
     """The runner-cache entry for a run: the cached one under
     :func:`runner_key` (with its graphs), or a new one (:func:`model_entry`
     and ``build(flat_log_prob, dim, **settings)``: ``build_sampler`` for
     ``sample()``, another sampler's build function for its runs, whose
-    ``settings`` name that sampler), cached where the key exists."""
+    ``settings`` name that sampler), cached where the key exists. ``cache``
+    and ``key_extra`` (what else the runner bakes in) are
+    ``sample_sharded``'s."""
     key = runner_key(log_prob_fn, example, data, num_chains, device, transforms, settings)
-    entry = None if key is None else _lru_get(_RUNNER_CACHE, key)
+    key = None if key is None else key + tuple(key_extra)
+    entry = None if key is None else _lru_get(cache, key)
     if entry is None:
         entry = model_entry(log_prob_fn, transforms, example, data, device, maps)
         entry["run"] = build(entry["flat_log_prob"], entry["dim"], **settings)
         # what the key names by id, so no id is recycled while cached
         entry["pin"] = (log_prob_fn, data, transforms, tuple(settings.values()))
         if key is not None:
-            _lru_put(_RUNNER_CACHE, key, entry, _RUNNER_CACHE_MAX)
+            _lru_put(cache, key, entry, _RUNNER_CACHE_MAX)
     return entry
 
 
@@ -247,6 +255,11 @@ class MCMCResult:
     positions, the adaptation state, the run's settings), which
     ``io/checkpoint.py`` saves and ``resume`` continues; None for a
     ``resume_warmup`` result, as in the reference.
+    ``device_stats`` (``sample_sharded(device_diagnostics=True)``): split
+    R-hat and ESS per flat dimension, computed on the device.
+    ``collectives`` (``sample_sharded``): count and milliseconds of the
+    collectives of the adaptation, the device diagnostics and the final
+    gathers (draws, info and the resume payload's positions and state).
     """
 
     samples: Dict[str, torch.Tensor]
@@ -260,6 +273,8 @@ class MCMCResult:
     leapfrog_counts: tuple = ()
     probe_evals: int = 0
     resume_payload: Optional[Dict[str, Any]] = field(default=None, repr=False)
+    device_stats: Optional[Dict[str, torch.Tensor]] = None
+    collectives: Optional[Dict[str, Dict[str, float]]] = None
     _numpy_cache: Optional[Dict[str, np.ndarray]] = field(default=None, repr=False)
 
     def to_numpy(self) -> Dict[str, np.ndarray]:

@@ -9,7 +9,8 @@ that they may capture it (``graph_safe``); elsewhere, and on the CPU, the
 same parts of the transition run eagerly, ``graphs.PAIRS_PER_REPLAY`` pair
 iterations per host check, so the CPU runs the code that the graphs
 capture. Adaptation statistics are chain means, as in the reference's
-single-device path.
+single-device path, or pooled over a process group's ranks where chains
+are sharded (``group``, the reference's ``axis_name``).
 
 Randomness: step ``t`` (warmup and draws share one global counter) draws
 each chain's momenta and NUTS uniform table from Philox keyed on
@@ -72,6 +73,7 @@ from mlx_mcmc_tpu_torch.kernels.hmc import make_hmc_kernel
 from mlx_mcmc_tpu_torch.kernels.mala import make_mala_kernel
 from mlx_mcmc_tpu_torch.kernels.metropolis import make_metropolis_kernel
 from mlx_mcmc_tpu_torch.kernels.nuts import make_nuts_kernel
+from mlx_mcmc_tpu_torch.ops.math import welford_psum_merge
 from mlx_mcmc_tpu_torch.ops.random import step_draws
 
 _DEFAULT_TARGET_ACCEPT = {
@@ -109,6 +111,9 @@ class ChainResult(NamedTuple):
     (ChEES): the leapfrog count of every transition run, warmup first, as
     the host read them. ``probe_evals``: the step-size probe's one-leapfrog
     evaluations (each one value+grad and one host read; 0 without a probe).
+    ``collectives``: with a process group, the run's
+    ``parallel.distributed.Collectives`` (count and time of its pooling);
+    None without one.
     """
 
     positions: torch.Tensor
@@ -121,6 +126,7 @@ class ChainResult(NamedTuple):
     final_traj: Any = ()
     leapfrog_counts: tuple = ()
     probe_evals: int = 0
+    collectives: Any = None
 
 
 def step_inputs(seed: int, chains: torch.Tensor, t: int, inv_mass_diag: torch.Tensor, n_slots: int):
@@ -340,12 +346,14 @@ def resolve_step_size(step_size, kernel: str, adapt_step_size: bool):
     return step_size
 
 
-def jittered_starts(seed: int, z0_batch: torch.Tensor, jitter: float) -> torch.Tensor:
+def jittered_starts(seed: int, z0_batch: torch.Tensor, jitter: float,
+                    first_chain: int = 0) -> torch.Tensor:
     """``z0_batch + jitter * N(0, 1)``, chain ``i``'s normals from Philox at
-    ``(seed, i, JITTER_STEP)``: a chain's start does not depend on how many
-    chains run (the reference draws one joint ``(C, D)`` normal, which
-    does)."""
-    chains = torch.arange(z0_batch.shape[0], device=z0_batch.device)
+    ``(seed, i, JITTER_STEP)``, the rows numbered from ``first_chain`` (a
+    rank's block of sharded chains): a chain's start does not depend on
+    how many chains run or where (the reference draws one joint ``(C, D)``
+    normal, which does)."""
+    chains = first_chain + torch.arange(z0_batch.shape[0], device=z0_batch.device)
     normals, _ = step_draws(seed, chains, JITTER_STEP, z0_batch.shape[1], 0)
     return z0_batch + jitter * normals
 
@@ -379,6 +387,7 @@ def build_sampler(
     warmup_start: int = 0,
     warmup_stop: Optional[int] = None,
     collect_warmup: bool = False,
+    group=None,
 ) -> Callable[..., ChainResult]:
     """Build ``run(seed, z0_batch, data=None, resume_state=None,
     sample_start=0, *, num_samples, warmup_start, warmup_stop,
@@ -438,6 +447,17 @@ def build_sampler(
     (ChEES) or :class:`graphs.GraphedStep`; ``run`` keeps the graphs of its
     last call and replays them in the next call with the same device, chain
     count and ``data`` (by identity: :func:`data_key`).
+
+    ``group``: a process group whose ranks share the chains
+    (``parallel.sample_sharded``). Each rank's ``z0_batch`` is its block of
+    the chains, numbered from ``rank * C_local`` for every random draw.
+    The probe's and each warmup step's mean accept are the mean over ranks
+    of each rank's chain mean (the reference's ``pmean`` of ``jnp.mean``),
+    the Welford moments pool at window ends
+    (``ops.math.welford_psum_merge``) and ChEES's gradient pools its chain
+    means (:func:`chees_gradient`), so every rank adapts the same
+    tunables. The collectives run between transitions, never inside a
+    captured graph; ``ChainResult.collectives`` counts and times them.
     """
     _check_kernel(kernel)
     if target_accept is None:
@@ -484,7 +504,23 @@ def build_sampler(
             step_fn = transition.step
             replays0 = transition.replays
         states = init_fn(z0_batch)
-        chains = torch.arange(num_chains, device=device)
+        pool = welford_reduce = chees_pmean = None
+        first_chain = 0
+        if group is not None:
+            from mlx_mcmc_tpu_torch.parallel.distributed import Collectives
+
+            pool = Collectives(group)
+            first_chain = pool.rank * num_chains
+            chees_pmean = pool.pmean
+
+            def welford_reduce(w):
+                return welford_psum_merge(w, pool.psum)
+
+        def pooled_mean(x: torch.Tensor) -> torch.Tensor:
+            m = x.mean()
+            return m if pool is None else pool.pmean(m)
+
+        chains = first_chain + torch.arange(num_chains, device=device)
         host_syncs = probe_evals = 0
 
         if resume_state is not None:
@@ -509,7 +545,7 @@ def build_sampler(
                     e1 = total_energy(leapfrog(start, eps_t, inv_mass0, vag), inv_mass0)
                     delta = e0 - e1
                     delta = torch.where(torch.isnan(delta), -float("inf"), delta)
-                    return float(torch.exp(torch.clamp(delta, max=0.0)).mean())
+                    return float(pooled_mean(torch.exp(torch.clamp(delta, max=0.0))))
 
                 eps_init, probe_evals = find_reasonable_step_size(accept_prob_fn)
                 host_syncs = probe_evals
@@ -566,14 +602,15 @@ def build_sampler(
                     buf[t - warmup_start] = x
             adapt = adaptation_update(
                 adapt,
-                infos.accept_prob.mean(),
+                pooled_mean(infos.accept_prob),
                 states.position,
                 bool(schedule.in_slow_window[t]),
                 bool(schedule.window_end[t]),
                 target_accept,
+                welford_reduce=welford_reduce,
             )
             if is_chees:
-                grad = chees_gradient(prev_positions, infos, u)
+                grad = chees_gradient(prev_positions, infos, u, chees_pmean)
                 traj = trajectory_update(traj, grad, tunables.step_size,
                                          max_leapfrog_steps=max_leapfrog_steps)
             host_syncs += maybe_report("warmup", t, infos, tunables)
@@ -638,6 +675,7 @@ def build_sampler(
             final_traj=traj,
             leapfrog_counts=tuple(counts),
             probe_evals=probe_evals,
+            collectives=pool,
         )
         if collect_warmup:
             return result, (None if warm_positions is None else (warm_positions, warm_infos))

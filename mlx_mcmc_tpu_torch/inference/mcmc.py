@@ -13,9 +13,11 @@ at ``random_seed + 1``, the same ``summary`` keys
 :func:`~mlx_mcmc_tpu_torch.inference.ensemble.sample_ensemble`, ``device``
 included (the reference's Metropolis ignores them).
 
-``chain_method='sharded'`` is not ported yet: it raises
-``NotImplementedError`` naming its ROADMAP item (after the reference's
-``ValueError`` for 'ensemble'), and nothing falls back to another method.
+``chain_method='sharded'`` runs
+:func:`~mlx_mcmc_tpu_torch.parallel.sample_sharded` for every method but
+'ensemble' (the reference's ``ValueError``), as the reference's
+``mcmc.py:79-106`` does: the chains split over the ranks of the world,
+Metropolis with the engine's adaptive warmup rather than the restart.
 """
 
 from __future__ import annotations
@@ -72,6 +74,11 @@ class MCMC:
         runs ``sample_ensemble`` with ``num_chains`` walkers (64 when it is
         1) and a jitter of 0.1 when ``jitter`` is 0; its kwargs are ``a``,
         ``thin``, ``transforms``, ``data`` and ``device``.
+        ``chain_method='sharded'`` splits the chains over the ranks of the
+        world (``sample_sharded``; ``num_chains`` divisible by the world
+        size) with pooled adaptation, for every method but 'ensemble';
+        Metropolis then runs the engine's adaptive warmup (the reference's
+        sharded route, which differs from the restart in its stream only).
         Metropolis runs ``num_warmup`` draws at the fixed ``proposal_scale``
         (no adaptation), then restarts every chain from its last warmup
         draw with seed ``random_seed + 1``.
@@ -85,7 +92,18 @@ class MCMC:
                 raise ValueError(
                     "chain_method='sharded' supports metropolis/hmc/nuts/chees/mala (the "
                     "ensemble sampler couples walkers and has its own entry point)")
-            raise NotImplementedError("chain_method='sharded' is not ported yet (ROADMAP A.10)")
+            from mlx_mcmc_tpu_torch.parallel.sharded import sample_sharded
+
+            result = sample_sharded(self.log_prob_fn, initial_params, num_samples=num_samples,
+                                    num_warmup=num_warmup, num_chains=num_chains, kernel=method,
+                                    seed=random_seed, jitter=jitter, **kwargs)
+            self.result = result
+            self.acceptance_rate = result.acceptance_rate
+            self.samples = result.flat_samples()
+            if verbose:
+                print(f"Sharded sampling complete ({num_chains} chains across mesh); "
+                      f"acceptance rate: {self.acceptance_rate:.2%}")
+            return self.samples
 
         if verbose:
             print("=" * 70)

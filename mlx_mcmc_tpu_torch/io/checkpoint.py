@@ -28,8 +28,11 @@ A result without a payload (``resume_warmup``'s, as in the reference) is
 saved position-only (the legacy format) and resumes statistically.
 
 Not here: Orbax, which is JAX-only (``backend='orbax'`` raises), and the
-sharded paths (``mesh=`` raises, ROADMAP A.10); a sharded checkpoint's meta
-names its mesh layout, here always ``"mesh_axes": null``.
+sharded paths (``mesh=`` raises, ROADMAP A.10b). A ``sample_sharded``
+result saves with its mesh layout (``"mesh_axes"``) and its adaptation
+state tiled over the ranks, as the reference writes it; continuing such a
+checkpoint raises until A.10b. Every other checkpoint has
+``"mesh_axes": null``.
 """
 
 from __future__ import annotations
@@ -86,15 +89,15 @@ def _unflatten(template, leaves):
 
 
 def _no_mesh(where: str, mesh, ckpt=None) -> None:
-    """Sharded runs (``mesh=``, or a checkpoint that names its mesh layout)
-    wait for ROADMAP A.10."""
+    """Sharded checkpoint paths (``mesh=``, or a checkpoint that names its
+    mesh layout) wait for ROADMAP A.10b."""
     if mesh is not None:
-        raise NotImplementedError(f"{where}(mesh=...): sharded runs are not ported yet "
-                                  "(ROADMAP A.10)")
+        raise NotImplementedError(f"{where}(mesh=...): the sharded checkpoint paths are not "
+                                  "ported yet (ROADMAP A.10b)")
     if ckpt is not None and ckpt.get("mesh_axes") is not None:
         raise NotImplementedError(f"{where}: a sharded run's checkpoint (mesh_axes "
-                                  f"{ckpt['mesh_axes']}) needs the sharded paths, not ported "
-                                  "yet (ROADMAP A.10)")
+                                  f"{ckpt['mesh_axes']}) needs the sharded checkpoint paths, not "
+                                  "ported yet (ROADMAP A.10b)")
 
 
 def _result_state(result) -> Dict[str, Any]:
@@ -194,7 +197,7 @@ def _sampling_payload(payload: Dict[str, Any]):
         callable_kwargs=_callable_names(payload["kernel_kwargs"]),
         has_transforms=payload["has_transforms"],
         data_fingerprint=payload["data_fingerprint"],
-        mesh_axes=None,
+        mesh_axes=payload.get("mesh_axes"),
         has_log_prior=False,
         has_data_specs=False,
         param_names=list(positions.keys()),

@@ -6,13 +6,15 @@ constants (``mu = log(10 eps0)``, ``gamma = 0.05``, ``t0 = 10``,
 schedule. The schedule is host data, so ``adaptation_update`` takes its two
 flags as Python bools and branches on the host; the device sees no select.
 Chains are pooled by feeding the chain-mean accept statistic and the whole
-``(C, D)`` position batch to the Welford estimator.
+``(C, D)`` position batch to the Welford estimator; sharded over ranks,
+the accept statistic comes pooled and the moments pool at window ends
+(``welford_reduce``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -133,18 +135,24 @@ def adaptation_update(
     in_slow_window: bool,
     window_end: bool,
     target_accept: float,
+    welford_reduce: Optional[Callable[[WelfordState], WelfordState]] = None,
 ) -> AdaptationState:
     """One warmup-step update: dual averaging on the chain-pooled accept
-    statistic, Welford accumulation of every chain's position inside a slow
-    window, and at a window's end a mass-matrix refresh plus a restart of
-    dual averaging and of the estimator."""
+    statistic, Welford accumulation of every (local) chain's position
+    inside a slow window, and at a window's end a mass-matrix refresh plus
+    a restart of dual averaging and of the estimator.
+
+    ``welford_reduce`` pools the moments across ranks
+    (``ops.math.welford_psum_merge``) where chains are sharded. As in the
+    reference, the pooled moments make the window end's mass matrix only:
+    between window ends each rank's moments are its own."""
     da = da_update(state.da, mean_accept_prob, target_accept)
     welford = state.welford
     if in_slow_window:
         welford = welford_batch_update(welford, positions)
     inv_mass = state.inv_mass_diag
     if window_end:
-        inv_mass = welford_finalize(welford)
+        inv_mass = welford_finalize(welford if welford_reduce is None else welford_reduce(welford))
         da = da_restart(da)
         welford = welford_init(
             positions.shape[-1], dtype=welford.mean.dtype, device=positions.device

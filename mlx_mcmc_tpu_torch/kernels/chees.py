@@ -23,7 +23,7 @@ uniform.
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -193,19 +193,25 @@ def trajectory_init(step_size, device=None) -> TrajectoryAdaptState:
     return TrajectoryAdaptState(log_tau=log_tau, adam_m=zero, adam_v=zero, count=zero)
 
 
-def chees_gradient(prev_positions: torch.Tensor, infos: ChEESInfo, jitter) -> torch.Tensor:
+def chees_gradient(prev_positions: torch.Tensor, infos: ChEESInfo, jitter,
+                   pmean: Optional[Callable] = None) -> torch.Tensor:
     """This transition's estimate of d ChEES / d tau (the paper's eq. 14):
     per chain ``accept_prob * (|z' - m'|^2 - |z - m|^2) * <z' - m', v'>``,
     ``m`` and ``m'`` the chain means of the start and end positions, then
-    the mean over chains, scaled by the Halton fraction ``jitter``."""
+    the mean over chains, scaled by the Halton fraction ``jitter``.
+    ``pmean`` pools the two chain means (in one call) and the per-chain
+    mean across ranks where chains are sharded (the reference's
+    ``kernels/chees.py:175-181``)."""
     prop = infos.proposal_position
-    d_prev = prev_positions - prev_positions.mean(0)
-    d_prop = prop - prop.mean(0)
+    means = torch.stack([prev_positions.mean(0), prop.mean(0)])
+    m_prev, m_prop = means if pmean is None else pmean(means)
+    d_prev = prev_positions - m_prev
+    d_prop = prop - m_prop
     dsq_prev = row_sum(d_prev * d_prev)
     dsq_prop = row_sum(d_prop * d_prop)
     proj = row_sum(d_prop * infos.end_velocity)
-    per_chain = infos.accept_prob * (dsq_prop - dsq_prev) * proj
-    return per_chain.mean() * jitter
+    grad = (infos.accept_prob * (dsq_prop - dsq_prev) * proj).mean()
+    return (grad if pmean is None else pmean(grad)) * jitter
 
 
 def trajectory_update(

@@ -3,7 +3,8 @@ and the Adam step.
 
 Counterpart of ``mlx_mcmc_tpu/ops/math.py``. The Welford accumulators drive
 the diagonal mass-matrix adaptation; ``welford_batch_update`` pools all
-chains in one vectorized update (Chan et al.'s parallel merge).
+chains in one vectorized update (Chan et al.'s parallel merge), and
+``welford_psum_merge`` pools the accumulators of several ranks.
 :func:`adam_update` is the one Adam of the package (the MAP init and the
 ADVI fits; the reference takes ``optax.adam`` for both).
 """
@@ -98,6 +99,18 @@ def welford_merge(a: WelfordState, b: WelfordState) -> WelfordState:
     mean = a.mean + delta * (b.count / safe)
     m2 = a.m2 + b.m2 + delta**2 * (a.count * b.count / safe)
     return WelfordState(count, mean, m2)
+
+
+def welford_psum_merge(state: WelfordState, psum: Callable) -> WelfordState:
+    """Pool every rank's accumulator exactly, ``psum`` summing a tensor
+    over the ranks: the reference's ``_welford_pmean_reduce``
+    (``mlx_mcmc_tpu/inference/engine.py:138-148``), in its formula and
+    order. The count and the count-weighted means go in one sum."""
+    sums = psum(torch.cat([state.count.reshape(1), state.mean * state.count]))
+    total = sums[0]
+    mean = sums[1:] / torch.clamp(total, min=1.0)
+    m2 = psum(state.m2 + state.count * (state.mean - mean) ** 2)
+    return WelfordState(total, mean, m2)
 
 
 def welford_finalize(state: WelfordState, regularize: bool = True) -> torch.Tensor:

@@ -81,4 +81,11 @@ class MeshConfig:
     axis_names: Tuple[str, str] = ("chains", "data")
 
     def build(self):
-        raise NotImplementedError("sharded sampling is not ported yet (ROADMAP A.10)")
+        """The mesh: :func:`chain_mesh` of ``chains`` ranks when ``data`` is
+        1, else :func:`data_chain_mesh` (every rank of the world, as
+        ``parallel/mesh.py`` lays them out)."""
+        from mlx_mcmc_tpu_torch.parallel.mesh import chain_mesh, data_chain_mesh
+
+        if self.data == 1:
+            return chain_mesh(num_devices=self.chains)
+        return data_chain_mesh(self.chains, self.data)

@@ -1,7 +1,8 @@
 """The port's ``MCMC`` facade against ``tests/test_facade.py`` (minus the
-sharded and MAP-init cases, not ported; the sharded ensemble's refusal
-is), and against the JAX facade. Method 'ensemble' runs in
-``tests/test_torch_ensemble.py``.
+MAP-init cases), and against the JAX facade. Method 'ensemble' runs in
+``tests/test_torch_ensemble.py``. ``chain_method='sharded'`` runs here on a
+world of one in this process (ended at module teardown); its two-rank
+cases are in ``tests/test_torch_parallel.py``.
 
 The README quick start's model (``Normal(0, 10)`` and ``HalfNormal(5)``
 priors, a normal likelihood over 100 observations from a numpy seed) runs
@@ -17,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import mlx_mcmc_tpu as j
 from mlx_mcmc_tpu_torch import MCMC, HalfNormal, Normal, sample
@@ -108,15 +110,51 @@ def test_errors():
         MCMC(log_prob).summary()
     with pytest.raises(ValueError, match="chain_method"):
         MCMC(log_prob).run({"mu": 0.0}, chain_method="pmap", verbose=False)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        MCMC(log_prob).run(INIT, method="nuts", chain_method="sharded", **CPU)
 
 
 def test_sharded_ensemble_rejected():
-    # tests/test_facade.py:179: the reference's ValueError, before A.10's
-    # NotImplementedError for the other methods
+    # tests/test_facade.py:179: the reference's ValueError
     with pytest.raises(ValueError, match="ensemble"):
         MCMC(log_prob).run(INIT, method="ensemble", chain_method="sharded", **CPU)
+
+
+@pytest.fixture(scope="module")
+def world_of_one():
+    from mlx_mcmc_tpu_torch.parallel import initialize_distributed
+
+    assert not dist.is_initialized()
+    initialize_distributed(device="cpu")
+    yield
+    dist.destroy_process_group()
+
+
+def test_sharded_route_runs_sample_sharded(world_of_one, capsys):
+    # tests/test_facade.py:150-166, cut to 2 chains x (100 + 100); at
+    # fixed tunables the route gives sample()'s bits
+    mcmc = MCMC(log_prob)
+    samples = mcmc.run(INIT, num_samples=100, num_warmup=100, method="nuts", num_chains=2,
+                       chain_method="sharded", device="cpu")
+    assert "Sharded sampling complete (2 chains across mesh)" in capsys.readouterr().out
+    assert samples["mu"].shape == (200,)
+    assert abs(samples["mu"].mean() - Y.mean()) < 0.3
+    assert mcmc.result.collectives["adaptation"]["count"] > 100
+    fixed = dict(num_samples=20, num_warmup=10, num_chains=2, step_size=0.1,
+                 adapt_step_size=False, adapt_mass_matrix=False, device="cpu")
+    mcmc.run(INIT, method="hmc", chain_method="sharded", verbose=False, **fixed)
+    want = sample(log_prob, INIT, kernel="hmc", **fixed)
+    for k in ("mu", "sigma"):
+        assert torch.equal(mcmc.result.samples[k], want.samples[k])
+
+
+def test_sharded_metropolis_supported(world_of_one):
+    # tests/test_facade.py:168-177 on a world of one: the engine's adaptive
+    # warmup, no restart
+    mcmc = MCMC(log_prob)
+    samples = mcmc.run(INIT, num_samples=300, num_warmup=300, method="metropolis",
+                       num_chains=8, chain_method="sharded", **CPU)
+    assert samples["mu"].shape == (2400,)
+    assert abs(samples["mu"].mean() - Y.mean()) < 0.5
+    assert mcmc.result.kernel == "metropolis" and 0.0 < mcmc.acceptance_rate <= 1.0
 
 
 def test_progress_callback_fires_at_reporting_steps():

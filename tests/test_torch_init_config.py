@@ -3,7 +3,9 @@
 
 - ``SamplerConfig.to_kwargs()`` equals the reference's for every kernel
   and for the storage, thinning and adaptation fields; ``MeshConfig.build``
-  raises naming ROADMAP A.10.
+  lays out the world's ranks (a world of one here, ended after its test),
+  raises on a layout that the world cannot fill, and observation sharding
+  over its data axis raises naming ROADMAP A.10b.
 - ``sample(config=...)`` gives the spelled-out call's bits; an explicit
   ``store_dtype``/``draw_chunk`` wins over the config's.
 - ``init_strategy='map'`` lands absurdly far starts near the mode
@@ -52,9 +54,25 @@ def test_to_kwargs_matches_the_reference(fields):
 
 
 def test_mesh_config_raises_naming_its_roadmap_item():
+    import torch.distributed as dist
+
+    from mlx_mcmc_tpu_torch.parallel import initialize_distributed, sample_sharded
+
     assert MeshConfig().axis_names == j_config.MeshConfig().axis_names
-    with pytest.raises(NotImplementedError, match="A.10"):
-        MeshConfig(chains=4).build()
+    assert not dist.is_initialized()
+    initialize_distributed(device="cpu")
+    try:
+        assert MeshConfig().build().mesh_dim_names == ("chains",)
+        mesh = MeshConfig(chains=1, data=1).build()
+        assert mesh.mesh_dim_names == ("chains",)
+        assert MeshConfig(data=1).build().shape == (1,)
+        with pytest.raises(ValueError, match="the world has 1"):
+            MeshConfig(chains=4).build()
+        with pytest.raises(NotImplementedError, match="A.10b"):
+            sample_sharded(_model, {"x": torch.zeros(2)}, mesh=mesh, data_axis="data",
+                           device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def _model(params):

@@ -36,7 +36,9 @@ for name in ("mlx_mcmc_tpu_torch.ops.glm_variants", "mlx_mcmc_tpu_torch.models.j
              "mlx_mcmc_tpu_torch.benchmarks.nuts_overhead",
              "mlx_mcmc_tpu_torch.benchmarks.flagship_breakdown",
              "mlx_mcmc_tpu_torch.benchmarks.poisson_roofline",
-             "mlx_mcmc_tpu_torch.benchmarks.run_all"):
+             "mlx_mcmc_tpu_torch.benchmarks.run_all", "mlx_mcmc_tpu_torch.parallel",
+             "mlx_mcmc_tpu_torch.parallel.sharded", "mlx_mcmc_tpu_torch.parallel.mesh",
+             "mlx_mcmc_tpu_torch.parallel.distributed"):
     assert name in names, name
 from mlx_mcmc_tpu_torch import (MCMC, sample, metropolis_hastings, hmc, nuts, Normal, HalfNormal,
                                 Beta, Gamma, Exponential, Categorical, make_transformed_logprob,
@@ -66,6 +68,8 @@ from mlx_mcmc_tpu_torch.diagnostics import (effective_sample_size, potential_sca
                                             pointwise_log_likelihood, psis_loo, waic)
 from mlx_mcmc_tpu_torch.io import (save_checkpoint, load_checkpoint, resume, run_warmup,
                                    resume_warmup)
+from mlx_mcmc_tpu_torch.parallel import (sample_sharded, chain_mesh, data_chain_mesh,
+                                         initialize_distributed, clear_sharded_runner_cache)
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mlx_mcmc_tpu"))
@@ -87,12 +91,15 @@ _EXPORTS_PROBE = """
 import json, sys
 import torch
 import mlx_mcmc_tpu_torch.kernels as k, mlx_mcmc_tpu_torch.ops as o, mlx_mcmc_tpu_torch.utils as u
+import mlx_mcmc_tpu_torch.parallel as par
 from mlx_mcmc_tpu_torch import _build
-for p in (k, o, u):
+for p in (k, o, u, par):
     assert all(hasattr(p, n) for n in p.__all__), p
 assert not _build._LOADED, _build._LOADED  # no library built or loaded
 assert not torch.cuda.is_initialized()  # no card touched
-print(json.dumps({"kernels": k.__all__, "ops": o.__all__, "utils": u.__all__}))
+assert not torch.distributed.is_initialized()  # no process group started
+print(json.dumps({"kernels": k.__all__, "ops": o.__all__, "utils": u.__all__,
+                  "parallel": par.__all__}))
 """
 
 
@@ -104,9 +111,10 @@ def exports():
     return json.loads(out.stdout)
 
 
-@pytest.mark.parametrize("package", ["kernels", "ops", "utils"])
+@pytest.mark.parametrize("package", ["kernels", "ops", "utils", "parallel"])
 def test_exports_are_the_references(exports, package):
-    # importing the exports builds no library and touches no card
+    # importing the exports builds no library, touches no card and starts
+    # no process group
     ref = __import__(f"mlx_mcmc_tpu.{package}", fromlist=["__all__"])
     assert sorted(exports[package]) == sorted(ref.__all__)
 
