@@ -153,6 +153,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    Philox launches equal; (d) the facade's ``chain_method='sharded'``
    (NUTS, 100 + 100) through K1: K1 launched, finite draws; (e) the
    process group destroyed.
+4i. Observation sharding and sharded checkpoints at glm100_fused's full
+   width through K1, on a world of one (nccl), right after phase 4h: (a)
+   ``sample_sharded`` on ``data_chain_mesh(1, 1)`` with ``data_axis='data'``,
+   phase 4's data packed by ``prepare_fused_logistic_data(num_shards=1)``
+   (phase 4's bits) and split by ``fused_data_specs``, the likelihood-only
+   K1 value+grad (``include_prior=False``) and the closed-form N(0, 1)
+   prior as ``log_prior_fn``, NUTS forced to its static schedule (depth 6,
+   4096 chains, 300 + 500, target 0.8, bf16 store): phase 4's sampler bands,
+   the Laplace check and means within 4 combined MCSEs of phase 4's NUTS;
+   K1 launches exactly 1 (init) + the probe's + 63 a transition + 63 (the
+   capture's eager warm-up), one data-axis sum a K1 launch (counted inside
+   the graphs), Philox a step and the probe's, host syncs the probe's only
+   (none inside a transition), three replays a transition and three
+   captures; the wall printed. (b) on ``chain_mesh()``, phase 4's vag and
+   data: ``sample_sharded`` 100 + 400, then 100 + 200, ``save_checkpoint``,
+   ``load_checkpoint`` and ``resume(..., mesh=...)`` 200, and
+   ``run_warmup(mesh=..., stop=50)`` then ``resume_warmup(mesh=...)``: the
+   draws and every info field the uninterrupted run's bit for bit, no
+   graph captured by any continuation; resuming that checkpoint on
+   ``data_chain_mesh(1, 1)`` with a data axis raises.
 4a. The same on int8 X (``quantize="int8"``) through the int8 one-pass
    kernel, cut to 100 + 100: the same checks, the Laplace approximation
    on the dequantized X; and on f32 X (``x_dtype="float32"``, the
@@ -280,9 +300,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    with their phase-3 launches; K1 f32 with the f32 cut run's; the
    variants with their launches from phase 3b's entry points; K1 one-pass
    with phase 4c's HMC, phase 4d's ChEES, MALA and chunked MALA and phase
-   4e's checkpoint paths' and phase 4f's, 4g's and 4h's, K3 with phase 7c's,
-   and Philox with its launches on each path of phases 4c, 4d, 4e, 4f, 4g,
-   4h, 7b, 7c, 9 and 9b beside the main path's, and its raw-word kernel's on 4f's and 9b's
+   4e's checkpoint paths' and phase 4f's, 4g's, 4h's and 4i's, K3 with phase
+   7c's, and Philox with its launches on each path of phases 4c, 4d, 4e, 4f,
+   4g, 4h, 4i, 7b, 7c, 9 and 9b beside the main path's, and its raw-word kernel's on 4f's and 9b's
    paths), then the
    contract line
    ``{"ok": true, "device": {...}}`` last.
@@ -2128,6 +2148,133 @@ def sharded_phase(cfg, init, data, vag, metrics, main_rhat: float, main_tunables
     return paths
 
 
+# Phase 4i (a): NUTS on a data mesh of one, warmup + draws; (b): the sharded
+# checkpoints' run (warmup, draws before the cut, draws after it) and
+# run_warmup's stop.
+DATA_AXIS_RUN = (300, 500)
+SHARDED_CKPT = (100, 200, 200)
+SHARDED_WARMUP_STOP = 50
+
+
+def data_axis_phase(cfg, init, data, vag, nuts_mean, nuts_se) -> dict:
+    """Phase 4i: observation sharding and sharded checkpoints at
+    glm100_fused's full width through K1, on a world of one (see the module
+    docstring). ``vag`` is phase 4's fused value+grad. Returns each path's
+    launches."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mlx_mcmc_tpu_torch.benchmarks.collective_overhead import unit_normal_prior
+    from mlx_mcmc_tpu_torch.io import (load_checkpoint, resume, resume_warmup, run_warmup,
+                                       save_checkpoint)
+    from mlx_mcmc_tpu_torch.ops.glm import (fused_data_specs, make_fused_logistic_vag,
+                                            prepare_fused_logistic_data)
+    from mlx_mcmc_tpu_torch.parallel import (chain_mesh, data_chain_mesh, initialize_distributed,
+                                             sample_sharded)
+
+    initialize_distributed()
+    if (dist.get_backend(), dist.get_world_size()) != ("nccl", 1):
+        fail(f"initialize_distributed(): backend {dist.get_backend()}, world "
+             f"{dist.get_world_size()}; want nccl, 1")
+    paths = {}
+    d, depth = data["dim"], cfg["max_tree_depth"]
+    one = prepare_fused_logistic_data(data["Xp"][:, :d], data["yp"], num_shards=1)
+    if not (torch.equal(one["Xp"], data["Xp"]) and torch.equal(one["yp"], data["yp"])):
+        fail("prepare_fused_logistic_data(num_shards=1) differs from phase 4's data")
+
+    # (a) NUTS forced to its static schedule on data_chain_mesh(1, 1)
+    warmup, draws = DATA_AXIS_RUN
+    label = "glm100_fused data axis (a data mesh of one)"
+    res, wall, n, captures = counted(lambda: sample_sharded(
+        None, init, mesh=data_chain_mesh(1, 1), data=one, data_axis="data",
+        data_specs=fused_data_specs(one, "data"), log_prior_fn=unit_normal_prior,
+        value_and_grad_fn=make_fused_logistic_vag(include_prior=False),
+        num_chains=cfg["num_chains"], num_warmup=warmup, num_samples=draws, kernel="nuts", seed=1,
+        max_tree_depth=depth, target_accept=cfg["target_accept"], store_dtype=cfg["store_dtype"]))
+    launched = {"glm_fused_logistic": n["K1"], "philox_step_draws": n["philox"]}
+    check_sampler(label, sharded_metrics(res, launched, wall), cfg["target_accept"], 5,
+                  ["glm_fused_logistic", "philox_step_draws"])
+    min_ess = posterior_checks(label, dict(cfg, num_samples=draws), data, res.samples["beta"],
+                               nuts_mean, nuts_se)
+    transitions, leaves = warmup + draws, 2 ** depth - 1
+    # init, the probe, every transition's fixed-trip tree (the root leaf and
+    # 2^(depth-1) - 1 pair iterations of two), and the capture's eager warm-up
+    want_k1 = 1 + res.probe_evals + leaves * transitions + leaves
+    sums = res.collectives["data"]["count"]
+    log(f"{label}: wall {wall:.2f} s, K1 {n['K1']} (predicted 1 + {res.probe_evals} + {leaves} x "
+        f"{transitions} + {leaves} = {want_k1}), Philox {n['philox']}, data-axis sums {sums}, "
+        f"host syncs {res.host_syncs} (the probe's {res.probe_evals}), graph replays "
+        f"{res.graph_replays}, graphs captured {captures}; accept {res.acceptance_rate:.4f}, "
+        f"depth {float(res.info.tree_depth.float().mean()):.3f}, divergences {res.divergences}, "
+        f"min-ESS {min_ess:.1f}; collectives " + json.dumps(res.collectives))
+    if n["K1"] != want_k1:
+        fail(f"{label}: {n['K1']} K1 launches, want {want_k1}")
+    if sums != want_k1:
+        fail(f"{label}: {sums} data-axis sums, want one a value+grad ({want_k1})")
+    if n["philox"] != transitions + 1:
+        fail(f"{label}: {n['philox']} Philox launches, want a step's and the probe's "
+             f"({transitions + 1})")
+    if res.host_syncs != res.probe_evals or res.graph_replays != 3 * transitions \
+            or captures != 3:
+        fail(f"{label}: host syncs {res.host_syncs}, replays {res.graph_replays}, captures "
+             f"{captures}; want the probe's {res.probe_evals}, 3 a transition "
+             f"({3 * transitions}) and root, pairs and result once")
+    paths[label] = dict(n, wall_seconds=wall, data_sums=sums, host_syncs=res.host_syncs)
+    del res
+
+    # (b) sharded checkpoints on chain_mesh(): a cut run, the disk, resume;
+    # run_warmup, resume_warmup; against the uninterrupted run, on its graphs
+    warmup, first, rest = SHARDED_CKPT
+    mesh = chain_mesh()
+    kw = dict(data=data, value_and_grad_fn=vag, num_chains=cfg["num_chains"], kernel="nuts",
+              seed=1, max_tree_depth=depth, target_accept=cfg["target_accept"],
+              store_dtype=cfg["store_dtype"], num_warmup=warmup)
+    label = "glm100_fused sharded checkpoints"
+    full, w0, n0, cap0 = counted(lambda: sample_sharded(None, init, mesh=mesh,
+                                                        num_samples=first + rest, **kw))
+    half, w1, n1, cap1 = counted(lambda: sample_sharded(None, init, mesh=mesh, num_samples=first,
+                                                        **kw))
+    same_run(f"{label} (the first {first})", half, full, slice(0, first))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sharded.npz")
+        save_checkpoint(path, half)
+        loaded = load_checkpoint(path)
+    cont, w2, n2, cap2 = counted(lambda: resume(None, loaded, num_samples=rest, data=data,
+                                                value_and_grad_fn=vag, mesh=mesh))
+    same_run(f"{label} (resumed)", cont, full, slice(first, None))
+    wck, w3, n3, cap3 = counted(lambda: run_warmup(None, init, stop=SHARDED_WARMUP_STOP,
+                                                   mesh=mesh, **kw))
+    wres, w4, n4, cap4 = counted(lambda: resume_warmup(None, wck, num_samples=first + rest,
+                                                       data=data, value_and_grad_fn=vag,
+                                                       mesh=mesh))
+    same_run(f"{label} (run_warmup, resume_warmup)", wres, full, slice(None))
+    try:
+        resume(None, loaded, num_samples=rest, data=one, value_and_grad_fn=vag,
+               mesh=data_chain_mesh(1, 1), data_axis="data", log_prior_fn=unit_normal_prior)
+        refused = None
+    except ValueError as err:
+        refused = str(err)
+    if refused is None or "mesh layout differs" not in refused:
+        fail(f"{label}: a chain_mesh() checkpoint on data_chain_mesh(1, 1) with a data axis: "
+             f"{refused or 'resumed'}; want the layout refused")
+    log(f"{label}: sample_sharded {warmup} + {first + rest} {w0:.2f} s (K1 {n0['K1']}, "
+        f"{cap0} graphs captured); {warmup} + {first} {w1:.2f} s (K1 {n1['K1']}), the disk, "
+        f"resume {rest} {w2:.2f} s (K1 {n2['K1']}); run_warmup [0, {SHARDED_WARMUP_STOP}) "
+        f"{w3:.2f} s (K1 {n3['K1']}), resume_warmup {w4:.2f} s (K1 {n4['K1']}); draws and every "
+        f"info field bit-identical to the uninterrupted run's; graphs the continuations "
+        f"captured {cap1 + cap2 + cap3 + cap4}; another layout refused: {refused[:100]}")
+    if cap1 + cap2 + cap3 + cap4 != 0:
+        fail(f"{label}: the continuations captured {cap1 + cap2 + cap3 + cap4} graphs, want 0")
+    paths[f"{label}: sample_sharded ({warmup} + {first + rest})"] = n0
+    paths[f"{label}: sample_sharded ({warmup} + {first}), then resume ({rest})"] = {
+        k: n1[k] + n2[k] for k in ("K1", "philox")}
+    paths[f"{label}: run_warmup, resume_warmup"] = {k: n3[k] + n4[k] for k in ("K1", "philox")}
+    dist.destroy_process_group()
+    return paths
+
+
 @contextlib.contextmanager
 def k1_rows(seen: list):
     """While open, every call of K1's dispatcher records the rows of its
@@ -2559,6 +2706,7 @@ def main() -> None:
     rows["K1"]["device_breakdown_ms"] = device_breakdown_ms(
         lambda: fused_logistic_vag_cuda(data["Xp"], data["yp"], z_main),
         ("round_z", "glm_onepass", "sum_splits"))
+    rows["K1"]["products_library_ms"] = products_yardstick_ms(data["Xp"], z_main, chain_tile=128)
     glm_bits_check("K1 one-pass", data["Xp"], data["yp"], z_main)
     n_r, d_r, c_r = 777, 37, 1000
     x_r = (torch.randn(n_r, d_r, generator=gen, device="cuda") / math.sqrt(d_r)).bfloat16()
@@ -2570,6 +2718,8 @@ def main() -> None:
     lin_problem = build_problem(lin_cfg)
     lin_data = lin_problem[2]
     rows["K2"] = check_glm("linear", "main", lin_data["Xp"], lin_data["yp"], z_main, timed=True)
+    rows["K2"]["products_library_ms"] = products_yardstick_ms(lin_data["Xp"], z_main,
+                                                              chain_tile=128)
     bits_check("K2 one-pass", lambda z: fused_linear_vag_cuda(lin_data["Xp"], lin_data["yp"], z),
                z_main)
     y_lin = (x_r.float() @ torch.randn(d_r, generator=gen, device="cuda")
@@ -2585,6 +2735,8 @@ def main() -> None:
     rows["K1_int8"]["device_breakdown_ms"] = device_breakdown_ms(
         lambda: fused_logistic_vag_cuda(q100["Xp"], q100["yp"], z_q),
         ("round_z", "glm_onepass", "sum_splits"))
+    rows["K1_int8"]["products_library_ms"] = products_yardstick_ms(
+        q100["Xp"].to(torch.bfloat16), z_q, chain_tile=128)
     glm_bits_check("K1 int8 one-pass", q100["Xp"], q100["yp"], z_q)
     del q100, z_q
     rq_narrow = prepare_fused_logistic_data(x_r, y_r, quantize="int8")
@@ -2658,6 +2810,7 @@ def main() -> None:
     fused_hoisted_vag_cuda.launches = 0
     rows["K4"] = check_glm("hoisted", "main", data["Xp"], None, z_main, timed=True)
     rows["K4"].update(hoisted_gap(data, z_main))
+    rows["K4"]["products_library_ms"] = rows["K1"]["products_library_ms"]  # K1's two products
     bits_check("K4 one-pass", lambda z: fused_hoisted_vag_cuda(data["Xp"], z), z_main)
     variants["K4"]["wide_ragged"] = check_glm("hoisted", "wide ragged", rw["Xp"], None, z_rw, timed=False)
     variants["K4"]["int8_wide_ragged"] = check_glm(
@@ -2873,6 +3026,11 @@ def main() -> None:
     log("glm100_fused sharded paths: " + json.dumps(shard_paths))
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
+    # --- glm100_fused: observations over a data mesh, sharded checkpoints ---
+    data_paths = data_axis_phase(cfg, init, data, k1_vag, nuts_mean, nuts_se)
+    log("glm100_fused data-axis paths: " + json.dumps(data_paths))
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
     # --- glm100_fused through HMC and the MCMC facade ----------------------
     hmc_path = hmc_full_width(cfg, init, data, k1_vag, nuts_mean, nuts_se)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
@@ -3064,7 +3222,8 @@ def main() -> None:
                                          **{k: v["K1"] for k, v in ckpt_paths.items()},
                                          **{k: v["K1"] for k, v in temper_paths.items()},
                                          **{k: v["K1"] for k, v in measure_paths.items()},
-                                         **{k: v["K1"] for k, v in shard_paths.items()}}
+                                         **{k: v["K1"] for k, v in shard_paths.items()},
+                                         **{k: v["K1"] for k, v in data_paths.items()}}
         if key == "K3":
             extra["launches_by_path"] = {"poisson1000_cov": launches[key],
                                          "poisson1000_cov advi": advi_paths["poisson1000_cov advi"]
@@ -3079,6 +3238,7 @@ def main() -> None:
                 **{k: v["philox"] for k, v in temper_paths.items()},
                 **{k: v["philox"] for k, v in measure_paths.items()},
                 **{k: v["philox"] for k, v in shard_paths.items()},
+                **{k: v["philox"] for k, v in data_paths.items()},
                 **{k: v["philox"] for k, v in sampler_paths.items() if "philox" in v})
             # the raw-word kernel: the tempered swap, ensemble walker and SMC
             # resampling uniforms

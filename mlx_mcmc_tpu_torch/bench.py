@@ -22,7 +22,8 @@ on the GPU:
 As in the reference, ``BENCH_CONFIG`` (or the first argument) names the
 config and ``BENCH_CHAINS``, ``BENCH_SAMPLES``, ``BENCH_WARMUP`` and
 ``BENCH_DEPTH`` override its chain count, draws, warmup steps and depth
-cap; ``BENCH_SKIP_FUNNEL`` drops the funnel detail row. The line's value is
+cap, ``BENCH_THIN`` its thinning; ``BENCH_SKIP_FUNNEL`` drops the funnel
+detail row. The line's value is
 rounded to 2 places and ``vs_baseline`` to 1, the detail's statistics as
 the reference rounds them.
 
@@ -228,6 +229,7 @@ ENV_OVERRIDES = {
     "BENCH_SAMPLES": "num_samples",
     "BENCH_WARMUP": "num_warmup",
     "BENCH_DEPTH": "max_tree_depth",
+    "BENCH_THIN": "thin",
 }
 
 

@@ -76,7 +76,9 @@ class MCMC:
         ``thin``, ``transforms``, ``data`` and ``device``.
         ``chain_method='sharded'`` splits the chains over the ranks of the
         world (``sample_sharded``; ``num_chains`` divisible by the world
-        size) with pooled adaptation, for every method but 'ensemble';
+        size) with pooled adaptation, for every method but 'ensemble'; its
+        kwargs (``mesh``, ``axis``, ``data_axis``, ``data_specs``,
+        ``log_prior_fn``, ``device_diagnostics``, ...) pass through;
         Metropolis then runs the engine's adaptive warmup (the reference's
         sharded route, which differs from the restart in its stream only).
         Metropolis runs ``num_warmup`` draws at the fixed ``proposal_scale``

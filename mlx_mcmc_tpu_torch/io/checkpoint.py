@@ -27,12 +27,19 @@ package's streams, with one warning that the continuation is statistical.
 A result without a payload (``resume_warmup``'s, as in the reference) is
 saved position-only (the legacy format) and resumes statistically.
 
-Not here: Orbax, which is JAX-only (``backend='orbax'`` raises), and the
-sharded paths (``mesh=`` raises, ROADMAP A.10b). A ``sample_sharded``
-result saves with its mesh layout (``"mesh_axes"``) and its adaptation
-state tiled over the ranks, as the reference writes it; continuing such a
-checkpoint raises until A.10b. Every other checkpoint has
-``"mesh_axes": null``.
+Sharded runs (the reference's ``_resume_exact_sharded`` and
+``_sharded_warmup_run``): a ``sample_sharded`` result, or ``run_warmup(...,
+mesh=...)``'s dict, saves with its mesh layout (``"mesh_axes"``), its
+positions over every rank's chains and its adaptation state tiled over the
+ranks of the chain axis, as the reference writes them. ``resume``,
+``run_warmup`` and ``resume_warmup`` with ``mesh=`` (and ``axis``,
+``data_axis``, ``data_specs``, ``log_prior_fn`` as ``sample_sharded``
+takes them) continue it on every rank: each takes its block of the chains
+and its own row of the adaptation state, and replays the sharded runner's
+graphs. Pooled statistics round by layout, so a mesh of another layout, a
+sharded checkpoint without ``mesh=`` and an unsharded one with it all
+raise, naming both layouts. Every unsharded checkpoint has ``"mesh_axes":
+null``. Not here: Orbax, which is JAX-only (``backend='orbax'`` raises).
 """
 
 from __future__ import annotations
@@ -88,16 +95,53 @@ def _unflatten(template, leaves):
     return next(leaves)
 
 
-def _no_mesh(where: str, mesh, ckpt=None) -> None:
-    """Sharded checkpoint paths (``mesh=``, or a checkpoint that names its
-    mesh layout) wait for ROADMAP A.10b."""
-    if mesh is not None:
-        raise NotImplementedError(f"{where}(mesh=...): the sharded checkpoint paths are not "
-                                  "ported yet (ROADMAP A.10b)")
-    if ckpt is not None and ckpt.get("mesh_axes") is not None:
-        raise NotImplementedError(f"{where}: a sharded run's checkpoint (mesh_axes "
-                                  f"{ckpt['mesh_axes']}) needs the sharded checkpoint paths, not "
-                                  "ported yet (ROADMAP A.10b)")
+def _check_mesh_axes(where: str, stored, mesh, axis: str, data_axis) -> None:
+    """The mesh layout of a continuation must be the checkpointed run's
+    (None for an unsharded run and for ``mesh=None``): pooled statistics
+    round by layout, so no other continues it bit for bit."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from mlx_mcmc_tpu_torch.parallel.sharded import mesh_axes_meta
+
+    if mesh is None:
+        current = None
+    elif isinstance(mesh, DeviceMesh):
+        current = mesh_axes_meta(mesh, axis, data_axis)
+    else:
+        raise TypeError(f"{where}: mesh must be a torch.distributed DeviceMesh (chain_mesh, "
+                        f"data_chain_mesh), got {type(mesh).__name__}")
+    if stored != current:
+        raise ValueError(
+            f"{where}: the mesh layout differs from the checkpointed run's (checkpoint: {stored}, "
+            f"{where}: {current}). Pooled adaptation statistics round differently per layout, so "
+            "a continuation on another layout, or of a sharded run without its mesh, is not "
+            "bit-exact: re-create the original mesh, or re-run from the start.")
+
+
+def _no_sharding(where: str, mesh=None, data_axis=None, data_specs=None, log_prior_fn=None):
+    """A path that runs on one device takes no sharding argument."""
+    given = [name for name, v in (("mesh", mesh), ("data_axis", data_axis),
+                                  ("data_specs", data_specs), ("log_prior_fn", log_prior_fn))
+             if v is not None]
+    if given:
+        raise ValueError(f"{where}: {given} apply to sharded runs only (mesh=...); this "
+                         "checkpoint continues on one device")
+
+
+def _check_sharding_guards(where: str, ckpt, log_prior_fn, data_specs) -> None:
+    """``log_prior_fn`` and ``data_specs`` come again exactly where the run
+    had them: either way round, a difference changes the arithmetic or the
+    data layout without an error. (A checkpoint that does not record them,
+    the JAX package's warmup ones, is not checked.)"""
+    for key, name, given in (("has_log_prior", "log_prior_fn", log_prior_fn),
+                             ("has_data_specs", "data_specs", data_specs)):
+        stored = ckpt.get(key)
+        if stored is not None and bool(stored) != (given is not None):
+            raise ValueError(
+                f"{where}: the checkpointed sharded run "
+                + ("passed" if stored else "did not pass") + f" {name}; "
+                + ("re-pass the same one" if stored else f"do not pass {name}")
+                + " to continue it bit for bit")
 
 
 def _result_state(result) -> Dict[str, Any]:
@@ -161,6 +205,9 @@ def _warmup_payload(ckpt: Dict[str, Any]):
     meta["callable_kwargs"] = list(ckpt.get("callable_kwargs", []))
     meta["data_fingerprint"] = ckpt.get("data_fingerprint")
     meta["mesh_axes"] = ckpt.get("mesh_axes")
+    for key in ("has_log_prior", "has_data_specs"):
+        if ckpt.get(key) is not None:
+            meta[key] = bool(ckpt[key])
     meta["param_names"] = list(ckpt["positions"].keys())
     meta["n_adapt"] = len(ckpt["adapt_leaves"])
     meta["n_traj"] = len(ckpt["traj_leaves"])
@@ -198,8 +245,8 @@ def _sampling_payload(payload: Dict[str, Any]):
         has_transforms=payload["has_transforms"],
         data_fingerprint=payload["data_fingerprint"],
         mesh_axes=payload.get("mesh_axes"),
-        has_log_prior=False,
-        has_data_specs=False,
+        has_log_prior=bool(payload.get("has_log_prior", False)),
+        has_data_specs=bool(payload.get("has_data_specs", False)),
         param_names=list(positions.keys()),
         rng=RNG,
     )
@@ -239,6 +286,8 @@ def _load_warmup_npz(data, meta) -> Dict[str, Any]:
         "positions": {k: data[f"pos_{k}"] for k in meta["param_names"]},
         "adapt_leaves": [data[f"adapt_{i}"] for i in range(meta["n_adapt"])],
         "traj_leaves": [data[f"traj_{i}"] for i in range(meta["n_traj"])],
+        # a sharded run's (the port's files only)
+        **{k: meta[k] for k in ("has_log_prior", "has_data_specs") if k in meta},
     }
 
 
@@ -295,6 +344,10 @@ def resume(
     data=None,
     transforms=None,
     mesh=None,
+    axis: str = "chains",
+    data_axis: Optional[str] = None,
+    data_specs=None,
+    log_prior_fn=None,
     device=None,
     **kwargs,
 ) -> MCMCResult:
@@ -310,10 +363,17 @@ def resume(
     One written by the JAX package continues statistically, with a
     warning. A legacy position-only checkpoint resumes with its tunables
     on a fresh stream (``seed``, by default the draws completed + 1); extra
-    kwargs go to :func:`sample`. ``device=None`` means CUDA and raises
-    without a GPU; pass ``'cpu'`` for the CPU.
+    kwargs go to :func:`sample`; it takes no sharding argument. ``device=None``
+    means CUDA and raises without a GPU; pass ``'cpu'`` for the CPU.
+
+    A ``sample_sharded`` checkpoint continues with ``mesh=`` a mesh of its
+    layout (and ``axis``, ``data_axis``, ``data_specs`` and ``log_prior_fn``
+    as the run had them; each of the last two either way round): every
+    rank calls ``resume`` alike and gets the global result, whose draws
+    equal the uninterrupted ``sample_sharded`` run's bit for bit. A
+    checkpoint of ``sample()`` cannot continue sharded, nor one of
+    ``sample_sharded`` without ``mesh=``.
     """
-    _no_mesh("resume", mesh)
     dev = resolve_device(device)
     if hasattr(checkpoint, "resume_payload"):
         if checkpoint.resume_payload is not None:
@@ -332,11 +392,18 @@ def resume(
                 f"always uses the checkpointed run's stream (seed={checkpoint['seed']}). For an "
                 "independent continuation, resume a legacy position-only checkpoint.",
                 stacklevel=2)
-        _no_mesh("resume", None, checkpoint)
+        if checkpoint.get("mesh_axes") is not None or mesh is not None:
+            return _resume_exact_sharded(
+                log_prob_fn, checkpoint, num_samples=num_samples, data=data,
+                transforms=transforms, mesh=mesh, axis=axis, data_axis=data_axis,
+                data_specs=data_specs, log_prior_fn=log_prior_fn, device=dev, **kwargs)
+        _no_sharding("resume", None, data_axis, data_specs, log_prior_fn)
         return _resume_exact(log_prob_fn, checkpoint, num_samples=num_samples, data=data,
                              transforms=transforms, device=dev, **kwargs)
     if checkpoint.get("phase") == "warmup":
         raise ValueError("resume() got a mid-warmup checkpoint; use resume_warmup()")
+    # a position-only checkpoint continues through sample() on one device
+    _no_sharding("resume", mesh, data_axis, data_specs, log_prior_fn)
     if seed is None:
         # continue the stream deterministically past the completed draws
         seed = int(checkpoint["draws_completed"]) + 1
@@ -469,20 +536,83 @@ def _resume_exact(log_prob_fn, ckpt, *, num_samples: int, data, transforms, devi
     return _result(result, samples, num_chains, num_samples, kernel, payload)
 
 
-def _result(result, samples, num_chains, num_samples, kernel, payload=None) -> MCMCResult:
+def _result(result, samples, num_chains, num_samples, kernel, payload=None, info=None,
+            collectives=None) -> MCMCResult:
     return MCMCResult(
-        samples=samples, info=result.info, tunables=result.final_tunables,
-        num_chains=num_chains, num_samples=num_samples, kernel=kernel,
-        host_syncs=result.host_syncs, graph_replays=result.graph_replays,
+        samples=samples, info=result.info if info is None else info,
+        tunables=result.final_tunables, num_chains=num_chains, num_samples=num_samples,
+        kernel=kernel, host_syncs=result.host_syncs, graph_replays=result.graph_replays,
         leapfrog_counts=result.leapfrog_counts, probe_evals=result.probe_evals,
-        resume_payload=payload)
+        resume_payload=payload, collectives=collectives)
+
+
+def _resume_exact_sharded(log_prob_fn, ckpt, *, num_samples: int, data, transforms, mesh,
+                          axis: str, data_axis, data_specs, log_prior_fn, device, **kwargs):
+    """Bit-exact sampling continuation of a ``sample_sharded`` run on every
+    rank: the sharded runner (``parallel.sharded.prepare``: the run's own,
+    with its graphs, where it is cached) with an empty warmup segment, from
+    this rank's block of the positions and its row of the tiled adaptation
+    state, drawing ``[offset, offset + num_samples)``; the draws gathered
+    over the chain axis."""
+    from mlx_mcmc_tpu_torch.parallel import sharded
+
+    if transforms is not None:
+        raise ValueError("resume: sharded runs take no transforms; the checkpoint cannot have "
+                         "been made with them")
+    _check_mesh_axes("resume", ckpt.get("mesh_axes"), mesh, axis, data_axis)
+    _check_sharding_guards("resume", ckpt, log_prior_fn, data_specs)
+    given = [k for k in TUNABLE_SETTINGS if k in kwargs]
+    if given:
+        raise ValueError(f"resume: {given} come from the checkpoint; do not pass them")
+    thin, fp = _validate_exact_resume(ckpt, kwargs, None, data)
+    _warn_if_foreign(ckpt, "resume")
+    kernel, num_warmup = ckpt["kernel"], int(ckpt["num_warmup"])
+    num_chains = int(ckpt["num_chains"])
+    example, z0_batch = _positions(ckpt, device)
+    sh = sharded.prepare(
+        log_prob_fn, example, num_chains=num_chains, kernel=kernel, num_warmup=num_warmup,
+        mesh=mesh, axis=axis, data=data, data_axis=data_axis, data_specs=data_specs,
+        log_prior_fn=log_prior_fn, device=device, where="resume",
+        options=dict(kwargs, **{k: ckpt[k] for k in TUNABLE_SETTINGS if k != "store_dtype"},
+                     store_dtype=ckpt.get("store_dtype")))
+    data_sum = 0 if sh["data_sum"] is None else sh["data_sum"].launches
+    offset = int(ckpt["next_sample_start"])
+    result = sh["entry"]["run"](
+        int(ckpt["seed"]), sharded.rank_rows(sh, z0_batch), sh["data"],
+        sharded.rank_state(sh, _resume_state_from_ckpt(ckpt, device)), offset,
+        num_samples=num_samples, warmup_start=num_warmup, warmup_stop=num_warmup)
+    samples, info = sharded.gather_draws(sh, result)
+    payload = sharded.payload(
+        sh, result, has_log_prior=log_prior_fn is not None,
+        has_data_specs=data_specs is not None, num_warmup=num_warmup, num_chains=num_chains,
+        next_sample_start=offset + num_samples, thin=thin, kernel=kernel,
+        seed=int(ckpt["seed"]), step_size=ckpt["step_size"],
+        adapt_step_size=bool(ckpt["adapt_step_size"]),
+        adapt_mass_matrix=bool(ckpt["adapt_mass_matrix"]), target_accept=ckpt["target_accept"],
+        store_dtype=ckpt.get("store_dtype"), kernel_kwargs=run_kwargs(kernel, kwargs),
+        has_transforms=False, data_fingerprint=fp)
+    return _result(result, samples, num_chains, num_samples, kernel, payload, info,
+                   sharded.collectives(sh, [result], data_sum))
 
 
 def _warmup_ckpt_dict(result, unravel, *, step, num_warmup, num_chains, kernel, seed,
-                      sampler_kwargs, callable_kwargs, data_fingerprint) -> Dict[str, Any]:
+                      sampler_kwargs, callable_kwargs, data_fingerprint, sh=None,
+                      has_log_prior=None, has_data_specs=None) -> Dict[str, Any]:
     """A mid-warmup checkpoint dict (the reference's keys, plus
     ``callable_kwargs``, ``rng`` and, in memory only, the segment's
-    ``host_syncs`` and ``probe_evals``)."""
+    ``host_syncs`` and ``probe_evals``). A sharded segment's (``sh``,
+    ``parallel.sharded.prepare``'s) holds the positions of every rank's
+    chains, the adaptation state tiled over the ranks, the mesh layout and
+    whether the run had ``log_prior_fn`` and ``data_specs``."""
+    mesh_axes = None
+    if sh is not None:
+        from mlx_mcmc_tpu_torch.parallel.sharded import global_state
+
+        state = global_state(sh, result)
+        result = result._replace(
+            final_state=result.final_state._replace(position=state["flat_position"]),
+            final_adapt=state["adapt"], final_traj=state["traj"])
+        mesh_axes = sh["mesh_axes"]
     return {
         "phase": "warmup",
         "warmup_step": int(step),
@@ -494,7 +624,9 @@ def _warmup_ckpt_dict(result, unravel, *, step, num_warmup, num_chains, kernel, 
         "sampler_kwargs": dict(sampler_kwargs or {}),
         "callable_kwargs": list(callable_kwargs),
         "data_fingerprint": data_fingerprint,
-        "mesh_axes": None,
+        "mesh_axes": mesh_axes,
+        "has_log_prior": has_log_prior,
+        "has_data_specs": has_data_specs,
         "rng": RNG,
         # (chains, *event) per parameter: the structure a resume rebuilds
         "positions": {k: _numpy(v) for k, v in unravel(result.final_state.position).items()},
@@ -517,6 +649,10 @@ def run_warmup(
     data=None,
     jitter: float = 0.0,
     mesh=None,
+    axis: str = "chains",
+    data_axis: Optional[str] = None,
+    data_specs=None,
+    log_prior_fn=None,
     device=None,
     **kwargs,
 ) -> Dict[str, Any]:
@@ -530,8 +666,13 @@ def run_warmup(
     num_warmup=num_warmup, seed=seed)``'s bit for bit. ``log_prob_fn`` may
     be None with a ``value_and_grad_fn``. ``device=None`` means CUDA and
     raises without a GPU.
+
+    With ``mesh=`` the segment runs sharded on every rank as
+    ``sample_sharded`` runs it (``axis``, ``data_axis``, ``data_specs``,
+    ``log_prior_fn`` as it takes them), and the eventual draws equal the
+    uninterrupted ``sample_sharded`` run's bit for bit; the dict records the
+    mesh layout, which ``resume_warmup`` must re-create.
     """
-    _no_mesh("run_warmup", mesh)
     if not 0 < stop <= num_warmup:
         raise ValueError(f"stop must be in (0, {num_warmup}], got {stop}")
     if not isinstance(seed, (int, np.integer)):
@@ -540,6 +681,25 @@ def run_warmup(
     dev = resolve_device(device)
     if kwargs.get("store_dtype") is not None:  # recorded by name
         kwargs["store_dtype"] = dtype_name(_as_dtype(kwargs["store_dtype"]))
+    record = dict(num_warmup=num_warmup, num_chains=num_chains, kernel=kernel, seed=seed,
+                  sampler_kwargs=dict(_storable_kwargs(kwargs), jitter=jitter),
+                  callable_kwargs=_callable_names(kwargs), data_fingerprint=data_fingerprint(data))
+    if mesh is not None:
+        from mlx_mcmc_tpu_torch.parallel import sharded
+
+        sh = sharded.prepare(log_prob_fn, initial_params, num_chains=num_chains, kernel=kernel,
+                             num_warmup=num_warmup, mesh=mesh, axis=axis, data=data,
+                             data_axis=data_axis, data_specs=data_specs,
+                             log_prior_fn=log_prior_fn, device=dev, options=kwargs,
+                             where="run_warmup")
+        z0_batch = sharded.rank_starts(sh, initial_params, seed, jitter, dev)
+        result = sh["entry"]["run"](int(seed), z0_batch, sh["data"], None, 0, num_samples=0,
+                                    warmup_start=0, warmup_stop=stop,
+                                    init_inv_mass_diag=kwargs.get("init_inv_mass_diag"))
+        return _warmup_ckpt_dict(result, sh["entry"]["unravel"], step=stop, sh=sh,
+                                 has_log_prior=log_prior_fn is not None,
+                                 has_data_specs=data_specs is not None, **record)
+    _no_sharding("run_warmup", None, data_axis, data_specs, log_prior_fn)
     entry = _segment_runner("run_warmup", log_prob_fn, initial_params, kernel=kernel,
                             num_warmup=num_warmup, num_chains=num_chains, data=data,
                             transforms=None, device=dev, kwargs=kwargs)
@@ -550,10 +710,7 @@ def run_warmup(
         z0_batch = jittered_starts(int(seed), z0_batch, jitter)
     result = entry["run"](int(seed), z0_batch, data, None, 0, num_samples=0, warmup_start=0,
                           warmup_stop=stop, init_inv_mass_diag=kwargs.get("init_inv_mass_diag"))
-    return _warmup_ckpt_dict(
-        result, entry["unravel"], step=stop, num_warmup=num_warmup, num_chains=num_chains,
-        kernel=kernel, seed=seed, sampler_kwargs=dict(_storable_kwargs(kwargs), jitter=jitter),
-        callable_kwargs=_callable_names(kwargs), data_fingerprint=data_fingerprint(data))
+    return _warmup_ckpt_dict(result, entry["unravel"], step=stop, **record)
 
 
 def resume_warmup(
@@ -564,6 +721,10 @@ def resume_warmup(
     stop: Optional[int] = None,
     data=None,
     mesh=None,
+    axis: str = "chains",
+    data_axis: Optional[str] = None,
+    data_specs=None,
+    log_prior_fn=None,
     device=None,
     **kwargs,
 ):
@@ -578,15 +739,24 @@ def resume_warmup(
     ``value_and_grad_fn``) or other ``data`` than the run's (either way)
     raises. A checkpoint of the JAX package continues statistically, with a
     warning. ``device=None`` means CUDA and raises without a GPU.
+
+    A sharded ``run_warmup(..., mesh=...)`` checkpoint continues with
+    ``mesh=`` a mesh of its layout (and ``axis``, ``data_axis``,
+    ``data_specs``, ``log_prior_fn`` as the run had them), on every rank,
+    giving the uninterrupted ``sample_sharded`` run's bits; an unsharded one
+    cannot continue sharded, nor a sharded one without ``mesh=``.
     """
-    _no_mesh("resume_warmup", mesh)
     dev = resolve_device(device)
     if isinstance(checkpoint, str):
         checkpoint = load_checkpoint(checkpoint)
     if checkpoint.get("phase") != "warmup":
         raise ValueError("resume_warmup needs a mid-warmup checkpoint (run_warmup); for "
                          "post-warmup checkpoints use resume()")
-    _no_mesh("resume_warmup", None, checkpoint)
+    _check_mesh_axes("resume_warmup", checkpoint.get("mesh_axes"), mesh, axis, data_axis)
+    if mesh is None:
+        _no_sharding("resume_warmup", None, data_axis, data_specs, log_prior_fn)
+    else:
+        _check_sharding_guards("resume_warmup", checkpoint, log_prior_fn, data_specs)
     start = int(checkpoint["warmup_step"])
     num_warmup = int(checkpoint["num_warmup"])
     kernel, num_chains, seed = checkpoint["kernel"], int(checkpoint["num_chains"]), \
@@ -598,15 +768,35 @@ def resume_warmup(
     fp = _check_fingerprint("resume_warmup", checkpoint, data)
     _warn_if_foreign(checkpoint, "resume_warmup")
     example, z0_batch = _positions(checkpoint, dev)
-    entry = _segment_runner("resume_warmup", log_prob_fn, example, kernel=kernel,
-                            num_warmup=num_warmup, num_chains=num_chains, data=data,
-                            transforms=None, device=dev, kwargs=kwargs)
-    result = entry["run"](seed, z0_batch, data, _resume_state_from_ckpt(checkpoint, dev), 0,
+    state = _resume_state_from_ckpt(checkpoint, dev)
+    sh = None
+    if mesh is not None:
+        from mlx_mcmc_tpu_torch.parallel import sharded
+
+        sh = sharded.prepare(log_prob_fn, example, num_chains=num_chains, kernel=kernel,
+                             num_warmup=num_warmup, mesh=mesh, axis=axis, data=data,
+                             data_axis=data_axis, data_specs=data_specs,
+                             log_prior_fn=log_prior_fn, device=dev, options=kwargs,
+                             where="resume_warmup")
+        entry, run_data = sh["entry"], sh["data"]
+        z0_batch, state = sharded.rank_rows(sh, z0_batch), sharded.rank_state(sh, state)
+    else:
+        entry = _segment_runner("resume_warmup", log_prob_fn, example, kernel=kernel,
+                                num_warmup=num_warmup, num_chains=num_chains, data=data,
+                                transforms=None, device=dev, kwargs=kwargs)
+        run_data = data
+    result = entry["run"](seed, z0_batch, run_data, state, 0,
                           num_samples=0 if partial else num_samples, warmup_start=start,
                           warmup_stop=stop if partial else num_warmup)
     if partial:
         return _warmup_ckpt_dict(
             result, entry["unravel"], step=stop, num_warmup=num_warmup, num_chains=num_chains,
             kernel=kernel, seed=seed, sampler_kwargs=checkpoint.get("sampler_kwargs"),
-            callable_kwargs=_callable_names(kwargs), data_fingerprint=fp)
-    return _result(result, entry["unravel"](result.positions), num_chains, num_samples, kernel)
+            callable_kwargs=_callable_names(kwargs), data_fingerprint=fp, sh=sh,
+            has_log_prior=checkpoint.get("has_log_prior"),
+            has_data_specs=checkpoint.get("has_data_specs"))
+    if sh is None:
+        return _result(result, entry["unravel"](result.positions), num_chains, num_samples,
+                       kernel)
+    samples, info = sharded.gather_draws(sh, result)
+    return _result(result, samples, num_chains, num_samples, kernel, info=info)

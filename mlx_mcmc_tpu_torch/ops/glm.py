@@ -30,8 +30,14 @@ is the scaled operand ``Z * col_scale`` and g comes back unscaled
 (``make_fused_logistic_vag`` folds both).
 
 The kernel masks the ragged last row tile itself, so the port's data carries
-no padded rows and ``pad_const`` is 0. Data converted from the reference's
-padded layout keeps its zero rows and their constant (``convert.py``).
+no padded rows and ``pad_const`` is 0, except for observation sharding
+(``num_shards > 1``, ``parallel.sample_sharded(data_axis=...)``): there the
+rows pad with zeros to a multiple of ``num_shards``, so that every shard
+holds the same count, and the constants that each shard adds divide by
+``num_shards``, so that the sum over the shards adds each once.
+:func:`fused_data_specs` says how such data splits. Data converted from the
+reference's padded layout keeps its zero rows and their constant
+(``convert.py``).
 """
 
 from __future__ import annotations
@@ -76,14 +82,15 @@ def _quantize_int8(X: torch.Tensor):
 
 def _pack(X, y, quantize, num_shards: int, device):
     """``X`` keeps its dtype (bf16 or f32 for the kernels) or, with
-    ``quantize="int8"``, is stored as int8 with per-column scales; its
-    columns are padded with zeros to a multiple of 16, the depth of one
-    tensor-core step. Rows are not padded. Observation sharding is not
-    ported. Returns ``(Xp, yp, dim, col_scale or None)``."""
+    ``quantize="int8"``, is stored as int8 with per-column scales taken
+    over all of X; its columns are padded with zeros to a multiple of 16,
+    the depth of one tensor-core step, and its rows (and y's) to a
+    multiple of ``num_shards``. Returns ``(Xp, yp, dim, col_scale or
+    None, n)``, ``n`` the rows before padding."""
     if quantize not in (None, "int8"):
         raise ValueError(f"unknown quantize mode: {quantize!r}")
-    if num_shards != 1:
-        raise NotImplementedError("num_shards > 1 (observation sharding) is not ported yet")
+    if int(num_shards) < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
     dev = resolve_device(device)
     X = torch.as_tensor(X, device=dev)
     if not X.is_floating_point() or X.dim() != 2:
@@ -92,17 +99,23 @@ def _pack(X, y, quantize, num_shards: int, device):
     if quantize == "int8":
         X, col_scale = _quantize_int8(X)
     n, d = X.shape
-    Xp = X.new_zeros((n, _round_up(d, 16)))
-    Xp[:, :d] = X
-    yp = torch.as_tensor(y, dtype=torch.float32, device=dev).reshape(n).contiguous()
-    return Xp, yp, d, col_scale
+    n_pad = _round_up(n, int(num_shards))
+    Xp = X.new_zeros((n_pad, _round_up(d, 16)))
+    Xp[:n, :d] = X
+    yp = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
+    yp[:n] = torch.as_tensor(y, dtype=torch.float32, device=dev).reshape(n)
+    return Xp, yp, d, col_scale, n
 
 
 def prepare_fused_logistic_data(X, y, quantize=None, num_shards: int = 1, device=None) -> dict:
     """Pack a logistic-GLM dataset for :func:`make_fused_logistic_vag`
-    (layout as :func:`_pack` says; int8 data also carry ``col_scale``)."""
-    Xp, yp, d, col_scale = _pack(X, y, quantize, num_shards, device)
-    data = {"Xp": Xp, "yp": yp, "pad_const": 0.0, "dim": d}
+    (layout as :func:`_pack` says; int8 data also carry ``col_scale``).
+    A zero row adds -log 2 to the likelihood; ``pad_const`` adds it back,
+    divided by ``num_shards`` as the reference divides it (its
+    ``glm.py:528-536``)."""
+    Xp, yp, d, col_scale, n = _pack(X, y, quantize, num_shards, device)
+    pad_const = (Xp.shape[0] - n) * math.log(2.0) / int(num_shards)
+    data = {"Xp": Xp, "yp": yp, "pad_const": pad_const, "dim": d}
     if col_scale is not None:
         data["col_scale"] = col_scale
     if Xp.dtype == torch.float32:
@@ -116,20 +129,41 @@ def prepare_fused_linear_data(
     """Pack a linear-regression dataset for :func:`make_fused_linear_vag`
     (layout as :func:`_pack` says; no int8, as in the reference). The noise
     scale travels in the data as ``inv_noise_var`` and the Gaussian
-    normalizer as ``ll_norm``, so the vag cannot disagree with them."""
+    normalizer of the ``n`` observations as ``ll_norm``, divided by
+    ``num_shards`` (the reference's ``glm.py:426-427``), so the vag cannot
+    disagree with them. A zero row adds nothing to the sum of squares."""
     if quantize is not None:
         raise ValueError(f"quantize={quantize!r}: the linear kernel takes f32/bf16 X only")
-    Xp, yp, d, _ = _pack(X, y, None, num_shards, device)
+    Xp, yp, d, _, n = _pack(X, y, None, num_shards, device)
     data = {
         "Xp": Xp,
         "yp": yp,
-        "ll_norm": -0.5 * Xp.shape[0] * math.log(2.0 * math.pi * noise_scale**2),
+        "ll_norm": -0.5 * n * math.log(2.0 * math.pi * noise_scale**2) / int(num_shards),
         "inv_noise_var": 1.0 / noise_scale**2,
         "dim": d,
     }
     if Xp.dtype == torch.float32:
         data["XpT"] = transpose_f32(Xp)
     return data
+
+
+def fused_data_specs(data: dict, data_axis: str = "data") -> dict:
+    """How a fused-GLM data dict (:func:`prepare_fused_logistic_data`,
+    :func:`prepare_fused_linear_data`) splits over a data axis
+    (``sample_sharded(data_axis=..., data_specs=...)``; the reference's
+    ``fused_data_specs``, ``glm.py:482-494``): ``Shard(0)`` for the rows
+    (``Xp``, ``yp``), ``Shard(1)`` for ``XpT``, whose columns are the rows
+    (each shard's is made again from its own rows by :func:`transpose_f32`:
+    a column slice would be strided, and the f32 kernels' tensor maps take
+    contiguous rows), and ``Replicate()`` for the rest (``dim``,
+    ``pad_const``, ``col_scale``, ``ll_norm``, ``inv_noise_var``).
+    ``data_axis`` names the axis, as in the reference; the placements do
+    not depend on it."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    del data_axis
+    return {k: Shard(0) if k in ("Xp", "yp") else Shard(1) if k == "XpT" else Replicate()
+            for k in data}
 
 
 def transpose_f32(Xp: torch.Tensor) -> torch.Tensor:
@@ -521,12 +555,14 @@ def hoisted_logistic_value_and_grad(Xp: torch.Tensor, yX: torch.Tensor, Z: torch
     return zr @ yX - sp, yX - gs
 
 
-def make_fused_logistic_vag(prior_scale: float = 1.0):
+def make_fused_logistic_vag(prior_scale: float = 1.0, include_prior: bool = True):
     """``vag(Z (C, D), data) -> (log_post (C,), grad (C, D))`` of the
     logistic log-posterior with an N(0, prior_scale) prior, for ``data``
     from :func:`prepare_fused_logistic_data`. int8 data fold their column
     scales into the kernel's Z operand and out of its gradient
-    (glm.py:580-606)."""
+    (glm.py:580-606). ``include_prior=False`` returns the likelihood
+    terms only (``pad_const`` included): what each shard of observation
+    sharding adds up, the prior coming once after the sum."""
     inv_var = 1.0 / (prior_scale * prior_scale)
 
     def vag(Z: torch.Tensor, data: dict):
@@ -539,6 +575,8 @@ def make_fused_logistic_vag(prior_scale: float = 1.0):
         if col_scale is not None:
             g = g * col_scale
         ll = ll + data["pad_const"]
+        if not include_prior:
+            return ll, g
         log_norm = -0.5 * d * math.log(2.0 * math.pi * prior_scale * prior_scale)
         return ll + (log_norm - 0.5 * inv_var * row_sum(Z * Z)), g - inv_var * Z
 

@@ -1,11 +1,13 @@
 """Sharded sampling over ``torch.distributed``: meshes of ranks, chains split
-over them, pooled adaptation (the reference's
-``mlx_mcmc_tpu/parallel/__init__.py`` exports).
+over them, pooled adaptation, observations split over a data axis (the
+reference's ``mlx_mcmc_tpu/parallel/__init__.py`` exports).
 
 One process drives one device. Chains are the leading axis of every tensor,
-and each rank of a mesh axis holds a block of them; warmup statistics and
-device diagnostics pool with collectives of the group (nccl on the card,
-gloo on the CPU). Importing the package starts no process group.
+and each rank of a mesh's chain axis holds a block of them; warmup
+statistics and device diagnostics pool with collectives of the group (nccl
+on the card, gloo on the CPU). On a data axis each rank keeps a block of
+the observations and every evaluation sums the likelihood over the group.
+Importing the package starts no process group.
 """
 
 from mlx_mcmc_tpu_torch.parallel.distributed import initialize_distributed

@@ -3,7 +3,10 @@
     python tests/_torch_parallel_worker.py RANK WORLD PORT,ENV_PORT OUTDIR SUITE
 
 Started by :class:`Ranks` (``tests/test_torch_parallel.py``,
-``tests/test_torch_distributed.py``), one process a rank, with the repo
+``tests/test_torch_distributed.py``; the four-rank suites ``data`` and
+``resume`` of ``tests/_torch_sharding_worker.py`` for
+``tests/test_torch_data_sharding.py`` and
+``tests/test_torch_sharded_resume.py``), one process a rank, with the repo
 root on ``PYTHONPATH``. The rank joins the world through
 ``initialize_distributed`` over localhost TCP at PORT (ENV_PORT: the
 ``init`` suite's second start, from torchrun's variables), runs SUITE's scenarios in
@@ -242,6 +245,8 @@ def _scenarios(rank: int, world: int, outdir: str) -> dict:
                     chunk_type=np.asarray(type(chunked.samples["x"]).__name__)), {}
 
     def payload():
+        from mlx_mcmc_tpu_torch.parallel import chain_mesh
+
         model, dim, kw = FIXED["hmc"]
         res = sample_sharded(model, {"x": torch.zeros(dim)}, **kw)
         path = os.path.join(outdir, f"ckpt_rank{rank}")
@@ -250,11 +255,16 @@ def _scenarios(rank: int, world: int, outdir: str) -> dict:
         try:
             resume(model, res, num_samples=4, device="cpu")
             refused = "no error"
-        except NotImplementedError as e:
+        except ValueError as e:
             refused = str(e)
+        rest = resume(model, path, num_samples=4, mesh=chain_mesh(), device="cpu")
+        longer = sample_sharded(model, {"x": torch.zeros(dim)},
+                                **dict(kw, num_samples=kw["num_samples"] + 4))
         arrays = {f"adapt_{i}": np.asarray(x) for i, x in enumerate(ckpt["adapt_leaves"])}
         arrays["x"] = ckpt["positions"]["x"]
         arrays["last_x"] = res.samples["x"][:, -1].numpy()
+        arrays["rest_x"] = rest.samples["x"].numpy()
+        arrays["longer_x"] = longer.samples["x"][:, kw["num_samples"]:].numpy()
         return arrays, {"mesh_axes": ckpt["mesh_axes"], "resume": refused}
 
     return {"fixed": fixed, "jitter": jitter, "glm": glm, "stats": stats, "adaptive": adaptive,
@@ -311,15 +321,24 @@ def main() -> None:
     from mlx_mcmc_tpu_torch.parallel import initialize_distributed
 
     initialize_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
-    scenarios = _scenarios(rank, world, outdir)
+    if suite in SUITES:
+        scenarios, names = _scenarios(rank, world, outdir), SUITES[suite]
+    else:
+        import _torch_sharding_worker as sharding
+
+        scenarios, names = sharding.scenarios(rank, world, outdir), sharding.SUITES[suite]
     try:
-        for name in SUITES[suite]:
+        for name in names:
             t0 = time.perf_counter()
             arrays, meta = scenarios[name]()
             np.savez(os.path.join(outdir, f"{name}.rank{rank}.npz"), meta=json.dumps(meta),
                      **arrays)
             print(f"{name} rank={rank} {time.perf_counter() - t0:.2f} s", flush=True)
+        dist.barrier()  # no rank leaves while another still talks to it
     finally:
+        from mlx_mcmc_tpu_torch import clear_runner_cache
+
+        clear_runner_cache()  # the cached runners hold the groups
         dist.destroy_process_group()
     print(f"DONE rank={rank}", flush=True)
 

@@ -512,15 +512,19 @@ def test_sharded_and_orbax_raise(tmp_path):
                   kernel="hmc", seed=0, **CPU)
     with pytest.raises(ValueError, match="npz"):
         save_checkpoint(str(tmp_path / "o"), half, backend="orbax")
-    with pytest.raises(NotImplementedError, match="A.10"):
+    # the sharded paths (tests/test_torch_sharded_resume.py) take a DeviceMesh
+    # of the checkpoint's layout: anything else raises, naming the caller
+    with pytest.raises(TypeError, match="resume: mesh must be a torch.distributed DeviceMesh"):
         resume(_model, half, num_samples=4, mesh=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(TypeError, match="run_warmup: mesh must be"):
         run_warmup(_model, {"x": torch.zeros(2)}, num_warmup=10, stop=5, mesh=object(), **CPU)
     ckpt = run_warmup(_model, {"x": torch.zeros(2)}, num_warmup=10, stop=5, **CPU)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(TypeError, match="resume_warmup: mesh must be"):
         resume_warmup(_model, ckpt, mesh=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(ValueError, match="resume_warmup: the mesh layout differs"):
         resume_warmup(_model, dict(ckpt, mesh_axes={"axis": "chains", "axis_size": 8}), **CPU)
+    with pytest.raises(ValueError, match="apply to sharded runs only"):
+        resume(_model, half, num_samples=4, log_prior_fn=_model, **CPU)
     os.makedirs(tmp_path / "dir")
     with pytest.raises(ValueError, match="npz"):
         load_checkpoint(str(tmp_path / "dir"))

@@ -118,5 +118,8 @@ def test_cpu_tensors_take_the_plain_version_and_kernel_refuses_them():
     jq = j_prepare(jnp.asarray(X), jnp.asarray(y), tile_n=64, quantize="int8")
     np.testing.assert_array_equal(q["Xp"][:, :3].numpy(), np.asarray(jq["Xp"])[:40, :3])
     np.testing.assert_array_equal(q["col_scale"].numpy(), np.asarray(jq["col_scale"]))
-    with pytest.raises(NotImplementedError):
-        glm.prepare_fused_logistic_data(X, y, num_shards=2, device="cpu")
+    # num_shards pads the rows to a multiple of the shard count, as the
+    # reference pads them to tile_n x num_shards (here 40 rows need none)
+    sharded = glm.prepare_fused_logistic_data(X, y, num_shards=3, device="cpu")
+    assert sharded["Xp"].shape[0] == 42 and not sharded["Xp"][40:].any()
+    assert sharded["pad_const"] == pytest.approx(2 * np.log(2.0) / 3)

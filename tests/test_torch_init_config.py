@@ -5,7 +5,8 @@
   and for the storage, thinning and adaptation fields; ``MeshConfig.build``
   lays out the world's ranks (a world of one here, ended after its test),
   raises on a layout that the world cannot fill, and observation sharding
-  over its data axis raises naming ROADMAP A.10b.
+  over an axis it lacks, or without data, raises (the sharded paths
+  themselves: ``tests/test_torch_data_sharding.py``).
 - ``sample(config=...)`` gives the spelled-out call's bits; an explicit
   ``store_dtype``/``draw_chunk`` wins over the config's.
 - ``init_strategy='map'`` lands absurdly far starts near the mode
@@ -68,9 +69,12 @@ def test_mesh_config_raises_naming_its_roadmap_item():
         assert MeshConfig(data=1).build().shape == (1,)
         with pytest.raises(ValueError, match="the world has 1"):
             MeshConfig(chains=4).build()
-        with pytest.raises(NotImplementedError, match="A.10b"):
+        with pytest.raises(ValueError, match="requires data"):
             sample_sharded(_model, {"x": torch.zeros(2)}, mesh=mesh, data_axis="data",
                            device="cpu")
+        with pytest.raises(ValueError, match="not in mesh axes"):
+            sample_sharded(_model, {"x": torch.zeros(2)}, mesh=mesh, data_axis="data",
+                           data={"y": torch.zeros(4)}, device="cpu")
     finally:
         dist.destroy_process_group()
 

@@ -38,7 +38,9 @@ for name in ("mlx_mcmc_tpu_torch.ops.glm_variants", "mlx_mcmc_tpu_torch.models.j
              "mlx_mcmc_tpu_torch.benchmarks.poisson_roofline",
              "mlx_mcmc_tpu_torch.benchmarks.run_all", "mlx_mcmc_tpu_torch.parallel",
              "mlx_mcmc_tpu_torch.parallel.sharded", "mlx_mcmc_tpu_torch.parallel.mesh",
-             "mlx_mcmc_tpu_torch.parallel.distributed"):
+             "mlx_mcmc_tpu_torch.parallel.distributed", "mlx_mcmc_tpu_torch.benchmarks.scaling",
+             "mlx_mcmc_tpu_torch.benchmarks.collective_overhead",
+             "mlx_mcmc_tpu_torch.benchmarks.make_scaling_artifact"):
     assert name in names, name
 from mlx_mcmc_tpu_torch import (MCMC, sample, metropolis_hastings, hmc, nuts, Normal, HalfNormal,
                                 Beta, Gamma, Exponential, Categorical, make_transformed_logprob,
@@ -70,6 +72,11 @@ from mlx_mcmc_tpu_torch.io import (save_checkpoint, load_checkpoint, resume, run
                                    resume_warmup)
 from mlx_mcmc_tpu_torch.parallel import (sample_sharded, chain_mesh, data_chain_mesh,
                                          initialize_distributed, clear_sharded_runner_cache)
+from mlx_mcmc_tpu_torch.parallel.sharded import shard_data, default_data_specs
+from mlx_mcmc_tpu_torch.ops.glm import fused_data_specs
+from mlx_mcmc_tpu_torch.benchmarks.scaling import measure_scaling
+from mlx_mcmc_tpu_torch.benchmarks.collective_overhead import measure
+from mlx_mcmc_tpu_torch.benchmarks.make_scaling_artifact import artifact, chain_row
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mlx_mcmc_tpu"))

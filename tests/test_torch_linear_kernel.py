@@ -113,8 +113,12 @@ def test_cpu_tensors_take_the_plain_version_and_kernel_refuses_them():
         glm.fused_linear_vag_cuda(data["Xp"], data["yp"], torch.from_numpy(Z))
     with pytest.raises(ValueError, match="quantize"):  # as the reference: no int8
         glm.prepare_fused_linear_data(X, y, quantize="int8", device="cpu")
-    with pytest.raises(NotImplementedError):
-        glm.prepare_fused_linear_data(X, y, num_shards=2, device="cpu")
+    # num_shards pads the rows to a multiple of the shard count and divides
+    # the Gaussian normalizer of the unpadded rows (the reference's
+    # glm.py:426-427)
+    sharded = glm.prepare_fused_linear_data(X, y, num_shards=3, device="cpu")
+    assert sharded["Xp"].shape[0] == 42 and not sharded["Xp"][40:].any()
+    assert sharded["ll_norm"] == pytest.approx(data["ll_norm"] / 3)
     with pytest.raises(ValueError, match="columns"):
         glm.make_fused_linear_vag()(torch.zeros(2, 4), data)
 

@@ -237,7 +237,7 @@ def test_errors(ranks):
     meta = ranks.load("errors", 0)[1]
     assert meta["indivisible"].startswith("ValueError") and "not divisible" in meta["indivisible"]
     assert "incompatible with device_diagnostics" in meta["chunk_diagnostics"]
-    assert meta["data_axis"].startswith("NotImplementedError") and "A.10b" in meta["data_axis"]
+    assert meta["data_axis"].startswith("ValueError") and "requires data" in meta["data_axis"]
 
 
 def test_draw_chunk_bitwise(ranks):
@@ -247,11 +247,13 @@ def test_draw_chunk_bitwise(ranks):
 
 
 def test_payload_names_the_mesh_and_refuses_to_resume(ranks):
+    # refused without the mesh; resumed on it, the longer run's draws
     for rank in (0, 1):
         got, meta = ranks.load("payload", rank)
         assert meta["mesh_axes"] == {"axis": "chains", "axis_size": 2, "data_axis": None,
                                      "data_axis_size": None}
-        assert "A.10b" in meta["resume"]
+        assert "mesh layout differs" in meta["resume"]
+        np.testing.assert_array_equal(got["rest_x"], got["longer_x"])
         np.testing.assert_array_equal(got["x"], got["last_x"])  # every chain's last draw
         adapt = [v for k, v in got.items() if k.startswith("adapt_")]
         assert adapt and all(a.shape[0] == 2 for a in adapt)  # tiled over the ranks
