@@ -37,7 +37,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    D=100, a 32-row uniform table). Bits: two calls give the same bits and
    chains 0-3 of a C=4 call equal those of the full call, for K1, K2 and K4
    one-pass, K1 int8 one-pass and K1, K2 and K4 f32 at glm100 (C=4096), K1
-   wide and int8 wide at glm1000 (C=256) and K3 (C=512). The int8 kernels are held to
+   wide and int8 wide at glm1000 (C=256; the wide gradient's split
+   schedule at both counts) and K3 (C=512). The int8 kernels are held to
    the bf16 tolerances (int8 values widen to bf16 exactly), int8 wide at
    glm1000 to the wide g tolerance below.
 3b. The microbenchmark variants of K1's body (``ops/glm_variants.py``,
@@ -48,7 +49,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    after each; then each variant at the reference's shape (the flagship
    operands, 10,240 x 128 bf16, C = 4096; mm1_pair with 1,024-row tiles)
    and floor at Dp = 256 and 1024 (the wide pair) against its plain
-   version, two calls to the same bits, timed.
+   version, two calls to the same bits, timed, with each variant's
+   products as torch.matmul as its yardstick. At C = 4096 the wide
+   gradient walks its row splits (``launch_plan``'s ``g_walk``): the plan
+   must say so there and not at C = 4, the call must launch no
+   ``sum_splits_kernel``, and chains 0-255 of a C = 256 call and 0-3 of a
+   C = 4 call (the split schedule) must give the C = 4096 call's bits, for
+   floor at both depths and for K1 on bf16 and int8 X at Dp = 1024 (K1
+   also against its plain version there).
 3c. CUDA graphs of the NUTS transition (``inference/graphs.py``) against
    the eager loop (one host check per pair iteration): three steps at
    fixed tunables from the engine's per-chain draws through K1 on bf16 X
@@ -641,20 +649,23 @@ def check_glm(family: str, name: str, Xp, y, Z, timed: bool, ll_rel: float = Non
     return row
 
 
-def bits_check(label: str, call, Z, *rest) -> None:
+def bits_check(label: str, call, Z, *rest, parts=(4,)) -> None:
     """A kernel is reproducible and batch-invariant: two calls of
-    ``call(Z, *rest)`` give the same bits, and chains 0-3 of a call with
-    only those four chains (the first four rows of ``Z`` and of each of
-    ``rest``) give the bits of the full call."""
+    ``call(Z, *rest)`` give the same bits, and for each k in ``parts``
+    chains 0 to k - 1 of a call with only those k chains (the first k rows
+    of ``Z`` and of each of ``rest``) give the bits of the full call."""
     a = call(Z, *rest)
     b = call(Z, *rest)
-    four = call(*(t[:4].contiguous() for t in (Z, *rest)))
+    subs = {k: call(*(t[:k].contiguous() for t in (Z, *rest))) for k in parts}
     torch.cuda.synchronize()
     if not all(torch.equal(x, y) for x, y in zip(a, b)):
         fail(f"{label}: two calls on the same inputs give different bits")
-    if not all(torch.equal(x[:4], y) for x, y in zip(a, four)):
-        fail(f"{label}: chains 0-3 of a C=4 call differ from those of the C={Z.shape[0]} call")
-    log(f"{label}: two calls bit-identical; chains 0-3 bit-identical at C=4 and C={Z.shape[0]}")
+    for k, sub in subs.items():
+        if not all(torch.equal(x[:k], y) for x, y in zip(a, sub)):
+            fail(f"{label}: chains 0-{k - 1} of a C={k} call differ from those of the "
+                 f"C={Z.shape[0]} call")
+    log(f"{label}: two calls bit-identical; " + "; ".join(
+        f"chains 0-{k - 1} bit-identical at C={k} and C={Z.shape[0]}" for k in parts))
 
 
 def glm_bits_check(label: str, Xp, y, Z, XpT=None) -> None:
@@ -663,11 +674,13 @@ def glm_bits_check(label: str, Xp, y, Z, XpT=None) -> None:
     bits_check(label, lambda z: glm.fused_logistic_vag_cuda(Xp, y, z, XpT), Z)
 
 
-def products_yardstick_ms(Xp, Z, chain_tile: int = 256) -> float:
-    """A GLM call's two products alone as torch.matmul in X's type (bf16;
-    f32 with TF32 off, as the port sets it) at the kernels' shapes (X Z^T
-    with chains padded to ``chain_tile``, then R^T X): what the library's
-    GEMMs take for them. A yardstick only; the port never calls it."""
+def products_yardstick_ms(Xp, Z, chain_tile: int = 256, second: str = "g") -> float:
+    """A GLM call's products alone as torch.matmul in X's type (bf16; f32
+    with TF32 off, as the port sets it) at the kernels' shapes (X Z^T with
+    chains padded to ``chain_tile``, then, by ``second``, ``"g"``: R^T X,
+    ``"s"``: a second X W^T, as mm1_pair's, or ``"none"``: nothing, as
+    mm1_sum's): what the library's GEMMs take for them. A yardstick only;
+    the port never calls it."""
     from mlx_mcmc_tpu_torch.bench import device_ms
 
     if torch.backends.cuda.matmul.allow_tf32:
@@ -676,15 +689,30 @@ def products_yardstick_ms(Xp, Z, chain_tile: int = 256) -> float:
     c_pad = -(-Z.shape[0] // chain_tile) * chain_tile
     zb = torch.zeros(c_pad, d_pad, dtype=Xp.dtype, device=Xp.device)
     zb[: Z.shape[0], : Z.shape[1]] = Z
-    rt = torch.randn(c_pad, n, device=Xp.device).to(Xp.dtype)
+    rt = torch.randn(c_pad, n, device=Xp.device).to(Xp.dtype) if second == "g" else None
+    wb = torch.randn(c_pad, d_pad, device=Xp.device).to(Xp.dtype) if second == "s" else None
 
     def products():
         torch.matmul(Xp, zb.T)
-        torch.matmul(rt, Xp)
+        if rt is not None:
+            torch.matmul(rt, Xp)
+        if wb is not None:
+            torch.matmul(Xp, wb.T)
 
     t = device_ms(products)
-    log(f"  yardstick: the two products as torch.matmul ({Xp.dtype}) {t:.4f} ms")
+    what = {"g": "the two products", "s": "X Z^T and X W^T", "none": "X Z^T"}[second]
+    log(f"  yardstick: {what} as torch.matmul ({Xp.dtype}) {t:.4f} ms")
     return t
+
+
+def wide_walks(Xp, c: int) -> bool:
+    """Whether the wide gradient walks its splits at c chains (the plan's
+    ``g_walk``); at 4096 chains and not at 4, the bits checks at (256, 4)
+    chains hold the walk to the split schedule."""
+    from mlx_mcmc_tpu_torch._device import sm_count
+    from mlx_mcmc_tpu_torch.ops import glm
+
+    return glm.launch_plan(*Xp.shape, c, sm_count(0), Xp.dtype)["g_walk"]
 
 
 def hoisted_gap(data, Z) -> dict:
@@ -838,7 +866,7 @@ def check_variant(name: str, label: str, Xp, yp, Z) -> dict:
     timed_row(row, call, plain_call, variant_bound_ms(name, n, d_pad, c))
     row["device_breakdown_ms"] = device_breakdown_ms(call, (
         "round_z", "glm_onepass", "glm_split2", "glm_mm1_pair", "glm_hopper_value",
-        "glm_hopper_grad", "sum_splits"))
+        "glm_hopper_grad", "sum_splits_ll", "sum_splits"))
     return row
 
 
@@ -847,7 +875,7 @@ def variants_phase() -> list:
     variant against its plain version. Returns the variants' kernels rows."""
     from mlx_mcmc_tpu_torch.benchmarks import flagship_decomposition as fd
     from mlx_mcmc_tpu_torch.benchmarks import glm_kernel_variants as gkv
-    from mlx_mcmc_tpu_torch.ops import glm_variants
+    from mlx_mcmc_tpu_torch.ops import glm, glm_variants
 
     def emit(line):
         log(f"  {line}")
@@ -870,18 +898,50 @@ def variants_phase() -> list:
 
     Xp, yp, Z = fd.make_operands(10240, 128, 4096)
     rows = {name: check_variant(name, name, Xp, yp, Z) for name in glm_variants.VARIANTS}
+    # The yardsticks: each variant's products as torch.matmul (mm1_sum has
+    # one, X Z^T; mm1_pair's two are both K = Dp, X Z^T and X W^T).
+    two = products_yardstick_ms(Xp, Z, chain_tile=128)
+    second = {"mm1_sum": "none", "mm1_pair": "s"}
+    for name, row in rows.items():
+        row["products_library_ms"] = (
+            products_yardstick_ms(Xp, Z, chain_tile=128, second=second[name]) if name in second
+            else two)
+    # floor on the wide pair at 4096 chains, where its gradient walks the
+    # splits: no sum_splits_kernel, and the walk's bits those of a call with
+    # 256 chains and of one with 4 (the split schedule).
     wide = {}
     for d_pad, n in ((256, 5120), (1024, 1280)):
         Xs, ys, Zs = fd.make_operands(n, d_pad, 4096, seed=1)
-        wide[d_pad] = check_variant("floor", f"floor wide Dp={d_pad}", Xs, ys, Zs)
+        label = f"floor wide Dp={d_pad}"
+        if not wide_walks(Xs, 4096) or wide_walks(Xs, 4):
+            fail(f"{label}: the plan does not walk the splits at 4096 chains only")
+        wide[d_pad] = check_variant("floor", label, Xs, ys, Zs)
+        if wide[d_pad]["device_breakdown_ms"].get("sum_splits", 0.0) > 0:
+            fail(f"{label}: the walk's call launched sum_splits_kernel")
+        bits_check(label, lambda z: glm_variants.floor_cuda(Xs, ys, z), Zs, parts=(256, 4))
+        wide[d_pad]["products_library_ms"] = products_yardstick_ms(Xs, Zs)
+        wide[d_pad]["g_walk"] = True
+        if d_pad == 1024:
+            # K1 wide (the production entry) on bf16 and int8 X the same way.
+            check_glm("logistic", "wide Dp=1024, 4096 chains", Xs, ys, Zs, timed=False)
+            bits_check("K1 wide Dp=1024", lambda z: glm.fused_logistic_vag_cuda(Xs, ys, z), Zs,
+                       parts=(256, 4))
+            q = glm.prepare_fused_logistic_data(Xs.float(), ys, quantize="int8")
+            zq = Zs * q["col_scale"]
+            check_glm("logistic", "int8 wide Dp=1024, 4096 chains", q["Xp"], ys, zq, timed=False)
+            bits_check("K1 int8 wide Dp=1024",
+                       lambda z: glm.fused_logistic_vag_cuda(q["Xp"], ys, z), zq, parts=(256, 4))
+            del q, zq
     kernels = []
     for key, row in list(rows.items()) + [("floor_wide", wide[1024])]:
         name = "floor" if key == "floor_wide" else key
         sums = ["sum_splits_kernel", "sum_splits_ll_kernel"]
         devs = {"mm1_pair": ["round_z_kernel", "glm_mm1_pair_kernel"],
                 "split2": ["round_z_kernel", "glm_split2_kernel"] + sums,
-                "floor_wide": ["round_z_kernel", "glm_hopper_value_kernel", "glm_hopper_grad_kernel"]
-                + sums}.get(key, ["round_z_kernel", "glm_onepass_kernel"] + sums)
+                "floor_wide": ["round_z_kernel", "glm_hopper_value_kernel<Floor, false>",
+                               "glm_hopper_grad_kernel<false, true> (the walk)",
+                               "sum_splits_ll_kernel"]}.get(
+                    key, ["round_z_kernel", "glm_onepass_kernel"] + sums)
         extra = {k: v for k, v in row.items() if k not in ("ms", "plain_ms", "bound_ms", "bound_by")}
         extra.update(device_kernels=devs, sampling_path=False, also_replaces=VARIANT_REPLACES[name][1:])
         if key == "floor_wide":
@@ -3178,13 +3238,16 @@ def main() -> None:
     sums = ["sum_splits_kernel", "sum_splits_ll_kernel"]
     onepass = ["round_z_kernel", "glm_onepass_kernel"] + sums
     f32_kernels = ["pad_z_kernel", "glm_tf32_value_kernel", "glm_tf32_grad_kernel"] + sums
+    # glm1000_fused's 256 chains: the gradient's split schedule (at many
+    # chains it walks the splits, glm_hopper_grad_kernel<_, true>, with no
+    # sum_splits_kernel: phase 3b).
+    wide_kernels = ["round_z_kernel", "glm_hopper_value_kernel",
+                    "glm_hopper_grad_kernel<_, false>"] + sums
     sources = {
         "K1": ("glm_fused_logistic", glm_src, k1, onepass),
-        "K1_wide": ("glm_fused_logistic:wide_bf16", glm_src, k1,
-                    ["glm_hopper_value_kernel", "glm_hopper_grad_kernel"]),
+        "K1_wide": ("glm_fused_logistic:wide_bf16", glm_src, k1, wide_kernels),
         "K1_int8": ("glm_fused_logistic:int8", glm_src, k1, onepass),
-        "K1_int8_wide": ("glm_fused_logistic:wide_int8", glm_src, k1,
-                         ["glm_hopper_value_kernel", "glm_hopper_grad_kernel"]),
+        "K1_int8_wide": ("glm_fused_logistic:wide_int8", glm_src, k1, wide_kernels),
         "K1_f32": ("glm_fused_logistic:f32", glm_src, k1, f32_kernels),
         "K1_f32_wide": ("glm_fused_logistic:f32_glm1000", glm_src, k1, f32_kernels),
         "K2": ("glm_fused_linear", glm_src, k2, onepass),

@@ -608,9 +608,10 @@ def _device_busy(run) -> dict:
     return {"wall_seconds": wall, "device_seconds": busy, "busy_share": busy / wall}
 
 
-def _bench_from(root: str):
-    """This module as the checkout at ``root`` has it, imported as a module
-    tree of its own beside this one (its kernels build under ``root``)."""
+def module_from(root: str, name: str = "mlx_mcmc_tpu_torch.bench"):
+    """Module ``name`` of the package as the checkout at ``root`` has it
+    (default this module), imported as a module tree of its own beside this
+    one (its kernels build under ``root``)."""
     if not (Path(root) / "mlx_mcmc_tpu_torch" / "bench.py").is_file():
         raise FileNotFoundError(f"no mlx_mcmc_tpu_torch package under {root}")
 
@@ -620,7 +621,7 @@ def _bench_from(root: str):
     mine = {k: sys.modules.pop(k) for k in ours()}
     sys.path.insert(0, root)
     try:
-        return importlib.import_module("mlx_mcmc_tpu_torch.bench")
+        return importlib.import_module(name)
     finally:
         sys.path.remove(root)
         for k in ours():
@@ -696,7 +697,7 @@ def paired_times(names, against: str | None = None, runs: bool = True, emit=None
     costs out of the timed runs."""
     packages = {"this": sys.modules[__name__]}
     if against:
-        packages["other"] = _bench_from(against)
+        packages["other"] = module_from(against)
     order = ["other", "this", "this", "other"] if against else ["this", "this"]
     emit = emit or (lambda phase, name, res: None)
     out = {}

@@ -78,12 +78,33 @@
 //      N, sums ll in registers across all its tiles (two shuffles at the
 //      very end, a fixed order), and rounds the residual to bf16 in row
 //      pairs into a swizzled shared tile that TMA stores to R^T [chain][row].
-//   B) glm_hopper_grad_kernel: G^T = R^T X, M = chains (256 per block, two
-//      m64 slices per warpgroup), N = 128 columns of g, K = rows in 64-row
-//      stages. X is the MN-major B operand through the transpose bit of the
-//      wgmma descriptor, so it needs no transposed copy and is read once
-//      per call up to C = 256. The rows are cut into a fixed number of
-//      splits to fill the SMs.
+//   B) glm_hopper_grad_kernel: G^T = R^T X, M = chains, N = 128 columns of
+//      g, K = rows in 64-row stages. X is the MN-major B operand through
+//      the transpose bit of the wgmma descriptor, so it needs no transposed
+//      copy. The rows are cut into a fixed number of splits, enough for one
+//      chain tile's column tiles to fill the SMs, and a chain's g is its
+//      split partials added in split order, ((p0 + p1) + p2) + ..., in f32.
+//      Two schedules of those sums (the wrapper's launch_plan picks one by
+//      C; g_part null selects the walk):
+//      - one block a (column tile, split, 256 chains: two m64 slices a
+//        consumer warpgroup) writes its partial to g_part, and
+//        sum_splits_kernel adds them: g_splits x C x D x 4 bytes written and
+//        read again, 168 MB at C = 4096, Dp = 1024, N = 1280 (10 splits),
+//        0.27 of that call's 0.32 ms on the H100; right for few chains
+//        (glm1000_fused's 256: 16 MB), where it spreads one chain tile's
+//        rows over the SMs;
+//      - the walk, for many chains: one block a (column tile, 128 chains:
+//        one m64 slice a consumer warpgroup) runs every split in order, each
+//        into a fresh accumulator then added to a running total in
+//        registers (64 + 64 floats a thread, beside the 232 that setmaxnreg
+//        gives; a second slice would need 256), and writes g once: no
+//        partials, no sum_splits_kernel. A block holds the walk of all N
+//        rows, so where the chain tiles leave SMs idle for a whole walk the
+//        partials are cheaper (glm._walk_is_faster).
+//      A chain's split partial comes from the same wgmma sequence over the
+//      same chunks and the same row of an m64 slice in both, and both add
+//      the partials in the same order, so they give the same bits: C picks
+//      the schedule but never a chain's bits.
 // On every path the row splits depend on N, Dp and the SM count only (the
 // wrapper's launch_plan), never on C: a chain's ll and g are the same bits
 // whatever the number of chains in the call.
@@ -119,7 +140,8 @@
 // R^T makes one round trip through device memory (165 MB at glm100).
 //
 // Every path reduces its per-split partial sums the same way (sum_outputs:
-// ll by sum_splits_ll_kernel in double, g by sum_splits_kernel), in a fixed
+// ll by sum_splits_ll_kernel in double, g by sum_splits_kernel or, in the
+// wide gradient's walk, by the kernel itself in the same order), in a fixed
 // order: no float atomics, so results are reproducible run to run.
 
 #include <cuda.h>  // CUtensorMap; the encoder comes from the driver at run time
@@ -291,18 +313,33 @@ __host__ __device__ constexpr uint32_t v_smem(bool int8) {  // + 1024-byte align
 }
 static_assert(v_smem(false) <= kMaxSmem && v_smem(true) <= kMaxSmem, "value kernel smem");
 
-constexpr int kGStages = 4;
-constexpr uint32_t kGRBytes = kHChains * kHK * 2;  // R^T stage: 256 chains x 64 rows, 32 KB
-constexpr uint32_t kGXBytes = kHK * kHCols * 2;    // X stage: 64 rows x two 64-column boxes
-constexpr uint32_t kGStageBytes = kGRBytes + kGXBytes;
-constexpr uint32_t kGRawOff = kGStages * kGStageBytes;
-__host__ __device__ constexpr uint32_t g_bar_off(bool int8) {
-  return kGRawOff + (int8 ? kGStages * kRawBytes : 0);
+// The gradient kernel's two schedules (kWalk): one block a split with 256
+// chains (two m64 slices a consumer warpgroup), or one block walking every
+// split with 128 chains (one m64 slice and its running total). The walk's
+// stages are half as large, so its ring is deeper.
+constexpr uint32_t kGXBytes = kHK * kHCols * 2;  // X stage: 64 rows x two 64-column boxes
+__host__ __device__ constexpr int g_chains(bool walk) { return walk ? kHChains / 2 : kHChains; }
+__host__ __device__ constexpr uint32_t g_r_bytes(bool walk) {  // R^T stage: chains x 64 rows
+  return g_chains(walk) * kHK * 2;
 }
-__host__ __device__ constexpr uint32_t g_smem(bool int8) {
-  return g_bar_off(int8) + 3 * kGStages * 8 + 1024;
+__host__ __device__ constexpr uint32_t g_stage_bytes(bool walk) {
+  return g_r_bytes(walk) + kGXBytes;
 }
-static_assert(g_smem(false) <= kMaxSmem && g_smem(true) <= kMaxSmem, "gradient kernel smem");
+__host__ __device__ constexpr int g_stages(bool int8, bool walk) {
+  return walk ? (int8 ? 5 : 6) : 4;
+}
+__host__ __device__ constexpr uint32_t g_raw_off(bool int8, bool walk) {
+  return g_stages(int8, walk) * g_stage_bytes(walk);
+}
+__host__ __device__ constexpr uint32_t g_bar_off(bool int8, bool walk) {
+  return g_raw_off(int8, walk) + (int8 ? g_stages(int8, walk) * kRawBytes : 0);
+}
+__host__ __device__ constexpr uint32_t g_smem(bool int8, bool walk) {
+  return g_bar_off(int8, walk) + 3 * g_stages(int8, walk) * 8 + 1024;
+}
+static_assert(g_smem(false, false) <= kMaxSmem && g_smem(true, false) <= kMaxSmem &&
+                  g_smem(false, true) <= kMaxSmem && g_smem(true, true) <= kMaxSmem,
+              "gradient kernel smem");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -648,29 +685,44 @@ glm_hopper_value_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-// Gradient kernel of the wide bf16 path: g^T = R^T X over one split of
-// 64-row chunks. Grid (column tiles of 128, row splits, chain tiles of 256);
-// maps: Rt (box 64 rows x 128 chains), X (box 64 columns x 64 rows; int8
-// X: bytes, box 128 columns x 64 rows, widened as in the value kernel).
-// Warpgroup w owns chains [128 w, 128 w + 128) of the tile as two m64 slices.
-template <bool kInt8>
+// Gradient kernel of the wide bf16 path: g^T = R^T X in 64-row chunks, the
+// chunks cut into ``splits`` row splits of chunks_per_split. Maps: Rt (box
+// 64 rows x 128 chains), X (box 64 columns x 64 rows; int8 X: bytes, box 128
+// columns x 64 rows, widened as in the value kernel). Two schedules of the
+// same products and sums:
+// - kWalk false: grid (column tiles of 128, row splits, chain tiles of 256);
+//   warpgroup w owns chains [128 w, 128 w + 128) of the tile as two m64
+//   slices, and the block writes its split's partial to out = g_part
+//   [split][c][d], which sum_splits_kernel adds in split order.
+// - kWalk true: grid (column tiles of 128, chain tiles of 128); warpgroup w
+//   owns chains [64 w, 64 w + 64) as one m64 slice and walks every split in
+//   order: each split's chunks go into a fresh accumulator, which is then
+//   added to a running total in registers, and the block writes out = g.
+// A chain's element of a split's accumulator comes from the same wgmma
+// sequence on the same data in both (the same row of an m64 slice, since
+// slices start at multiples of 64 chains), and its g is ((p0 + p1) + p2) +
+// ... in float32 in both, so the two schedules give the same bits.
+template <bool kInt8, bool kWalk>
 __global__ void __launch_bounds__(kHThreads, 1)
 glm_hopper_grad_kernel(const __grid_constant__ CUtensorMap r_map,
-                       const __grid_constant__ CUtensorMap xg_map, float* __restrict__ g_part,
-                       int N, int D, int C, int chunks_per_split) {
+                       const __grid_constant__ CUtensorMap xg_map, float* __restrict__ out,
+                       int N, int D, int C, int splits, int chunks_per_split) {
+  constexpr int kStages = g_stages(kInt8, kWalk), kChains = g_chains(kWalk);
+  constexpr uint32_t kRBytes = g_r_bytes(kWalk), kStageBytes = g_stage_bytes(kWalk);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  unsigned char* raw = smem + kGRawOff;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + g_bar_off(kInt8));
-  uint64_t* empty = full + kGStages;
-  uint64_t* rawf = empty + kGStages;
-  const int dt = blockIdx.x, split = blockIdx.y, ct = blockIdx.z;
+  unsigned char* raw = smem + g_raw_off(kInt8, kWalk);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + g_bar_off(kInt8, kWalk));
+  uint64_t* empty = full + kStages;
+  uint64_t* rawf = empty + kStages;
+  const int dt = blockIdx.x, split = kWalk ? 0 : blockIdx.y, ct = kWalk ? blockIdx.y : blockIdx.z;
+  const int n_chunks = (N + kHK - 1) / kHK;
   const int chunk_begin = split * chunks_per_split;
-  const int chunk_end = min(chunk_begin + chunks_per_split, (N + kHK - 1) / kHK);
+  const int chunk_end = kWalk ? n_chunks : min(chunk_begin + chunks_per_split, n_chunks);
   const int wg = threadIdx.x >> 7;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kGStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], kInt8 ? 1 + kWidenWarps : 1);
       mbar_init(&empty[s], 8);
       mbar_init(&rawf[s], 1);
@@ -680,26 +732,30 @@ glm_hopper_grad_kernel(const __grid_constant__ CUtensorMap r_map,
   __syncthreads();
 
   if (wg == 2) {
+    // Producer: one thread streams the chunks' R^T and X stages (across
+    // split boundaries in the walk); int8 X as in the value kernel.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 2 * 128) {
       int stage = 0;
       uint32_t phase = 0;
       for (int ch = chunk_begin; ch < chunk_end; ++ch) {
         mbar_wait(&empty[stage], phase ^ 1);
-        unsigned char* st = smem + stage * kGStageBytes;
+        unsigned char* st = smem + stage * kStageBytes;
         if constexpr (kInt8) {
           mbar_expect_tx(&rawf[stage], kRawBytes);
           tma_load_2d(raw + stage * kRawBytes, &xg_map, &rawf[stage], dt * kHCols, ch * kHK);
         }
-        mbar_expect_tx(&full[stage], kInt8 ? kGRBytes : kGStageBytes);
-        tma_load_2d(st, &r_map, &full[stage], ch * kHK, ct * kHChains);
-        tma_load_2d(st + kHalfBoxBytes, &r_map, &full[stage], ch * kHK, ct * kHChains + 128);
+        mbar_expect_tx(&full[stage], kInt8 ? kRBytes : kStageBytes);
+#pragma unroll
+        for (int b = 0; b < kChains / 128; ++b)
+          tma_load_2d(st + b * kHalfBoxBytes, &r_map, &full[stage], ch * kHK,
+                      ct * kChains + 128 * b);
         if constexpr (!kInt8) {
-          tma_load_2d(st + kGRBytes, &xg_map, &full[stage], dt * kHCols, ch * kHK);
-          tma_load_2d(st + kGRBytes + kGXBytes / 2, &xg_map, &full[stage], dt * kHCols + 64,
+          tma_load_2d(st + kRBytes, &xg_map, &full[stage], dt * kHCols, ch * kHK);
+          tma_load_2d(st + kRBytes + kGXBytes / 2, &xg_map, &full[stage], dt * kHCols + 64,
                       ch * kHK);
         }
-        if (++stage == kGStages) {
+        if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
         }
@@ -709,12 +765,58 @@ glm_hopper_grad_kernel(const __grid_constant__ CUtensorMap r_map,
       uint32_t phase = 0;
       for (int ch = chunk_begin; ch < chunk_end; ++ch) {
         mbar_wait(&rawf[stage], phase);
-        widen_box<kHK, kHCols>(raw + stage * kRawBytes, smem + stage * kGStageBytes + kGRBytes,
+        widen_box<kHK, kHCols>(raw + stage * kRawBytes, smem + stage * kStageBytes + kRBytes,
                                kGXBytes / 2, threadIdx.x - (2 * 128 + 32), &full[stage]);
-        if (++stage == kGStages) {
+        if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
         }
+      }
+    }
+  } else if constexpr (kWalk) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tw = threadIdx.x & 127, warp = tw >> 5, lane = tw & 31;
+    // -0 + p0 is p0 bit for bit (a +0 start would turn a -0 partial to +0),
+    // so the total is sum_splits_kernel's ((p0 + p1) + p2) + ...
+    float acc[64], tot[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) tot[i] = -0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int sp = 0; sp < splits; ++sp) {
+      const int ce = min((sp + 1) * chunks_per_split, n_chunks);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int ch = sp * chunks_per_split; ch < ce; ++ch) {
+        mbar_wait(&full[stage], phase);
+        unsigned char* st = smem + stage * kStageBytes;
+        const uint64_t da = sw128_desc(st + (wg * 64) * 128, 16);
+        const uint64_t db = sw128_desc(st + kRBytes, kGXBytes / 2);
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < kHK / 16; ++k) wgmma_m64n128k16<1>(acc, da + 2 * k, db + 128 * k);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(acc);
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) tot[i] += acc[i];
+    }
+
+    const int cb = ct * kChains + wg * 64 + warp * 16 + (lane >> 2);
+    const int db0 = dt * kHCols + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = cb + 8 * (q >> 1), d = db0 + 8 * j + (q & 1);
+        if (c < C && d < D) out[(size_t)c * D + d] = tot[4 * j + q];
       }
     }
   } else {
@@ -727,10 +829,10 @@ glm_hopper_grad_kernel(const __grid_constant__ CUtensorMap r_map,
     uint32_t phase = 0;
     for (int ch = chunk_begin; ch < chunk_end; ++ch) {
       mbar_wait(&full[stage], phase);
-      unsigned char* st = smem + stage * kGStageBytes;
+      unsigned char* st = smem + stage * kStageBytes;
       const uint64_t da0 = sw128_desc(st + (wg * 128) * 128, 16);
       const uint64_t da1 = sw128_desc(st + (wg * 128 + 64) * 128, 16);
-      const uint64_t db = sw128_desc(st + kGRBytes, kGXBytes / 2);
+      const uint64_t db = sw128_desc(st + kRBytes, kGXBytes / 2);
       fence_acc(acc0);
       fence_acc(acc1);
       wgmma_fence();
@@ -744,13 +846,13 @@ glm_hopper_grad_kernel(const __grid_constant__ CUtensorMap r_map,
       fence_acc(acc0);
       fence_acc(acc1);
       if (lane == 0) mbar_arrive(&empty[stage]);
-      if (++stage == kGStages) {
+      if (++stage == kStages) {
         stage = 0;
         phase ^= 1;
       }
     }
 
-    const int cb = ct * kHChains + wg * 128 + warp * 16 + (lane >> 2);
+    const int cb = ct * kChains + wg * 128 + warp * 16 + (lane >> 2);
     const int db0 = dt * kHCols + 2 * (lane & 3);
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -758,8 +860,8 @@ glm_hopper_grad_kernel(const __grid_constant__ CUtensorMap r_map,
       for (int q = 0; q < 4; ++q) {
         const int c = cb + 8 * (q >> 1), d = db0 + 8 * j + (q & 1);
         if (d < D) {
-          if (c < C) g_part[((size_t)split * C + c) * D + d] = acc0[4 * j + q];
-          if (c + 64 < C) g_part[((size_t)split * C + c + 64) * D + d] = acc1[4 * j + q];
+          if (c < C) out[((size_t)split * C + c) * D + d] = acc0[4 * j + q];
+          if (c + 64 < C) out[((size_t)split * C + c + 64) * D + d] = acc1[4 * j + q];
         }
       }
     }
@@ -1453,13 +1555,17 @@ struct Args {
   cudaStream_t st;
 };
 
-// ll (C,) and g (C, D) from their per-split partials, on every path.
+// ll (C,) and g (C, D) from their per-split partials, on every path; no g
+// partials (g_part null) when the wide gradient kernel walked its splits
+// and wrote g itself.
 int sum_outputs(const Args& a, void* ll, void* g) {
   sum_splits_ll_kernel<<<(a.C + 7) / 8, 256, 0, a.st>>>(a.ll_part, static_cast<float*>(ll),
                                                         a.C, a.splits);
-  const int ng = a.C * a.D;
-  sum_splits_kernel<<<(ng + 255) / 256, 256, 0, a.st>>>(a.g_part, static_cast<float*>(g), ng,
-                                                        a.g_splits);
+  if (a.g_part != nullptr) {
+    const int ng = a.C * a.D;
+    sum_splits_kernel<<<(ng + 255) / 256, 256, 0, a.st>>>(a.g_part, static_cast<float*>(g), ng,
+                                                          a.g_splits);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1473,7 +1579,7 @@ constexpr bool kOnePassAccurate = false;
 template <class E, bool kInt8, bool kGT = true, bool kLLSum = true>
 int launch_onepass_as(const Args& a) {
   if (!covers(a.N, a.splits, a.rows_per_split, kORows) || a.g_splits != a.splits ||
-      a.zb == nullptr || a.maps == nullptr || a.Dp > kMaxDp)
+      a.g_part == nullptr || a.zb == nullptr || a.maps == nullptr || a.Dp > kMaxDp)
     return (int)cudaErrorInvalidValue;
   CUtensorMap m[2];
   memcpy(m, a.maps, sizeof m);
@@ -1502,12 +1608,14 @@ int launch_onepass(const Args& a) {
 // Dp > 128, bf16 or int8 X: the two Hopper kernels. Scratch: zb
 // (round_up(C, 256), Dp) bf16 and rt (round_up(C, 256), round_up(N, 128))
 // bf16, both reached through the tensor maps (glm_hopper_tensor_maps, made
-// for X's type).
+// for X's type). The gradient kernel writes g_part, one partial a split,
+// or, with g_part null, walks the splits and writes g (launch_plan's
+// g_walk; the same bits).
 template <class Epilogue, bool kInt8>
-int launch_hopper(const Args& a) {
+int launch_hopper(const Args& a, void* g) {
   if (!covers(a.N, a.splits, a.rows_per_split, kHRows) ||
       !covers(a.N, a.g_splits, a.g_rows_per_split, kHK) || a.zb == nullptr ||
-      a.maps == nullptr)
+      a.maps == nullptr || g == nullptr)
     return (int)cudaErrorInvalidValue;
   CUtensorMap m[4];
   memcpy(m, a.maps, sizeof m);
@@ -1517,21 +1625,33 @@ int launch_hopper(const Args& a) {
       a.Z, static_cast<__nv_bfloat16*>(a.zb), a.C, a.D, Cp, a.Dp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  constexpr uint32_t vsmem = v_smem(kInt8), gsmem = g_smem(kInt8);
+  constexpr uint32_t vsmem = v_smem(kInt8);
   err = max_dynamic_smem_once(
       reinterpret_cast<const void*>(glm_hopper_value_kernel<Epilogue, kInt8>), (int)vsmem);
-  if (err != cudaSuccess) return (int)err;
-  err = max_dynamic_smem_once(reinterpret_cast<const void*>(glm_hopper_grad_kernel<kInt8>),
-                              (int)gsmem);
   if (err != cudaSuccess) return (int)err;
   glm_hopper_value_kernel<Epilogue, kInt8>
       <<<dim3(a.splits, Cp / kHChains), kHThreads, vsmem, a.st>>>(
           m[0], m[1], m[3], a.y, a.ll_part, a.N, a.Dp, a.C, a.rows_per_split / kHRows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  glm_hopper_grad_kernel<kInt8><<<dim3((a.Dp + kHCols - 1) / kHCols, a.g_splits, Cp / kHChains),
-                                  kHThreads, gsmem, a.st>>>(m[3], m[2], a.g_part, a.N, a.D, a.C,
-                                                            a.g_rows_per_split / kHK);
+  const int col_tiles = (a.Dp + kHCols - 1) / kHCols, cps = a.g_rows_per_split / kHK;
+  if (a.g_part == nullptr) {
+    constexpr uint32_t gsmem = g_smem(kInt8, true);
+    err = max_dynamic_smem_once(reinterpret_cast<const void*>(glm_hopper_grad_kernel<kInt8, true>),
+                                (int)gsmem);
+    if (err != cudaSuccess) return (int)err;
+    glm_hopper_grad_kernel<kInt8, true>
+        <<<dim3(col_tiles, (a.C + g_chains(true) - 1) / g_chains(true)), kHThreads, gsmem, a.st>>>(
+            m[3], m[2], static_cast<float*>(g), a.N, a.D, a.C, a.g_splits, cps);
+  } else {
+    constexpr uint32_t gsmem = g_smem(kInt8, false);
+    err = max_dynamic_smem_once(
+        reinterpret_cast<const void*>(glm_hopper_grad_kernel<kInt8, false>), (int)gsmem);
+    if (err != cudaSuccess) return (int)err;
+    glm_hopper_grad_kernel<kInt8, false>
+        <<<dim3(col_tiles, a.g_splits, Cp / kHChains), kHThreads, gsmem, a.st>>>(
+            m[3], m[2], a.g_part, a.N, a.D, a.C, a.g_splits, cps);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1548,8 +1668,8 @@ constexpr bool kTF32Accurate = false;
 template <class Epilogue>
 int launch_tf32(const Args& a) {
   if (!covers(a.N, a.splits, a.rows_per_split, kTRows) ||
-      !covers(a.N, a.g_splits, a.g_rows_per_split, kTK) || a.zb == nullptr ||
-      a.maps == nullptr || a.grid <= 0)
+      !covers(a.N, a.g_splits, a.g_rows_per_split, kTK) || a.g_part == nullptr ||
+      a.zb == nullptr || a.maps == nullptr || a.grid <= 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap m[4];
   memcpy(m, a.maps, sizeof m);
@@ -1590,7 +1710,7 @@ int launch(int x_dtype, const Args& a, void* ll, void* g) {
   else if (a.Dp <= kMaxDp)
     err = int8 ? launch_onepass<Epilogue, true>(a) : launch_onepass<Epilogue, false>(a);
   else
-    err = int8 ? launch_hopper<Epilogue, true>(a) : launch_hopper<Epilogue, false>(a);
+    err = int8 ? launch_hopper<Epilogue, true>(a, g) : launch_hopper<Epilogue, false>(a, g);
   if (err != 0) return err;
   return sum_outputs(a, ll, g);
 }

@@ -61,6 +61,17 @@ _WIDE_ROW_TILE = 128  # rows per tile, wide value kernel (kHRows)
 _HOPPER_CHAIN_TILE = 256  # wide kernels: chains per block (kHChains)
 _HOPPER_ROW_CHUNK = 64  # gradient kernel: rows per ring stage (kHK)
 _HOPPER_D_TILE = 128  # gradient kernel: columns of g per block (kHCols)
+_WALK_CHAIN_TILE = 128  # gradient kernel walking its splits: chains per block (g_chains(true))
+# launch_plan's estimate of the wide gradient's two schedules, from the
+# H100 (tools/wide_schedule.py): the tensor rate of one block (flop/s: the
+# split schedule's 128 blocks ran glm1000_fused's 51.6 GFLOP in 0.104 ms,
+# the walk's 256 blocks at C = 4096 826 GFLOP in 1.78 ms over two waves),
+# the rate of the split schedule's scattered g partial stores (168 MB in
+# its 0.20 ms at C = 4096, Dp = 1024, N = 1280) and sum_splits_kernel's
+# (185 MB in 0.067 ms).
+_GRAD_BLOCK_FLOPS = 3.7e12
+_PARTIAL_STORE_BYTES_PER_S = 0.84e12
+_SUM_SPLITS_BYTES_PER_S = 2.8e12
 _TF32_ROW_TILE = 128  # f32 value kernel: rows per tile (kTRows)
 _TF32_ROW_CHUNK = 32  # f32 gradient kernel: rows per ring stage (kTK)
 _TF32_D_TILE = 128  # f32 gradient kernel: columns of g per block (kTCols)
@@ -289,7 +300,21 @@ def launch_plan(n: int, d_pad: int, c: int, sms: int, x_dtype=torch.bfloat16) ->
     path the row splits depend on n, Dp and ``sms`` only, never on c: a
     chain's ll and g are summed in the same order, to the same bits,
     whatever the number of chains in the call; chain tiles only add blocks
-    (or, on the persistent f32 grids, work items)."""
+    (or, on the persistent f32 grids, work items).
+
+    The wide paths' gradient takes one of two schedules of the same sums
+    (``g_walk``), and only that choice depends on c. With ``g_walk``
+    False, one block a (column tile, split, 256 chains) writes its split's
+    g partial (``g_splits x C x D`` f32 in all, :func:`g_partial_shape`)
+    and ``sum_splits_kernel`` adds them in split order. With ``g_walk``
+    True, one block a (column tile, 128 chains) walks the splits in order,
+    each into a fresh accumulator added to a running total in registers,
+    and writes g: no partials. Both add a chain's split partials as ((p0 +
+    p1) + p2) + ... in float32, from the same tensor-core sequence over the
+    same rows, so they give the same bits. The walk is taken where it is
+    estimated faster (:func:`_walk_is_faster`): each of its blocks runs all
+    n rows, so few chains leave SMs idle for a whole walk, while the
+    partials' round trip through device memory grows with c."""
     if x_dtype == torch.float32:
         # One chain tile's value items fill the SMs; the gradient's row
         # splits do so within each column tile, but keep at least
@@ -315,7 +340,30 @@ def launch_plan(n: int, d_pad: int, c: int, sms: int, x_dtype=torch.bfloat16) ->
     path = "wide_int8" if x_dtype == torch.int8 else "wide"
     return {"path": path, "splits": splits, "rows_per_split": rows, "g_splits": g_splits,
             "g_rows_per_split": g_rows, "zb_shape": (c_pad, d_pad),
-            "rt_shape": (c_pad, _round_up(n, _WIDE_ROW_TILE)), "rt_dtype": torch.bfloat16}
+            "rt_shape": (c_pad, _round_up(n, _WIDE_ROW_TILE)), "rt_dtype": torch.bfloat16,
+            "g_walk": _walk_is_faster(n, d_pad, c, sms, g_splits)}
+
+
+def _walk_is_faster(n: int, d_pad: int, c: int, sms: int, g_splits: int) -> bool:
+    """launch_plan's choice of the wide gradient's schedule, by estimated
+    time. The walk: its waves of blocks, each the products of one 128 x 128
+    tile over all n rows. One block a split: the same products spread over
+    every SM, or the stores of the g partials where those take longer, then
+    sum_splits_kernel's pass over them."""
+    tiles = -(-d_pad // _HOPPER_D_TILE) * -(-c // _WALK_CHAIN_TILE)
+    tile_s = n * 2 * _WALK_CHAIN_TILE * _HOPPER_D_TILE / _GRAD_BLOCK_FLOPS
+    walk_s = -(-tiles // sms) * tile_s
+    partials = 4 * g_splits * c * d_pad
+    split_s = (max(tiles * tile_s / sms, partials / _PARTIAL_STORE_BYTES_PER_S)
+               + (partials + 4 * c * d_pad) / _SUM_SPLITS_BYTES_PER_S)
+    return walk_s < split_s and -(-c // _WALK_CHAIN_TILE) < 2**16  # the walk's grid.y
+
+
+def g_partial_shape(plan: dict, c: int, d: int):
+    """The g partials (``(g_splits, c, d)`` f32) that ``plan``'s gradient
+    writes for c chains of D columns, or None where it writes g itself
+    (the wide paths' walk)."""
+    return None if plan.get("g_walk") else (plan["g_splits"], c, d)
 
 
 def _check_kernel_args(Xp, y, Z, XpT=None):
@@ -397,9 +445,10 @@ def _workspace(Xp: torch.Tensor, c: int, d: int, plan: dict = None, XpT=None) ->
     if plan is None:
         plan = launch_plan(n, d_pad, c, sm_count(dev.index or 0), Xp.dtype)
     f32 = dict(dtype=torch.float32, device=dev)
+    g_shape = g_partial_shape(plan, c, d)
     ws = {"plan": plan, "ll_part": torch.empty((plan["splits"], c), **f32),
-          "g_part": torch.empty((plan["g_splits"], c, d), **f32), "zb": None, "rt": None,
-          "maps": None}
+          "g_part": None if g_shape is None else torch.empty(g_shape, **f32), "zb": None,
+          "rt": None, "maps": None}
     if plan["zb_shape"] is not None:
         zb_dtype = torch.float32 if plan["path"] == "f32" else torch.bfloat16
         ws["zb"] = torch.empty(plan["zb_shape"], dtype=zb_dtype, device=dev)
@@ -456,11 +505,14 @@ def _launch(name: str, Xp: torch.Tensor, y, Z: torch.Tensor, plan: dict = None,
     plan = ws["plan"]
     ll = torch.empty((c,), dtype=torch.float32, device=Xp.device)
     g = torch.empty((c, d), dtype=torch.float32, device=Xp.device)
+
+    def ptr(key):
+        return None if ws[key] is None else ws[key].data_ptr()
+
     err = fn(
         Xp.data_ptr(), _X_DTYPE_CODE[Xp.dtype], None if y is None else y.data_ptr(),
-        Z.data_ptr(), ws["ll_part"].data_ptr(), ws["g_part"].data_ptr(), ll.data_ptr(),
-        g.data_ptr(), *(None if ws[k] is None else ws[k].data_ptr() for k in ("zb", "rt")),
-        ws["maps"], n, d_pad, d, c, plan["splits"], plan["rows_per_split"],
+        Z.data_ptr(), ptr("ll_part"), ptr("g_part"), ll.data_ptr(), g.data_ptr(), ptr("zb"),
+        ptr("rt"), ws["maps"], n, d_pad, d, c, plan["splits"], plan["rows_per_split"],
         plan["g_splits"], plan["g_rows_per_split"], plan.get("grid", 0),
         torch.cuda.current_stream(Xp.device).cuda_stream,
     )

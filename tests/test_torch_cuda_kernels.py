@@ -203,6 +203,39 @@ def test_wide_bf16_kernels_are_reproducible_and_batch_invariant(n, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["glm_fused_logistic", "glm_fused_linear", "glm_fused_hoisted"])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("n,d,c", [(1280, 1024, 4096), (5120, 256, 700), (777, 300, 300),
+                                   (100_000, 1000, 130), (129, 144, 1)])
+def test_wide_gradient_walk_gives_the_split_schedules_bits(n, d, c, x_dtype, entry):
+    # The wide gradient's two schedules (launch_plan's g_walk) on the same
+    # inputs: one block a split with partials summed by sum_splits_kernel,
+    # and one block a tile walking the splits into a running total. Same
+    # bits, and near the plain version.
+    _need_gpu()
+    if entry == "glm_fused_linear" and x_dtype == torch.int8:
+        pytest.skip("the linear kernel takes no int8 X, as the reference")
+    log_data, lin_data = _wide_data(n, d)
+    data = lin_data if entry == "glm_fused_linear" else log_data
+    if x_dtype == torch.int8:
+        data = glm.prepare_fused_logistic_data(data["Xp"][:, :d], data["yp"], quantize="int8")
+    Xp, y = data["Xp"], None if entry == "glm_fused_hoisted" else data["yp"]
+    Z = torch.randn(c, d, generator=torch.Generator(device="cuda").manual_seed(c), device="cuda")
+    if x_dtype == torch.int8:  # the kernel's operand is the scaled Z
+        Z = Z * data["col_scale"]
+    plan = glm.launch_plan(n, Xp.shape[1], c, glm.sm_count(0), Xp.dtype)
+    walk = glm._launch(entry, Xp, y, Z, dict(plan, g_walk=True))
+    split = glm._launch(entry, Xp, y, Z, dict(plan, g_walk=False))
+    family = {"glm_fused_logistic": "logistic", "glm_fused_linear": "linear"}.get(entry, "hoisted")
+    ll_p, g_p = _vag(family)[1](Xp, data["yp"], Z)
+    torch.cuda.synchronize()
+    assert torch.equal(walk[0], split[0]) and torch.equal(walk[1], split[1])
+    g_rel = 1e-4 if n == 100_000 else 1e-2
+    assert float((walk[0] - ll_p).abs().max()) <= 0.05 + 1e-6 * float(ll_p.abs().max())
+    assert float((walk[1] - g_p).abs().max()) <= g_rel * float(g_p.abs().max()) + 1e-3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("family", ["logistic", "linear", "hoisted"])
 @pytest.mark.parametrize("n,d,c", [(10_000, 100, 4096), (777, 128, 70), (1, 16, 1), (4097, 112, 300),
                                    (130, 5, 129), (64, 33, 128)])

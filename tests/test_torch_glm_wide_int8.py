@@ -184,7 +184,9 @@ def test_launch_plan_covers_every_row(n, d_pad, c, x_dtype):
     (torch.float32, 777, 304, "f32"), (torch.int8, 100_000, 1008, "wide_int8"),
     (torch.int8, 777, 304, "wide_int8"), (torch.bfloat16, 100_000, 1008, "wide"),
     (torch.bfloat16, 777, 304, "wide"), (torch.bfloat16, 129, 144, "wide"),
-    (torch.bfloat16, 5000, 2048, "wide"),
+    (torch.bfloat16, 5000, 2048, "wide"), (torch.bfloat16, 5120, 256, "wide"),
+    (torch.bfloat16, 1280, 1024, "wide"), (torch.int8, 5120, 256, "wide_int8"),
+    (torch.int8, 1280, 1024, "wide_int8"),
 ])
 def test_wide_plan_splits_do_not_depend_on_the_chain_count(x_dtype, n, d_pad, path):
     # Every path: the row splits of both products are the same at every C,

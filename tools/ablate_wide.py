@@ -97,8 +97,8 @@ def _reloads_off(src: str) -> str:
     for producer, first in (
         ("          mbar_expect_tx(&full[stage], kInt8 ? 2 * kHalfBoxBytes : kVStageBytes);\n",
          "(t - tile_begin) * nk + kc < kVStages"),
-        ("        mbar_expect_tx(&full[stage], kInt8 ? kGRBytes : kGStageBytes);\n",
-         "ch - chunk_begin < kGStages")):
+        ("        mbar_expect_tx(&full[stage], kInt8 ? kRBytes : kStageBytes);\n",
+         "ch - chunk_begin < kStages")):
         head, sep, tail = src.partition(producer)
         if not sep:
             raise ValueError("the producer's loads were not found in the source")
