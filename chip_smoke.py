@@ -56,7 +56,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``sum_splits_kernel``, and chains 0-255 of a C = 256 call and 0-3 of a
    C = 4 call (the split schedule) must give the C = 4096 call's bits, for
    floor at both depths and for K1 on bf16 and int8 X at Dp = 1024 (K1
-   also against its plain version there).
+   also against its plain version there). tanh_y and tanh_hoist
+   (``glm_overlap_kernel``): chains 0-3 of a C = 4 call give the C = 4096
+   call's bits. The tanh and exp variants' bound also counts the warp
+   instructions that their epilogues issue for every element
+   (``EPILOGUE_ISSUE``): instruction issue binds them.
 3c. CUDA graphs of the NUTS transition (``inference/graphs.py``) against
    the eager loop (one host check per pair iteration): three steps at
    fixed tunables from the engine's per-chain draws through K1 on bf16 X
@@ -349,6 +353,18 @@ H100_BYTES_PER_S = 3.35e12
 # Transcendentals (exp, log, tanh, sin, ...): the special-function units do
 # 16 per clock per SM, 132 SMs at the 1.98 GHz boost clock.
 H100_MUFU_OPS = 16 * 132 * 1.98e9
+# Instruction issue: each SM's four schedulers issue one warp instruction a
+# clock each.
+H100_ISSUE_RATE = 4 * 132 * 1.98e9
+# The accurate epilogues of the variants of K1's body: warp instructions per
+# (row, chain) element that each one-pass instance's stage loop issues over
+# the Floor instance's, counting only the instructions that no branch of the
+# loop skips, so that every element issues them (a thread runs 32 elements
+# a stage). From the SASS of one sm_90a build (``tools/onepass_schedule.py
+# --split``, "sass"); another compiler version may count otherwise.
+EPILOGUE_ISSUE = {"Logistic": 50.5625, "Hoisted": 46.125, "ExpHoisted": 48.03125}
+VARIANT_EPILOGUE = {"tanh_y": "Logistic", "split2": "Logistic", "tanh_hoist": "Hoisted",
+                    "exp_hoist": "ExpHoisted"}
 
 # GLM (K1, K2, K4) tolerances against the plain version, which rounds at the
 # same points (bf16 and int8 X; f32 X rounds nowhere, see below):
@@ -533,12 +549,16 @@ def variant_bound_ms(name: str, n: int, d_pad: int, c: int) -> tuple:
     read), Z in, ll and g out; the products on the bf16 tensor cores (4 N
     Dp C, half that for mm1_sum); per (row, chain) ~12 float32 operations
     and 2 transcendentals for the tanh and exp epilogues (tanh and log, exp
-    and log1p), ~2 operations for the sums and casts of the others."""
+    and log1p), ~2 operations for the sums and casts of the others; and for
+    the accurate epilogues their warp instructions (``EPILOGUE_ISSUE``, 32
+    elements to a warp instruction) over the schedulers' issue rate."""
     nbytes = n * d_pad * 2 + (n * 4 if name in ("tanh_y", "split2") else 0) + 2 * c * d_pad * 4 + c * 4
     products = (2.0 if name == "mm1_sum" else 4.0) * n * d_pad * c
-    epilogue = name in ("tanh_y", "tanh_hoist", "exp_hoist", "split2")
-    return roofline_ms(nbytes, tensor_flops=products, f32_ops=(12 if epilogue else 2) * n * c,
-                       transcendentals=(2 if epilogue else 0) * n * c)
+    epilogue = VARIANT_EPILOGUE.get(name)
+    ms, by, detail = roofline_ms(nbytes, tensor_flops=products, f32_ops=(12 if epilogue else 2) * n * c,
+                                 transcendentals=(2 if epilogue else 0) * n * c)
+    issue_ms = EPILOGUE_ISSUE[epilogue] * n * c / 32 / H100_ISSUE_RATE * 1e3 if epilogue else 0.0
+    return (issue_ms, "operations", "instruction issue") if issue_ms > ms else (ms, by, detail)
 
 
 def timed_row(row, kernel_call, plain_call, bound) -> dict:
@@ -865,7 +885,7 @@ def check_variant(name: str, label: str, Xp, yp, Z) -> dict:
             fail(f"{label}: grad error {err_g} > {g_tol}")
     timed_row(row, call, plain_call, variant_bound_ms(name, n, d_pad, c))
     row["device_breakdown_ms"] = device_breakdown_ms(call, (
-        "round_z", "glm_onepass", "glm_split2", "glm_mm1_pair", "glm_hopper_value",
+        "round_z", "glm_onepass", "glm_overlap", "glm_split2", "glm_mm1_pair", "glm_hopper_value",
         "glm_hopper_grad", "sum_splits_ll", "sum_splits"))
     return row
 
@@ -898,6 +918,8 @@ def variants_phase() -> list:
 
     Xp, yp, Z = fd.make_operands(10240, 128, 4096)
     rows = {name: check_variant(name, name, Xp, yp, Z) for name in glm_variants.VARIANTS}
+    for name in ("tanh_y", "tanh_hoist"):  # glm_overlap_kernel: chains 0-3 at C = 4 and 4096
+        bits_check(name, lambda z, k=glm_variants.VARIANTS[name][0]: k(Xp, yp, z), Z)
     # The yardsticks: each variant's products as torch.matmul (mm1_sum has
     # one, X Z^T; mm1_pair's two are both K = Dp, X Z^T and X W^T).
     two = products_yardstick_ms(Xp, Z, chain_tile=128)
@@ -937,6 +959,8 @@ def variants_phase() -> list:
         name = "floor" if key == "floor_wide" else key
         sums = ["sum_splits_kernel", "sum_splits_ll_kernel"]
         devs = {"mm1_pair": ["round_z_kernel", "glm_mm1_pair_kernel"],
+                "tanh_y": ["round_z_kernel", "glm_overlap_kernel<Logistic>"] + sums,
+                "tanh_hoist": ["round_z_kernel", "glm_overlap_kernel<Hoisted>"] + sums,
                 "split2": ["round_z_kernel", "glm_split2_kernel"] + sums,
                 "floor_wide": ["round_z_kernel", "glm_hopper_value_kernel<Floor, false>",
                                "glm_hopper_grad_kernel<false, true> (the walk)",

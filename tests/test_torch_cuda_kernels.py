@@ -39,7 +39,8 @@ Tolerances as in ``chip_smoke.py``:
   1e-4 relative except chains with one bf16(ll) rounded the other way
   (``glm_variants.mm1_pair_agreement``; at most 0.5% of them, and at most
   0.1% within one f32 ulp of a bf16 boundary); two calls give the same
-  bits.
+  bits, and tanh_y's and tanh_hoist's chains 0 to k - 1 give the same bits
+  in a call with k = 4 or 129 chains as in the full call.
 """
 
 import functools
@@ -484,6 +485,23 @@ def test_variant_kernels_match_plain_version(n, d_pad, c, name):
     # C, Dp <= 64 (one X box per stage), a partial last chain tile.
     _need_gpu()
     _check_variant(name, *_variant_case(n, d_pad, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tanh_y", "tanh_hoist"])
+@pytest.mark.parametrize("n,d_pad,c", [(10_240, 128, 4096), (777, 112, 300)])
+def test_overlap_variants_are_reproducible_and_batch_invariant(n, d_pad, c, name):
+    # V4 and V5 (glm_overlap_kernel): two calls give the same bits, and
+    # chains 0 to k - 1 of a call with k chains those of the full call.
+    _need_gpu()
+    Xp, yp, Z = _variant_case(n, d_pad, c)
+    kernel = glm_variants.VARIANTS[name][0]
+    a, b = kernel(Xp, yp, Z), kernel(Xp, yp, Z)
+    subs = {k: kernel(Xp, yp, Z[:k].contiguous()) for k in (4, 129)}
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for k, sub in subs.items():
+        assert all(torch.equal(x[:k], y) for x, y in zip(a, sub)), k
 
 
 @pytest.mark.cuda

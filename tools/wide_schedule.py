@@ -41,6 +41,44 @@ from mlx_mcmc_tpu_torch.benchmarks.flagship_decomposition import make_operands
 from mlx_mcmc_tpu_torch.ops import glm, glm_variants
 
 
+def timed_in_turns(calls: dict) -> dict:
+    """{"ms": {package: [device ms, ...]}, "kernels_ms": {package: {kernel:
+    ms}}} of ``calls`` ({"this": call} or {"this": ..., "other": ...}),
+    timed in turns: other, this, this, other (this, this alone)."""
+    order = ["other", "this", "this", "other"] if "other" in calls else ["this", "this"]
+    row = {"ms": {k: [] for k in calls}, "kernels_ms": {}}
+    for key in order:
+        row["ms"][key].append(device_ms(calls[key]))
+    for key in calls:
+        row["kernels_ms"][key] = kernels_ms(calls[key])
+    return row
+
+
+def tool_main(run, out_name: str, flags=()) -> None:
+    """A tool's ``main``: ``--against ROOT``, ``--out PATH`` (default
+    ``build/mlx_mcmc_tpu_torch/results/<out_name>``) and the tool's own
+    switches ``flags``; prints the card's name and power limit, calls
+    ``run(args)``, writes its dict with the card and the torch version to
+    ``--out`` and prints it as the last line."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--against", default=None)
+    ap.add_argument("--out", default=str(_build.BUILD_DIR / "results" / out_name))
+    for flag in flags:
+        ap.add_argument(flag, action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA GPU")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    out = dict(run(args), device=smi, torch=torch.__version__)
+    path = Path(args.out)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=1))
+    print(f"wrote {path}", flush=True)
+    print(json.dumps(out))
+
+
 def _cases():
     """(label, make_inputs, family) with make_inputs() -> (Xp, y, Z)."""
     def sweep(n, d_pad):
@@ -86,7 +124,6 @@ def run(against: str | None = None) -> dict:
     if against:
         other = module_from(against, "mlx_mcmc_tpu_torch.ops.glm_variants")
         packages["other"] = (other.glm, other)
-    order = ["other", "this", "this", "other"] if against else ["this", "this"]
     sms = sm_count(0)
     out = []
     for label, make, family in _cases():
@@ -94,13 +131,9 @@ def run(against: str | None = None) -> dict:
         n, d_pad = Xp.shape
         plan = glm.launch_plan(n, d_pad, Z.shape[0], sms, Xp.dtype)
         row = {"case": label, "shape_c_n_dp": [Z.shape[0], n, d_pad], "x_dtype": str(Xp.dtype),
-               "plan": {k: v for k, v in plan.items() if not k.endswith("dtype")},
-               "ms": {k: [] for k in packages}, "kernels_ms": {}}
+               "plan": {k: v for k, v in plan.items() if not k.endswith("dtype")}}
         calls = {k: _call(ops, family, Xp, y, Z) for k, ops in packages.items()}
-        for key in order:
-            row["ms"][key].append(device_ms(calls[key]))
-        for key in packages:
-            row["kernels_ms"][key] = kernels_ms(calls[key])
+        row.update(timed_in_turns(calls))
         if against:
             a, b = calls["this"](), calls["other"]()
             row["bits_equal_to_other"] = all(torch.equal(u, v) for u, v in zip(a, b))
@@ -120,21 +153,7 @@ def run(against: str | None = None) -> dict:
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--against", default=None)
-    ap.add_argument("--out", default=str(_build.BUILD_DIR / "results" / "wide_schedule.json"))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("needs an NVIDIA GPU")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi, flush=True)
-    out = dict(run(args.against), device=smi, torch=torch.__version__)
-    path = Path(args.out)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(json.dumps(out, indent=1))
-    print(f"wrote {path}", flush=True)
-    print(json.dumps(out))
+    tool_main(lambda args: run(args.against), "wide_schedule.json")
 
 
 if __name__ == "__main__":
