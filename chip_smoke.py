@@ -57,10 +57,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    C = 4 call (the split schedule) must give the C = 4096 call's bits, for
    floor at both depths and for K1 on bf16 and int8 X at Dp = 1024 (K1
    also against its plain version there). tanh_y and tanh_hoist
-   (``glm_overlap_kernel``): chains 0-3 of a C = 4 call give the C = 4096
-   call's bits. The tanh and exp variants' bound also counts the warp
-   instructions that their epilogues issue for every element
-   (``EPILOGUE_ISSUE``): instruction issue binds them.
+   (``glm_overlap_kernel``), exp_hoist (its epilogue on one instruction
+   path) and mm1_pair (a cluster of CTAs a 64-chain tile; the cluster
+   size and the clusters resident at once are printed): chains 0-3 of a
+   C = 4 call give the C = 4096 call's bits. The tanh and exp variants'
+   bound also counts the warp instructions that their epilogues issue for
+   every element (``EPILOGUE_ISSUE``): instruction issue binds them; the
+   nvcc release of the build is printed beside the one they were read from.
 3c. CUDA graphs of the NUTS transition (``inference/graphs.py``) against
    the eager loop (one host check per pair iteration): three steps at
    fixed tunables from the engine's per-chain draws through K1 on bf16 X
@@ -335,6 +338,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -361,8 +365,13 @@ H100_ISSUE_RATE = 4 * 132 * 1.98e9
 # the Floor instance's, counting only the instructions that no branch of the
 # loop skips, so that every element issues them (a thread runs 32 elements
 # a stage). From the SASS of one sm_90a build (``tools/onepass_schedule.py
-# --split``, "sass"); another compiler version may count otherwise.
-EPILOGUE_ISSUE = {"Logistic": 50.5625, "Hoisted": 46.125, "ExpHoisted": 48.03125}
+# --split``, "sass") by the nvcc release EPILOGUE_ISSUE_NVCC; another
+# release may count otherwise, and phase 3b says so when the card's differs.
+# ExpHoisted's epilogue runs on one instruction path, so all of its loop but
+# Floor's own branches is counted (libm's form: 48.03125 of the 66.3 that
+# its loop held, branches around libm's other paths skipped).
+EPILOGUE_ISSUE = {"Logistic": 50.5625, "Hoisted": 46.125, "ExpHoisted": 46.59375}
+EPILOGUE_ISSUE_NVCC = "12.9"
 VARIANT_EPILOGUE = {"tanh_y": "Logistic", "split2": "Logistic", "tanh_hoist": "Hoisted",
                     "exp_hoist": "ExpHoisted"}
 
@@ -812,6 +821,14 @@ def check_philox(name: str, chains, dim: int, n_slots: int, timed: bool) -> dict
         timed_row(row, lambda: prng.step_draws_cuda(seed, chains, step, dim, n_slots),
                   lambda: prng.step_draws_reference(seed, chains, step, dim, n_slots),
                   philox_bound_ms(chains.shape[0], dim, n_slots))
+        # A yardstick, not the same function (torch's own generator): the
+        # same shapes of normals and uniforms from torch.randn and torch.rand.
+        from mlx_mcmc_tpu_torch.bench import device_ms
+
+        c = chains.shape[0]
+        row["randn_ms"] = device_ms(lambda: (torch.randn(c, dim, device="cuda"),
+                                             torch.rand(c, n_slots, device="cuda")))
+        log(f"  torch.randn + torch.rand of the same shapes: {row['randn_ms']:.4f} ms")
     return row
 
 
@@ -890,6 +907,16 @@ def check_variant(name: str, label: str, Xp, yp, Z) -> dict:
     return row
 
 
+def nvcc_release() -> str:
+    """The release of the nvcc that builds the kernels, e.g. "12.9"."""
+    from mlx_mcmc_tpu_torch import _build
+
+    text = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
+                          timeout=60).stdout
+    found = re.search(r"release (\d+\.\d+)", text)
+    return found.group(1) if found else "unknown"
+
+
 def variants_phase() -> list:
     """Phase 3b: the benchmark entry points as the path, then every
     variant against its plain version. Returns the variants' kernels rows."""
@@ -918,8 +945,23 @@ def variants_phase() -> list:
 
     Xp, yp, Z = fd.make_operands(10240, 128, 4096)
     rows = {name: check_variant(name, name, Xp, yp, Z) for name in glm_variants.VARIANTS}
-    for name in ("tanh_y", "tanh_hoist"):  # glm_overlap_kernel: chains 0-3 at C = 4 and 4096
+    # glm_overlap_kernel, exp_hoist's one-path epilogue and mm1_pair's
+    # clusters: chains 0-3 at C = 4 and 4096.
+    for name in ("tanh_y", "tanh_hoist", "exp_hoist"):
         bits_check(name, lambda z, k=glm_variants.VARIANTS[name][0]: k(Xp, yp, z), Z)
+    bits_check("mm1_pair", lambda z: glm_variants.mm1_pair_cuda(Xp, yp, z, tile_rows=1024), Z)
+    rows["mm1_pair"]["cluster"] = glm_variants.mm1_pair_plan(Z.shape[0], 1024)
+    log(f"mm1_pair: clusters of {rows['mm1_pair']['cluster']['cluster']} CTAs a 64-chain tile, "
+        f"{rows['mm1_pair']['cluster']['resident']} such clusters resident at once for "
+        f"{-(-Z.shape[0] // 64)} tiles")
+    release = nvcc_release()
+    log(f"nvcc release {release}; the variants' issue bounds (EPILOGUE_ISSUE) were read from "
+        f"{EPILOGUE_ISSUE_NVCC}'s SASS" + ("" if release == EPILOGUE_ISSUE_NVCC else
+                                            ": another compiler's counts"))
+    for name, row in rows.items():
+        if name in VARIANT_EPILOGUE:
+            row["issue_counts_nvcc"] = EPILOGUE_ISSUE_NVCC
+            row["issue_counts_from_this_compiler"] = release == EPILOGUE_ISSUE_NVCC
     # The yardsticks: each variant's products as torch.matmul (mm1_sum has
     # one, X Z^T; mm1_pair's two are both K = Dp, X Z^T and X W^T).
     two = products_yardstick_ms(Xp, Z, chain_tile=128)
@@ -958,9 +1000,10 @@ def variants_phase() -> list:
     for key, row in list(rows.items()) + [("floor_wide", wide[1024])]:
         name = "floor" if key == "floor_wide" else key
         sums = ["sum_splits_kernel", "sum_splits_ll_kernel"]
-        devs = {"mm1_pair": ["round_z_kernel", "glm_mm1_pair_kernel"],
+        devs = {"mm1_pair": ["round_z_kernel", "glm_mm1_pair_kernel (a cluster of CTAs a 64-chain tile)"],
                 "tanh_y": ["round_z_kernel", "glm_overlap_kernel<Logistic>"] + sums,
                 "tanh_hoist": ["round_z_kernel", "glm_overlap_kernel<Hoisted>"] + sums,
+                "exp_hoist": ["round_z_kernel", "glm_onepass_kernel<ExpHoisted>"] + sums,
                 "split2": ["round_z_kernel", "glm_split2_kernel"] + sums,
                 "floor_wide": ["round_z_kernel", "glm_hopper_value_kernel<Floor, false>",
                                "glm_hopper_grad_kernel<false, true> (the walk)",

@@ -235,26 +235,50 @@ split2_cuda = _one_pass_variant("split2")
 def _mm1_pair_entry():
     fn = _build.load("glm_variants").glm_variant_mm1_pair
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 6 + [i] * 5 + [p]
+    fn.argtypes = [p] * 6 + [i] * 6 + [p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def mm1_pair_cuda(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor, tile_rows: int = 1024):
+def mm1_pair_plan(c: int, tile_rows: int = 1024, cluster: int = 0, device=None) -> dict:
+    """The cluster of CTAs that ``mm1_pair_cuda`` takes by default for ``c``
+    chains (one cluster a 64-chain tile), or ``cluster`` as given (1-8):
+    ``{"cluster": k, "resident": n}``, n the clusters of k CTAs that the
+    card holds at once (``cudaOccupancyMaxActiveClusters``); by default at
+    least the tiles unless k is 1."""
+    if tile_rows <= 0 or tile_rows % _ROW_TILE or not 0 <= cluster <= 8:
+        raise ValueError(f"tile_rows={tile_rows}, cluster={cluster}: a positive multiple of "
+                         f"{_ROW_TILE} and 0-8")
+    fn = _build.load("glm_variants").glm_variant_mm1_pair_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    k, n = ctypes.c_int(cluster), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(c, tile_rows, ctypes.byref(k), ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"glm_variant_mm1_pair_plan failed with CUDA error {err}")
+    return {"cluster": k.value, "resident": n.value}
+
+
+def mm1_pair_cuda(Xp: torch.Tensor, y: torch.Tensor, Z: torch.Tensor, tile_rows: int = 1024,
+                  cluster: int = 0):
     """Launch ``glm_variant_mm1_pair``: ``(ll (C,), g = 0 (C, D))`` over row
-    tiles of ``tile_rows`` rows (a multiple of 64); y is not read. Adds one
-    to ``mm1_pair_cuda.launches``."""
+    tiles of ``tile_rows`` rows (a multiple of 64), in clusters of
+    ``cluster`` CTAs a 64-chain tile (1-8; 0: :func:`mm1_pair_plan`'s; the
+    bits do not depend on it); y is not read. Adds one to
+    ``mm1_pair_cuda.launches``."""
     _check(Xp, None, Z)
     n, d_pad = Xp.shape
     c, d = Z.shape
-    if d_pad > glm._MAX_D_PAD or tile_rows <= 0 or tile_rows % _ROW_TILE:
-        raise ValueError(f"mm1_pair takes Dp <= {glm._MAX_D_PAD} and tile_rows a positive "
-                         f"multiple of {_ROW_TILE}; got Dp={d_pad}, tile_rows={tile_rows}")
+    if d_pad > glm._MAX_D_PAD or tile_rows <= 0 or tile_rows % _ROW_TILE or not 0 <= cluster <= 8:
+        raise ValueError(f"mm1_pair takes Dp <= {glm._MAX_D_PAD}, tile_rows a positive multiple of "
+                         f"{_ROW_TILE} and a cluster of 0-8; got Dp={d_pad}, tile_rows={tile_rows}, "
+                         f"cluster={cluster}")
     ws = glm._workspace(Xp, c, d)  # the one-pass plan's zb and tensor maps
     ll = torch.empty((c,), dtype=torch.float32, device=Xp.device)
     g = torch.empty((c, d), dtype=torch.float32, device=Xp.device)
     err = _mm1_pair_entry()(Xp.data_ptr(), Z.data_ptr(), ll.data_ptr(), g.data_ptr(),
-                            ws["zb"].data_ptr(), ws["maps"], n, d_pad, d, c, tile_rows,
+                            ws["zb"].data_ptr(), ws["maps"], n, d_pad, d, c, tile_rows, cluster,
                             torch.cuda.current_stream(Xp.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"glm_variant_mm1_pair launch failed with CUDA error {err}")

@@ -39,8 +39,9 @@ Tolerances as in ``chip_smoke.py``:
   1e-4 relative except chains with one bf16(ll) rounded the other way
   (``glm_variants.mm1_pair_agreement``; at most 0.5% of them, and at most
   0.1% within one f32 ulp of a bf16 boundary); two calls give the same
-  bits, and tanh_y's and tanh_hoist's chains 0 to k - 1 give the same bits
-  in a call with k = 4 or 129 chains as in the full call.
+  bits, and tanh_y's, tanh_hoist's, exp_hoist's and mm1_pair's chains 0 to
+  k - 1 give the same bits in a call with k = 4 or 129 chains as in the
+  full call; mm1_pair also at every cluster size.
 """
 
 import functools
@@ -488,10 +489,10 @@ def test_variant_kernels_match_plain_version(n, d_pad, c, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["tanh_y", "tanh_hoist"])
+@pytest.mark.parametrize("name", ["tanh_y", "tanh_hoist", "exp_hoist"])
 @pytest.mark.parametrize("n,d_pad,c", [(10_240, 128, 4096), (777, 112, 300)])
 def test_overlap_variants_are_reproducible_and_batch_invariant(n, d_pad, c, name):
-    # V4 and V5 (glm_overlap_kernel): two calls give the same bits, and
+    # V4, V5 and V6 (glm_overlap_kernel): two calls give the same bits, and
     # chains 0 to k - 1 of a call with k chains those of the full call.
     _need_gpu()
     Xp, yp, Z = _variant_case(n, d_pad, c)
@@ -535,6 +536,40 @@ def test_mm1_pair_kernel_matches_plain_version(n, d_pad, c, tile):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,d_pad,c,tile,cluster", [(640, 128, 4096, 64, 4), (777, 112, 300, 64, 4),
+                                                    (10_000, 128, 300, 256, 3), (10_000, 128, 300, 1024, 0)])
+def test_mm1_pair_clusters_are_reproducible_and_batch_invariant(n, d_pad, c, tile, cluster):
+    # mm1_pair's clusters: tiles of one stage on four CTAs (three hold no
+    # stage of a tile), N not a multiple of 64, C = 300. Against the plain
+    # version; two calls give the same bits, so do clusters of one CTA,
+    # and chains 0 to k - 1 of a call with k chains those of the full call.
+    _need_gpu()
+    Xp, yp, Z = _variant_case(n, d_pad, c)
+    _check_variant("mm1_pair", Xp, yp, Z, tile_rows=tile, cluster=cluster)
+
+    def call(z, k=cluster):
+        return glm_variants.mm1_pair_cuda(Xp, yp, z, tile_rows=tile, cluster=k)
+
+    a, b, one = call(Z), call(Z), call(Z, 1)
+    subs = {k: call(Z[:k].contiguous()) for k in (4, 129)}
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(x, y) for x, y in zip(a, one))
+    for k, sub in subs.items():
+        assert all(torch.equal(x[:k], y) for x, y in zip(a, sub)), k
+
+
+@pytest.mark.cuda
+def test_mm1_pair_plan_keeps_every_cluster_resident():
+    _need_gpu()
+    for c in (4096, 300):
+        for tile in (64, 256, 1024):
+            plan = glm_variants.mm1_pair_plan(c, tile)
+            assert 1 <= plan["cluster"] <= max(1, min(8, tile // 128))
+            assert plan["cluster"] == 1 or plan["resident"] >= -(-c // 64)
+
+
+@pytest.mark.cuda
 def test_variant_kernels_refuse_what_they_do_not_take():
     _need_gpu()
     Xp, yp, Z = _variant_case(256, 128, 8)
@@ -544,6 +579,8 @@ def test_variant_kernels_refuse_what_they_do_not_take():
         glm_variants.floor_cuda(Xp, yp, Z, rows_per_split=100)
     with pytest.raises(ValueError, match="tile_rows"):
         glm_variants.mm1_pair_cuda(Xp, yp, Z, tile_rows=100)
+    with pytest.raises(ValueError, match="cluster"):
+        glm_variants.mm1_pair_cuda(Xp, yp, Z, cluster=9)
     Xw, yw, Zw = _variant_case(256, 256, 8)
     for name in ("mm1_sum", "floor_nosum", "tanh_y", "tanh_hoist", "exp_hoist", "split2"):
         with pytest.raises(RuntimeError, match="CUDA error"):
